@@ -1,0 +1,170 @@
+"""SA-M4C top-level model: TextBERT + modality encoders + MMT + output heads
+(reference class SAM4C, sam/sa_m4c.py:20-371), and the full-recompute greedy
+decode (reference eval loop, sa_m4c.py:285-302).
+
+Submodule names give the reference ``state_dict`` keys, so a converted JAX
+tree (``utils.checkpoint.state_dict_from_jax``) or a reference checkpoint
+loads with ``load_state_dict(strict=True)``. Parameters stay float32; the
+forward computes in ``dtype`` (float32 or bfloat16).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..config import MMTConfig, TextBertConfig
+from .bert import TextBert
+from .encoders import ImageEncoder
+from .layers import Dense, LayerNormTF, l2_normalize
+from .mmt import MMT, OcrPtrNet
+
+
+class SAM4CParams(NamedTuple):
+    """The two model configs plus the answer-vocab size."""
+
+    mmt: MMTConfig
+    text_bert: TextBertConfig
+    num_answers: int
+
+
+class SAM4C(nn.Module):
+    def __init__(self, params_cfg: SAM4CParams, dtype: torch.dtype = torch.float32,
+                 attention_backend: str = "plain"):
+        super().__init__()
+        mmt_cfg, tb_cfg = params_cfg.mmt, params_cfg.text_bert
+        if mmt_cfg.use_aux_heads:
+            raise NotImplementedError("the aux spatial heads are not ported yet")
+        self.params_cfg = params_cfg
+        self.dtype = dtype
+        hidden = mmt_cfg.hidden_size
+        eps = mmt_cfg.layer_norm_eps
+        self.text_bert = TextBert(
+            vocab_size=tb_cfg.vocab_size, hidden_size=tb_cfg.hidden_size,
+            num_hidden_layers=tb_cfg.num_hidden_layers,
+            num_heads=tb_cfg.num_attention_heads,
+            intermediate_size=tb_cfg.intermediate_size,
+            layer_norm_eps=tb_cfg.layer_norm_eps,
+            max_position_embeddings=tb_cfg.max_position_embeddings,
+            type_vocab_size=tb_cfg.type_vocab_size,
+        )
+        # TextBERT -> MMT projection, only when the widths differ
+        # (reference sa_m4c.py:93-103)
+        self.text_bert_out_linear = (
+            Dense(tb_cfg.hidden_size, hidden) if tb_cfg.hidden_size != hidden else None
+        )
+        feat = mmt_cfg.obj_feature_size
+        self.obj_faster_rcnn_fc7 = ImageEncoder(mmt_cfg.frcn_encoder_type, feat, feat)
+        self.ocr_faster_rcnn_fc7 = ImageEncoder(mmt_cfg.frcn_encoder_type, feat, feat)
+        self.linear_obj_feat_to_mmt_in = Dense(feat, hidden)
+        self.linear_obj_bbox_to_mmt_in = Dense(4, hidden)
+        self.obj_feat_layer_norm = LayerNormTF(hidden, eps)
+        self.obj_bbox_layer_norm = LayerNormTF(hidden, eps)
+        # OCR features: [fasttext 300 | phoc 604 | fc7 | zeros 50]
+        ocr_in = (300 + 604 if mmt_cfg.use_phoc_fasttext else 0) + feat + 50
+        self.linear_ocr_feat_to_mmt_in = Dense(ocr_in, hidden)
+        self.linear_ocr_bbox_to_mmt_in = Dense(4, hidden)
+        self.ocr_feat_layer_norm = LayerNormTF(hidden, eps)
+        self.ocr_bbox_layer_norm = LayerNormTF(hidden, eps)
+        self.mmt = MMT(mmt_cfg, attention_backend)
+        self.ocr_ptr_net = OcrPtrNet(hidden, mmt_cfg.ptr_query_size)
+        # the classifier weight doubles as the decoder's answer embedding
+        # table (weight tying, reference sa_m4c.py:266)
+        self.classifier = Dense(hidden, params_cfg.num_answers)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "SAM4C":
+        """Random init from an explicit generator (on the parameters'
+        device): every Linear and Embedding weight ~ normal(0, 0.02), biases
+        zero, LayerNorms at identity."""
+        for module in self.modules():
+            if isinstance(module, (nn.Linear, nn.Embedding)):
+                module.weight.normal_(0.0, 0.02, generator=generator)
+                if isinstance(module, nn.Linear) and module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, LayerNormTF):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+        return self
+
+    # ----- modality encoders (decode-invariant) -----
+
+    def encode(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Everything that does not depend on the previous predictions."""
+        cfg = self.params_cfg.mmt
+        dt = self.dtype
+        obj_feat = self.obj_faster_rcnn_fc7(batch["pad_obj_features"].to(dt))
+        if cfg.normalize:
+            obj_feat = l2_normalize(obj_feat)
+        obj_bbox = batch["pad_obj_bboxes"][..., :4].to(dt)  # drop the area column
+        obj_mmt_in = self.obj_feat_layer_norm(
+            self.linear_obj_feat_to_mmt_in(obj_feat)
+        ) + self.obj_bbox_layer_norm(self.linear_obj_bbox_to_mmt_in(obj_bbox))
+
+        ocr_fasttext = batch["ocr_fasttext"].to(dt)
+        ocr_phoc = batch["ocr_phoc"].to(dt)
+        ocr_fc7 = self.ocr_faster_rcnn_fc7(batch["pad_ocr_features"].to(dt))
+        if cfg.normalize:
+            ocr_fasttext = l2_normalize(ocr_fasttext)
+            ocr_phoc = l2_normalize(ocr_phoc)
+            ocr_fc7 = l2_normalize(ocr_fc7)
+        b, n_ocr = ocr_fc7.shape[:2]
+        order_vectors = ocr_fc7.new_zeros(b, n_ocr, 50)  # legacy, all-zero
+        parts = [ocr_fasttext, ocr_phoc] if cfg.use_phoc_fasttext else []
+        ocr_feat = torch.cat(parts + [ocr_fc7, order_vectors], dim=-1)
+        ocr_bbox = batch["pad_ocr_bboxes"][..., :4].to(dt)
+        ocr_mmt_in = self.ocr_feat_layer_norm(
+            self.linear_ocr_feat_to_mmt_in(ocr_feat)
+        ) + self.ocr_bbox_layer_norm(self.linear_ocr_bbox_to_mmt_in(ocr_bbox))
+
+        text_bert_out = self.text_bert(
+            batch["question_indices"], batch["question_mask"], dt
+        )
+        if self.text_bert_out_linear is not None:
+            text_bert_out = self.text_bert_out_linear(text_bert_out)
+        return {
+            "text_bert_emb": text_bert_out,
+            "obj_mmt_in": obj_mmt_in,
+            "ocr_mmt_in": ocr_mmt_in,
+        }
+
+    def decode_step(self, encodings, batch, prev_inds) -> Dict[str, torch.Tensor]:
+        """One MMT + output-heads pass for given previous predictions."""
+        dt = self.dtype
+        out = self.mmt(
+            encodings["text_bert_emb"], encodings["obj_mmt_in"], encodings["ocr_mmt_in"],
+            self.classifier.weight, prev_inds, batch["question_mask"],
+            batch["pad_obj_mask"], batch["pad_ocr_mask"], batch["spatial_classes"],
+        )
+        fixed_scores = self.classifier(out["mmt_dec_output"])
+        dynamic_scores = self.ocr_ptr_net(
+            out["mmt_dec_output"], out["mmt_ocr_output"], batch["pad_ocr_mask"].to(dt)
+        )
+        out["scores"] = torch.cat([fixed_scores, dynamic_scores], dim=-1)
+        return out
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Teacher-forced forward on ``train_prev_inds``."""
+        return self.decode_step(self.encode(batch), batch, batch["train_prev_inds"])
+
+
+@torch.no_grad()
+def greedy_decode(model: SAM4C, batch: Dict[str, torch.Tensor],
+                  bos_idx: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy decoding with a full MMT recompute per step (reference eval
+    loop, sa_m4c.py:285-302): prev_inds starts as [BOS, 0, ..., 0]; each
+    step shifts the argmax into prev_inds[:, 1:]. Returns (final scores
+    (B, T, V+O), pred ids (B, T))."""
+    num_steps = model.params_cfg.mmt.num_decoding_steps
+    encodings = model.encode(batch)
+    b = batch["question_indices"].shape[0]
+    device = batch["question_indices"].device
+    prev_inds = torch.zeros(b, num_steps, dtype=torch.long, device=device)
+    prev_inds[:, 0] = bos_idx
+    scores: Optional[torch.Tensor] = None
+    for _ in range(num_steps):
+        scores = model.decode_step(encodings, batch, prev_inds)["scores"]
+        prev_inds[:, 1:] = scores.argmax(-1)[:, :-1]
+    return scores, scores.argmax(-1)

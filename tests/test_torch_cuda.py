@@ -1,0 +1,159 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips without a CUDA device. Imports only torch and
+the port, so it runs where JAX is absent:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerances: f32 differs from the plain version only in summation order
+(1e-4 after up to 6 layers); bf16 rounds the same values at the same places
+but sums in another order, so single bf16 ulps may differ (3e-2 absolute
+on unit-scale attention outputs, 0.25 on unit-scale LayerNorm outputs after
+6 layers, with a mean below 1e-2).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from sam_textvqa_tpu_torch.config import task_config_from_dict
+from sam_textvqa_tpu_torch.data.synthetic import device_batch, make_batch
+from sam_textvqa_tpu_torch.models.fast_decode import greedy_decode_fast
+from sam_textvqa_tpu_torch.models.sa_m4c import SAM4C, SAM4CParams
+from sam_textvqa_tpu_torch.ops import cuda_build
+from sam_textvqa_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from sam_textvqa_tpu_torch.ops.decode_step import (WEIGHT_NAMES, decode_step_fused,
+                                                   decode_step_plain)
+from sam_textvqa_tpu_torch.ops.fused_attention import spatial_attention, spatial_attention_plain
+from sam_textvqa_tpu_torch.ops.spatial_graph import build_spatial_graph, relation_head_lut
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _spatial_inputs(rng, b, h, q_len, n_ctx, dec_len, d, dev):
+    length = q_len + n_ctx + dec_len
+    q, k, v = (torch.from_numpy(rng.randn(b, h, length, d).astype(np.float32)).to(dev)
+               for _ in range(3))
+    boxes = rng.rand(b, n_ctx, 4)
+    boxes[..., 2:] = boxes[..., :2] + 0.3 * boxes[..., 2:]
+    boxes[:, n_ctx - n_ctx // 5:] = 0  # padded regions
+    classes = torch.from_numpy(build_spatial_graph(boxes)).to(dev)
+    lut = torch.tensor(relation_head_lut("3")[:, :h], dtype=torch.float32, device=dev)
+    col_mask = (rng.rand(b, length) < 0.85).astype(np.float32)
+    col_mask[:, length - dec_len:] = 0.0
+    col_mask[0, :q_len] = 0.0  # a row band whose spatial heads see nothing
+    return q, k, v, classes, lut, torch.from_numpy(col_mask).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(3, 12, 20, 150, 12, 64), (2, 4, 6, 14, 4, 16),
+                                   (2, 12, 20, 150, 0, 64)])
+@pytest.mark.parametrize("quadrants", [(1, 2), (1, 2, 4, 7, 8, 9)])
+@pytest.mark.parametrize("spatial", [True, False])
+def test_spatial_attention_matches_plain(dev, shape, quadrants, spatial):
+    b, h, q_len, n_ctx, dec_len, d = shape
+    args = _spatial_inputs(np.random.RandomState(0), b, h, q_len, n_ctx, dec_len, d, dev)
+    kw = dict(q_len=q_len, n_ctx=n_ctx, dec_len=dec_len, mask_quadrants=quadrants,
+              spatial=spatial)
+    before = cuda_build.launch_counts()["spatial_attention"]
+    out = spatial_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts()["spatial_attention"] == before + 1
+    ref = spatial_attention_plain(*args, **kw)
+    err = (out - ref).abs().max().item()
+    assert err < 1e-4, err
+
+
+def _decode_inputs(rng, b, d, le, t_max, q_len, n_obj, dtype, dev, layers=None):
+    lead = () if layers is None else (layers,)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
+
+    n_ocr = le - q_len - n_obj
+    seg = np.stack([rng.randint(1, q_len + 1, b), rng.randint(0, n_obj + 1, b),
+                    rng.randint(0, n_ocr + 1, b)], axis=1).astype(np.int32)
+    return (rand(*lead, b, le, d), rand(*lead, b, le, d), rand(*lead, b, t_max, d),
+            rand(*lead, b, t_max, d), torch.from_numpy(seg).to(dev))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("step", [0, 7, 11])
+def test_decode_attention_matches_plain(dev, dtype, tol, step):
+    rng = np.random.RandomState(step)
+    b, d, hd, le, t_max, q_len, n_obj = 5, 768, 64, 170, 12, 20, 100
+    k_enc, v_enc, k_dec, v_dec, seg = _decode_inputs(rng, b, d, le, t_max, q_len, n_obj,
+                                                     dtype, dev)
+    q = torch.from_numpy(rng.randn(b, d).astype(np.float32)).to(dev, dtype)
+    t = torch.tensor([step], dtype=torch.int32, device=dev)
+    kw = dict(hd=hd, q_len=q_len, n_obj=n_obj)
+    out = decode_attention(q, k_enc, v_enc, k_dec, v_dec, seg, t, **kw)
+    ref = decode_attention_plain(q, k_enc, v_enc, k_dec, v_dec, seg, t, **kw)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err < tol, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_step_matches_plain(dev, dtype):
+    rng = np.random.RandomState(1)
+    n_layers, b, d, f, hd, le, t_max, q_len, n_obj = 2, 5, 256, 512, 64, 30, 4, 6, 14
+    k_enc, v_enc, k_dec, v_dec, seg = _decode_inputs(rng, b, d, le, t_max, q_len, n_obj,
+                                                     dtype, dev, layers=n_layers)
+    shapes = {"wqkv": (3 * d, d), "bqkv": (3 * d,), "wout": (d, d), "bout": (d,),
+              "wff1": (f, d), "bff1": (f,), "wff2": (d, f), "bff2": (d,)}
+    w = {}
+    for name in WEIGHT_NAMES:
+        if name.startswith("ln"):
+            base = 1.0 if name.endswith("w") else 0.0
+            w[name] = torch.from_numpy(
+                (base + 0.1 * rng.randn(n_layers, d)).astype(np.float32)).to(dev)
+        else:
+            w[name] = torch.from_numpy(
+                (0.05 * rng.randn(n_layers, *shapes[name])).astype(np.float32)).to(dev, dtype)
+    x0 = torch.from_numpy(rng.randn(b, d).astype(np.float32)).to(dev, dtype)
+    t = torch.tensor([2], dtype=torch.int32, device=dev)
+    kw = dict(hd=hd, q_len=q_len, n_obj=n_obj)
+    kd2, vd2 = k_dec.clone(), v_dec.clone()
+    out = decode_step_fused(t, seg, x0, *w.values(), k_enc, v_enc, k_dec, v_dec, **kw)
+    ref = decode_step_plain(t, seg, x0, *w.values(), k_enc, v_enc, kd2, vd2, **kw)
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() < 1e-4, diff.max().item()
+    else:
+        assert diff.max().item() < 0.25 and diff.mean().item() < 1e-2, (
+            diff.max().item(), diff.mean().item())
+    # the in-place K/V row writes (layer 0 sees the same input in both; the
+    # QKV product sums in another order than the plain matmul)
+    row_tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for mine, plain in ((k_dec, kd2), (v_dec, vd2)):
+        err = (mine[0].float() - plain[0].float()).abs().max().item()
+        assert err < row_tol, err
+
+
+def test_greedy_backends_agree_on_card(dev):
+    cfg = task_config_from_dict({"SA-M4C": {}, "TextBERT": {"num_hidden_layers": 1}})
+    mmt = dataclasses.replace(
+        cfg.mmt, hidden_size=256, intermediate_size=512, ptr_query_size=256,
+        max_obj_num=12, max_ocr_num=8, num_decoding_steps=5, max_seq_length=6,
+        num_attention_heads=4, num_spatial_relations=4,
+    )
+    tb = dataclasses.replace(cfg.text_bert, hidden_size=256, intermediate_size=512,
+                             num_attention_heads=4)
+    task = dataclasses.replace(cfg, mmt=mmt, text_bert=tb)
+    model = SAM4C(SAM4CParams(mmt, tb, 40)).init_weights(torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    batch = device_batch(make_batch(task, 6, num_answers_vocab=40), dev)
+    s_p, p_p = greedy_decode_fast(model, batch, 1, backend="plain")
+    for backend in ("fused", "mega"):
+        s_k, p_k = greedy_decode_fast(model, batch, 1, backend=backend)
+        assert torch.equal(p_k, p_p), backend
+        assert (s_k - s_p).abs().max().item() < 1e-4, backend
