@@ -10,22 +10,32 @@ Phases (any failure ends the run with a nonzero exit and no result line):
 1. build the CUDA kernels from ``sam_textvqa_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once) and print the card's name and power limit;
 2. per kernel, at the c3 serving shapes with batch 32: the kernel against
-   its plain PyTorch version (f32 and, where the kernel takes it, bf16), and
-   the kernel's, the plain version's and one library call's time (CUDA
-   events after warmup); the least time the card could take (``bound_ms``)
-   is computed from this run's inputs;
+   its plain PyTorch version in f32 and bf16 (the spatial attention on the
+   ``split_heads`` views the model passes), and the kernel's, the plain
+   version's and one library call's time in bf16, the serving dtype: the
+   eager time per call back to back between CUDA events (``ms``,
+   ``plain_ms``, ``library_ms``: the wrapper's host work included, as in
+   the first slice), the device time per call from a replayed CUDA graph
+   (``device_ms``, ``library_device_ms``), and the host's time per call
+   (``host_ms``, ``library_host_ms``); the least time the card could take
+   (``bound_ms``) is computed from this run's inputs;
 3. the main path at the full width of the c3 model (random weights from a
    seed): the ``ServingEngine`` is warmed, the launch counts are zeroed, it
    answers 64 synthetic requests over buckets (1, 8, 32) in bf16 with
    backend ``auto`` (= ``mega``), and the counts are read: the spatial
-   attention (encoder-cache pass) and the decode step must have launched.
+   attention (encoder-cache pass, in bf16) and the decode step must have
+   launched.
    The same is done for the ``fused`` serving path with 32 requests, where
    the spatial attention and the decode attention must have launched. Then
    the first 32 requests go through the ``plain``, ``fused`` and ``mega``
-   decodes (bf16 answer agreement is printed), and in f32 the three
-   backends must give identical ids and the full forward with the kernel
-   attention must match the plain one;
-4. one JSON line of the kernels, then the result line
+   decodes (bf16 answer agreement is printed) and one bf16 ``mega`` and
+   one ``fused`` decode of them are timed;
+4. after every timed phase, ``torch.profiler`` device time by kernel of one
+   spatial-attention call (code pass and attention) and of one bf16
+   ``mega`` decode of the batch (with the card's idle share); then in f32
+   the three backends must give identical ids and the full forward with
+   the kernel attention must match the plain one;
+5. one JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX, and exits nonzero without a CUDA device.
@@ -34,6 +44,7 @@ It imports nothing of JAX, and exits nonzero without a CUDA device.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -45,6 +56,7 @@ import torch.nn.functional as F
 
 from sam_textvqa_tpu_torch.config import load_task_config
 from sam_textvqa_tpu_torch.evaluation.metrics import decode_predictions
+from sam_textvqa_tpu_torch.models.bert import split_heads
 from sam_textvqa_tpu_torch.models.fast_decode import (_mega_step_consts, _seg_lens,
                                                       build_mmt_cache, greedy_decode_fast)
 from sam_textvqa_tpu_torch.ops import cuda_build
@@ -65,19 +77,22 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "train-tvqa-eval-tvqa-c3.yml"
 BATCH = 32
 REQUESTS = 64
-# H100 SXM published peaks (dense): HBM bytes/s; f32 CUDA-core and bf16
-# tensor-core operations/s
+# H100 SXM published peaks (dense): HBM bytes/s; f32 CUDA-core, TF32 and
+# bf16 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_OPS = {torch.float32: 67e12, "tf32": 495e12, torch.bfloat16: 989e12}
 # kernel-vs-plain tolerances (max abs): f32 differs only in summation order;
 # bf16 rounds at the same places but sums in another order, so single bf16
 # ulps may differ (on unit-scale attention outputs, and on LayerNorm outputs
 # of up to a few units after 6 layers for the decode step)
 TOL = {
-    "spatial_attention": {torch.float32: 1e-4},
+    # bf16 spatial attention rounds once at its output: one ulp of values
+    # below 4, and a mean that only a near-f32 P.V holds
+    "spatial_attention": {torch.float32: 1e-4, torch.bfloat16: 1.6e-2},
     "decode_attention": {torch.float32: 1e-5, torch.bfloat16: 3e-2},
     "decode_step": {torch.float32: 1e-4, torch.bfloat16: 0.25},
 }
+MEAN_TOL = {"spatial_attention": {torch.bfloat16: 1e-4}}
 REPLACES = {
     "spatial_attention": "sam_textvqa_tpu/ops/fused_attention.py:262",
     "decode_attention": "sam_textvqa_tpu/ops/decode_attention.py:167",
@@ -104,10 +119,114 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float, dtype) -> tuple:
-    """(least ms the card could take, what bounds it)."""
+def ptxas_summary(text: str) -> list:
+    """'<kernel and template args, mangled>: <registers>, <spill report>' for
+    each kernel in a ``-Xptxas -v`` log."""
+    out, entry, spill = [], None, ""
+    for ln in text.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", ln)
+        if found:
+            entry, spill = found.group(1), ""
+        elif "spill" in ln:
+            spill = ln.strip()
+        found = re.search(r"Used (\d+) registers", ln)
+        if found and entry:
+            name = re.search(r"\d+(\w*kernel\w{0,32})", entry)  # name and template args
+            out.append(f"{name.group(1) if name else entry[:60]}: {found.group(1)} registers, "
+                       f"{spill}")
+            entry = None
+    return out
+
+
+def graph_ms(fn, calls: int = 10, replays: int = 10) -> float:
+    """Mean device milliseconds per call: ``calls`` calls captured in one
+    CUDA graph and replayed ``replays`` times (CUDA events), so the host's
+    work per call (argument checks, the ctypes call) is not in the time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def host_ms(fn, calls: int = 20, warmup: int = 3) -> float:
+    """Mean host milliseconds per call, with no synchronisation among the
+    calls: what the caller's thread spends in ``fn`` (checks, allocation,
+    launch) while the card works behind it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / calls
+
+
+def times(kernel, plain, library) -> dict:
+    """Eager time per call back to back (``ms``, ``plain_ms``,
+    ``library_ms``: :func:`cuda_ms`, host work included), device time per
+    call (``device_ms``, ``library_device_ms``: :func:`graph_ms`) and host
+    time per call (``host_ms``, ``library_host_ms``). The plain version
+    reads values back to the host, so it cannot be captured."""
+    out = dict(ms=cuda_ms(kernel), device_ms=graph_ms(kernel), host_ms=host_ms(kernel),
+               plain_ms=cuda_ms(plain), library_ms=None, library_device_ms=None,
+               library_host_ms=None)
+    if library is not None:
+        out.update(library_ms=cuda_ms(library), library_device_ms=graph_ms(library),
+                   library_host_ms=host_ms(library))
+    return out
+
+
+def device_profile(fn) -> dict:
+    """Device time by kernel over one call of ``fn`` (``torch.profiler``),
+    the span from the first kernel's start to the last one's end, and the
+    share of that span in which no kernel ran."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return {"device_time": "not measured: the profiler recorded no device events"}
+    busy, run_start, run_end = 0.0, spans[0][0], spans[0][1]
+    by_name: dict = {}
+    for start, end, name in spans:
+        total, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + end - start, count + 1)
+        if start > run_end:
+            busy += run_end - run_start
+            run_start = start
+        run_end = max(run_end, end)
+    busy += run_end - run_start
+    span = max(end for _, end, _ in spans) - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    return dict(span_ms=span / 1e3, busy_ms=busy / 1e3, idle_share=1.0 - busy / span,
+                kernels=[{"name": name[:100], "ms": total / 1e3, "count": count}
+                         for name, (total, count) in top])
+
+
+def bound(nbytes: float, ops: float, peak) -> tuple:
+    """(least ms the card could take, what bounds it); ``peak`` is a key of
+    ``PEAK_OPS``."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[dtype]
+    t_ops = ops / PEAK_OPS[peak]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -115,11 +234,19 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def check(name: str, dtype, err: float) -> None:
+def mean_err(a, b) -> float:
+    return (a.float() - b.float()).abs().mean().item()
+
+
+def check(name: str, dtype, err: float, mean: float = None) -> None:
     tol = TOL[name][dtype]
-    log(f"  {name} {str(dtype)[6:]}: max_abs_err {err:.3g} (tol {tol})")
+    mean_tol = MEAN_TOL.get(name, {}).get(dtype)
+    extra = "" if mean_tol is None else f", mean_abs_err {mean:.3g} (tol {mean_tol})"
+    log(f"  {name} {str(dtype)[6:]}: max_abs_err {err:.3g} (tol {tol}){extra}")
     if not err <= tol:
         raise AssertionError(f"{name} {dtype}: kernel differs from plain by {err} > {tol}")
+    if mean_tol is not None and not mean <= mean_tol:
+        raise AssertionError(f"{name} {dtype}: mean difference {mean} > {mean_tol}")
 
 
 def rand(gen, *shape, dtype=torch.float32, dev="cuda"):
@@ -137,34 +264,58 @@ def bench_spatial_attention(task, batch, gen) -> dict:
     enc_mask = torch.cat([batch["question_mask"], batch["pad_obj_mask"],
                           batch["pad_ocr_mask"]], dim=1).float()
     b = enc_mask.shape[0]
-    err = 0.0
+    out = {}
     # the encoder-cache pass (dec_len 0) is the serving path; the full
-    # forward (dec_len 12) is checked too
+    # forward (dec_len 12) is checked too. q/k/v are split_heads views of
+    # (B, L, H*hd) projections, as the model passes them.
     for dec_len in (mmt.num_decoding_steps, 0):
         length = q_len + n_ctx + dec_len
         col_mask = torch.cat([enc_mask, enc_mask.new_zeros(b, dec_len)], dim=1)
-        q, k, v = (rand(gen, b, h, length, d) for _ in range(3))
-        args = (q, k, v, classes, lut, col_mask)
+        proj = [rand(gen, b, length, h * d) for _ in range(3)]
         kw = dict(q_len=q_len, n_ctx=n_ctx, dec_len=dec_len,
                   mask_quadrants=tuple(mmt.attention_mask_quadrants), spatial=True)
-        err_l = max_err(spatial_attention(*args, **kw), spatial_attention_plain(*args, **kw))
-        check("spatial_attention", torch.float32, err_l)
-        err = max(err, err_l)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (*(split_heads(x.to(dtype), h) for x in proj), classes, lut, col_mask)
+            mine, plain = spatial_attention(*args, **kw), spatial_attention_plain(*args, **kw)
+            err, mean = max_err(mine, plain), mean_err(mine, plain)
+            check("spatial_attention", dtype, err, mean)
+            name = str(dtype)[6:]
+            out[f"max_abs_err_{name}"] = max(out.get(f"max_abs_err_{name}", 0.0), err)
+            out[f"mean_abs_err_{name}"] = max(out.get(f"mean_abs_err_{name}", 0.0), mean)
+    # times at the serving shapes (dec_len 0): bf16 in the row, f32 printed
     ok = combined_permission(classes, lut, col_mask, num_heads=h, **kw)
-    mask = torch.where(ok, 0.0, -10000.0)
-    nbytes = 4 * q.numel() * 4 + classes.numel() + col_mask.numel() * 4 + lut.numel() * 4
     ops = 4.0 * b * h * length * length * d
-    bound_ms, bound_by = bound(nbytes, ops, torch.float32)
-    out = dict(
-        max_abs_err=err, dtype="float32",
-        shape=f"q/k/v ({b},{h},{length},{d}) f32, classes ({b},{n_ctx},{n_ctx}) int8",
-        ms=cuda_ms(lambda: spatial_attention(*args, **kw)),
-        plain_ms=cuda_ms(lambda: spatial_attention_plain(*args, **kw)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
-        library="F.scaled_dot_product_attention with a materialized (B,H,L,L) f32 mask",
-        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
+    by_dtype = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (*(split_heads(x.to(dtype), h) for x in proj), classes, lut, col_mask)
+        q, k, v = args[:3]
+        mask = torch.where(ok, 0.0, -10000.0).to(dtype)
+        nbytes = (4 * q.numel() * q.element_size() + classes.numel()
+                  + 4 * col_mask.numel() + 4 * lut.numel())
+        # f32 runs three TF32 tensor-core products per product
+        bound_ms, bound_by = bound(nbytes, ops if dtype == torch.bfloat16 else 3 * ops,
+                                   dtype if dtype == torch.bfloat16 else "tf32")
+        by_dtype[dtype] = dict(
+            **times(lambda: spatial_attention(*args, **kw),
+                    lambda: spatial_attention_plain(*args, **kw),
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+        )
+    f32 = by_dtype[torch.float32]
+    log(f"  spatial_attention float32 at ({b},{h},{length},{d}): kernel {f32['ms']:.4f} ms "
+        f"(device {f32['device_ms']:.4f}), plain {f32['plain_ms']:.4f} ms, "
+        f"F.scaled_dot_product_attention f32 {f32['library_ms']:.4f} ms "
+        f"(device {f32['library_device_ms']:.4f}), bound {f32['bound_ms']:.4f} ms "
+        f"({f32['bound_by']}, three TF32 products at 495 TFLOP/s)")
+    out.update(
+        max_abs_err=out["max_abs_err_bfloat16"], dtype="bfloat16",
+        shape=f"q/k/v split_heads views ({b},{h},{length},{d}) bf16, "
+              f"classes ({b},{n_ctx},{n_ctx}) int8",
+        library="F.scaled_dot_product_attention in bf16 with a materialized (B,H,L,L) "
+                "bf16 mask",
+        ops=ops, f32=f32, **by_dtype[torch.bfloat16],
     )
-    return out
+    return out, lambda: spatial_attention(*args, **kw)  # the bf16 call, for the profile
 
 
 def _n_valid(seg, t):
@@ -207,10 +358,9 @@ def bench_decode_attention(task, seg, gen) -> dict:
     out.update(
         max_abs_err=out["max_abs_err_bfloat16"], dtype="bfloat16",
         shape=f"q ({b},{d}), enc K/V ({b},{le},{d}), dec K/V ({b},{t_max},{d}) bf16, t={step}",
-        ms=cuda_ms(lambda: decode_attention(*args, **kw)),
-        plain_ms=cuda_ms(lambda: decode_attention_plain(*args, **kw)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q4, k_all, v_all,
-                                                                  attn_mask=lib_mask)),
+        **times(lambda: decode_attention(*args, **kw),
+                lambda: decode_attention_plain(*args, **kw),
+                lambda: F.scaled_dot_product_attention(q4, k_all, v_all, attn_mask=lib_mask)),
         library="F.scaled_dot_product_attention over pre-concatenated [enc; dec] K/V "
                 "with a materialized f32-valued bf16 mask",
         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
@@ -255,11 +405,11 @@ def bench_decode_step(task, model, seg, gen) -> dict:
         max_abs_err=out["max_abs_err_bfloat16"], dtype="bfloat16",
         shape=f"{n_layers} layers, x ({b},{d}), FFN {f}, enc K/V ({n_layers},{b},{le},{d}) "
               f"bf16, t={step}",
-        ms=cuda_ms(lambda: decode_step_fused(t, seg, x0, *weights, k_enc, v_enc, k_dec,
-                                             v_dec, **kw)),
-        plain_ms=cuda_ms(lambda: decode_step_plain(t, seg, x0, *weights, k_enc, v_enc, kd2,
-                                                   vd2, **kw)),
-        library_ms=None, library=None,
+        **times(lambda: decode_step_fused(t, seg, x0, *weights, k_enc, v_enc, k_dec, v_dec,
+                                          **kw),
+                lambda: decode_step_plain(t, seg, x0, *weights, k_enc, v_enc, kd2, vd2, **kw),
+                None),
+        library=None,
         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
     )
     return out
@@ -273,7 +423,8 @@ def stack(samples, dev):
 
 def serve_path(model, vocab, samples, backend: str, n: int):
     """One serving run: warm the engine, zero the launch counts, answer ``n``
-    requests, read the counts. Returns (stats, launches, warmup seconds)."""
+    requests, read the counts. Returns (stats, launches, launches by dtype,
+    warmup seconds)."""
     engine = ServingEngine(model, vocab, buckets=(1, 8, 32), decode_backend=backend,
                            device=torch.device("cuda"))
     t0 = time.monotonic()
@@ -285,15 +436,15 @@ def serve_path(model, vocab, samples, backend: str, n: int):
     finally:
         engine.close()
     torch.cuda.synchronize()
-    launches = cuda_build.launch_counts()
+    launches, by_dtype = cuda_build.launch_counts(), cuda_build.launch_counts_by_dtype()
     if stats["errors"] or stats["requests"] != n:
         raise AssertionError(f"serving with {backend} failed: {stats}")
     stats["decode_backend"] = engine.decode_backend
-    return stats, launches, warmup_s
+    return stats, launches, by_dtype, warmup_s
 
 
 def require_launched(launches, names, path):
-    missing = [k for k in names if launches[k] == 0]
+    missing = [k for k in names if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: {missing}")
 
@@ -304,11 +455,13 @@ def main_path(task, vocab, model, samples) -> dict:
     then K2 per layer and step), each with its own launch counts; then the
     same batch through the three decode backends, outside any count."""
     bos, eos = vocab.special_ids().bos, vocab.special_ids().eos
-    stats, launches, warmup_s = serve_path(model, vocab, samples, "auto", REQUESTS)
+    stats, launches, by_dtype, warmup_s = serve_path(model, vocab, samples, "auto", REQUESTS)
     if stats["decode_backend"] != "mega":
         raise AssertionError(f"auto resolved to {stats['decode_backend']}, expected mega")
     require_launched(launches, ("spatial_attention", "decode_step"), "auto (mega) serving")
-    f_stats, f_launches, _ = serve_path(model, vocab, samples, "fused", BATCH)
+    # the serving dtype goes into K1 as it is, with no f32 copy of q/k/v
+    require_launched(by_dtype, ("spatial_attention:bfloat16",), "auto (mega) serving")
+    f_stats, f_launches, _, _ = serve_path(model, vocab, samples, "fused", BATCH)
     require_launched(f_launches, ("spatial_attention", "decode_attention"), "fused serving")
 
     batch = stack(samples[:BATCH], torch.device("cuda"))
@@ -336,11 +489,15 @@ def main_path(task, vocab, model, samples) -> dict:
             decode_ms=cuda_ms(lambda: greedy_decode_fast(model, batch, bos, backend="mega"),
                               iters=5, warmup=1),
             encode_and_cache_ms=cuda_ms(encode_and_cache, iters=5, warmup=1),
+            fused_decode_ms=cuda_ms(
+                lambda: greedy_decode_fast(model, batch, bos, backend="fused"),
+                iters=5, warmup=1),
         )
     keys = ("samples_per_s", "latency_ms_p50", "latency_ms_p95", "latency_ms_p99", "wall_s",
             "batches", "occupancy", "padded_rows")
     return dict(
         serving={k: stats[k] for k in keys}, warmup_s=warmup_s, launches=launches,
+        launches_by_dtype=by_dtype,
         fused_serving={k: f_stats[k] for k in keys}, fused_launches=f_launches,
         bf16_answer_agreement_vs_plain=agree, bf16_token_agreement_vs_plain=token_agree,
         breakdown_b32=breakdown, batch=batch, ids_mega_bf16=ids["mega"],
@@ -374,6 +531,7 @@ def f32_checks(task, vocab, model, batch, prev_ids) -> dict:
         raise AssertionError(f"f32 full forward kernel vs plain: {fwd_err}, {fwd_agree}")
     return dict(f32_greedy_ids_identical=True, f32_score_max_abs_err_vs_plain=score_err,
                 f32_forward_kernel_vs_plain_max_abs_err=fwd_err,
+                f32_forward_max_abs_score=out["plain"].abs().max().item(),
                 f32_forward_argmax_agreement=fwd_agree)
 
 
@@ -389,8 +547,7 @@ def main() -> int:
     secs = cuda_build.build_all()
     log(f"build seconds per kernel (parallel nvcc): {json.dumps(secs)}")
     for name, text in cuda_build.build_logs.items():
-        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
-        log(f"  {name}: " + " | ".join(sorted(set(regs))))
+        log(f"  {name}: " + " | ".join(ptxas_summary(text)))
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -406,18 +563,32 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     log("== phase 2: kernels vs plain, times")
+    spatial, spatial_call = bench_spatial_attention(task, batch, gen)
     kernels = {
-        "spatial_attention": bench_spatial_attention(task, batch, gen),
+        "spatial_attention": spatial,
         "decode_attention": bench_decode_attention(task, seg, gen),
         "decode_step": bench_decode_step(task, model, seg, gen),
     }
 
     log("== phase 3: main path (serving, c3, bf16, auto backend)")
     main = main_path(task, vocab, model, samples)
+    # eager kernel times against the eager decode time, as in the first
+    # slice; the device times beside them
+    breakdown = main["breakdown_b32"]
     steps = task.mmt.num_decoding_steps
-    main["breakdown_b32"]["decode_step_kernels_ms"] = steps * kernels["decode_step"]["ms"]
-    main["breakdown_b32"]["decode_step_share"] = (
-        steps * kernels["decode_step"]["ms"] / main["breakdown_b32"]["decode_ms"])
+    n_spatial = task.mmt.layer_type_list.count("s")  # K1 launches per encoder-cache pass
+    for name, n in (("decode_step", steps), ("spatial_attention", n_spatial)):
+        breakdown[f"{name}_kernels_ms"] = n * kernels[name]["ms"]
+        breakdown[f"{name}_kernels_device_ms"] = n * kernels[name]["device_ms"]
+    breakdown["decode_step_share"] = breakdown["decode_step_kernels_ms"] / breakdown["decode_ms"]
+    # profiles come after every timed phase, so that no timing runs after
+    # the profiler has been started in this process
+    log("== phase 4: device profiles (K1 call, B=32 bf16 mega decode)")
+    split = device_profile(spatial_call)
+    kernels["spatial_attention"]["device_split"] = split.get("kernels", split)
+    main["profile_b32"] = device_profile(
+        lambda: greedy_decode_fast(model, main["batch"], vocab.special_ids().bos,
+                                   backend="mega"))
     log(json.dumps({k: v for k, v in main.items() if k not in ("batch", "ids_mega_bf16")}))
     checks = f32_checks(task, vocab, model, main["batch"], main["ids_mega_bf16"])
     log(json.dumps(checks))

@@ -140,7 +140,6 @@ int decode_step(const int* t, const int* seg_lens, const T* x0, const T* wqkv,
   T* xbuf = out2 + B * D;
   const int H = D / hd;
   const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  const size_t attn_smem = sam::decode_attention_smem(hd, le, t_max);
   const size_t ln_smem = sizeof(float) * D;
   const size_t enc_layer = static_cast<size_t>(B) * le * D;
   const size_t dec_layer = static_cast<size_t>(B) * t_max * D;
@@ -150,10 +149,11 @@ int decode_step(const int* t, const int* seg_lens, const T* x0, const T* wqkv,
     const size_t fd = static_cast<size_t>(l) * F * D;
     gemm<T, kBias>(x, wqkv + 3 * dd, bqkv + static_cast<size_t>(l) * 3 * D, nullptr, qkv, B,
                    3 * D, D, stream);
-    sam::decode_attention_kernel<T><<<B * H, sam::kAttnThreads, attn_smem, stream>>>(
+    cudaError_t err = sam::launch_decode_attention<T>(
         qkv, 3 * D, qkv + D, 3 * D, k_enc + l * enc_layer, v_enc + l * enc_layer,
-        k_dec + l * dec_layer, v_dec + l * dec_layer, ctx, seg_lens, t, H, hd, le, t_max,
-        q_len, n_obj, scale);
+        k_dec + l * dec_layer, v_dec + l * dec_layer, ctx, seg_lens, t, B, H, hd, le, t_max,
+        q_len, n_obj, scale, stream);
+    if (err != cudaSuccess) return err;
     gemm<T, kBiasResidual>(ctx, wout + dd, bout + static_cast<size_t>(l) * D, x, attn, B, D, D,
                            stream);
     layernorm_kernel<T><<<B, kLnThreads, ln_smem, stream>>>(
@@ -165,7 +165,7 @@ int decode_step(const int* t, const int* seg_lens, const T* x0, const T* wqkv,
     layernorm_kernel<T><<<B, kLnThreads, ln_smem, stream>>>(
         out2, ln2w + static_cast<size_t>(l) * D, ln2b + static_cast<size_t>(l) * D,
         l == n_layers - 1 ? x_out : xbuf, D);
-    const cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

@@ -87,7 +87,7 @@ def build_mmt_cache(mmt, text_bert_emb, obj_mmt_in, ocr_mmt_in, question_mask,
     K/V are kept head-flat, (L, B, Le, D), the layout the kernels read; the
     plain path views them per head. ``attention_backend="kernel"`` runs the
     spatial layers' attention through the fused spatial-attention kernel
-    (``dec_len=0``)."""
+    (``dec_len=0``) on the head-split views in the compute dtype."""
     cfg = mmt.config
     q_len = cfg.max_seq_length
     n_ctx = spatial_classes.shape[-1]
@@ -114,10 +114,9 @@ def build_mmt_cache(mmt, text_bert_emb, obj_mmt_in, ocr_mmt_in, question_mask,
             lut = torch.tensor(relation_head_lut(key)[:, :h], dtype=torch.float32,
                                device=x.device)
             ctx = spatial_attention(
-                q.float().contiguous(), k.float().contiguous(), v.float().contiguous(),
-                spatial_classes.contiguous(), lut, col_mask, q_len=q_len, n_ctx=n_ctx,
-                dec_len=0, mask_quadrants=quadrants, spatial=True,
-            ).to(x.dtype)
+                q, k, v, spatial_classes.contiguous(), lut, col_mask, q_len=q_len,
+                n_ctx=n_ctx, dec_len=0, mask_quadrants=quadrants, spatial=True,
+            )
         else:
             if key not in spatial_bias:
                 allowed = build_spatial_allowed(spatial_classes, relation_head_lut(key),

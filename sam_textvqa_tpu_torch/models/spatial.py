@@ -6,9 +6,11 @@ Two compute paths with the same numerics:
 * ``plain`` — the explicit combined boolean mask (B, H, L, L) from
   :func:`build_spatial_allowed` ANDed with the prefix-LM base, then the f32
   softmax with fully-masked rows zeroed;
-* ``kernel`` — deterministic forward only: q/k/v go to f32 and through
+* ``kernel`` — deterministic forward only: the head-split q/k/v views go
+  as they are, in the compute dtype (float32 or bfloat16), through
   :func:`..ops.fused_attention.spatial_attention`, which rebuilds the mask
-  per (row, column) from the int8 class matrix.
+  per (row, column) from the int8 class matrix, keeps the softmax and P.V
+  in f32, and returns a view whose merged heads need no copy.
 """
 
 from __future__ import annotations
@@ -45,10 +47,7 @@ class SpatialBertSelfAttention(nn.Module):
         k = split_heads(self.key(x), h)
         v = split_heads(self.value(x), h)
         if kernel_ctx is not None:
-            ctx = spatial_attention(
-                q.float().contiguous(), k.float().contiguous(), v.float().contiguous(),
-                **kernel_ctx,
-            ).to(x.dtype)
+            ctx = spatial_attention(q, k, v, **kernel_ctx)
         else:
             scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
             bias = torch.where(combined_ok, 0.0, MASK_BIAS)

@@ -7,7 +7,8 @@ a hash of their sources, so an edited source rebuilds. They are built at
 first use; :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Every kernel wrapper adds one to its launch count (:func:`count_launch`)
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else, and one to the count of the
+element type it launched with (:func:`launch_counts_by_dtype`).
 """
 
 from __future__ import annotations
@@ -41,11 +42,13 @@ build_logs: Dict[str, str] = {}
 
 _count_lock = threading.Lock()
 _launches: Counter = Counter()
+_dtype_launches: Counter = Counter()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, dtype: torch.dtype) -> None:
     with _count_lock:
         _launches[name] += 1
+        _dtype_launches[f"{name}:{str(dtype).replace('torch.', '')}"] += 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -53,9 +56,16 @@ def launch_counts() -> Dict[str, int]:
         return {name: _launches[name] for name in SOURCES}
 
 
+def launch_counts_by_dtype() -> Dict[str, int]:
+    """Launches per ``"<kernel>:<dtype>"``, e.g. ``"spatial_attention:bfloat16"``."""
+    with _count_lock:
+        return dict(_dtype_launches)
+
+
 def reset_launch_counts() -> None:
     with _count_lock:
         _launches.clear()
+        _dtype_launches.clear()
 
 
 def _nvcc() -> str:
@@ -137,25 +147,56 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """The device address of ``t``, for an argument declared ``c_void_p``."""
+    return t.data_ptr()
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of the current stream on ``device`` (an
+    indexed CUDA device, as a tensor's ``.device`` is). CUDA builds of
+    PyTorch have this accessor; ``torch.cuda.current_stream`` builds a
+    ``Stream`` object on each call (a fifth of a K2 wrapper's host time
+    under cProfile on the H100's host)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def require(t: torch.Tensor, name: str, dtype, shape, device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and ``shape``
-    on ``device`` (what the kernels take)."""
+def _require_kind(t: torch.Tensor, name: str, dtype, shape, device: torch.device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def require(t: torch.Tensor, name: str, dtype, shape, device: torch.device,
+            aligned: bool = False) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and ``shape``
+    (``None``: checked by the caller already) on ``device``, starting on a
+    16-byte boundary if ``aligned`` (the kernels copy its rows with 16-byte
+    loads)."""
+    _require_kind(t, name, dtype, shape, device)
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def require_rows(t: torch.Tensor, name: str, dtype, shape, device: torch.device) -> None:
+    """Raise unless ``t`` is a tensor of ``dtype`` and ``shape`` (``None``:
+    checked by the caller already) on ``device`` whose last dim is
+    contiguous and whose rows all start on 16-byte boundaries: a strided
+    view the kernels read row by row."""
+    _require_kind(t, name, dtype, shape, device)
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} must have a last stride of 1, not {t.stride(-1)}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+    size = t.element_size()
+    if any(n > 1 and s * size % 16 for n, s in zip(t.shape[:-1], t.stride()[:-1])):
+        raise ValueError(f"{name} has strides {t.stride()}: rows must start on "
+                         f"16-byte boundaries")
 
 
 def dtype_code(dtype) -> int:

@@ -19,6 +19,7 @@ order in f32, argmax-level in bf16.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -50,6 +51,17 @@ def check_decode_shapes(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, hd, q_len, n
         raise ValueError(f"q_len + n_obj = {q_len + n_obj} exceeds Le = {le}")
 
 
+@functools.lru_cache(maxsize=None)
+def check_kernel_head_dim(hd: int, dtype) -> None:
+    """The kernel reads a head's row in 16-byte chunks, one lane each, at
+    most one warp per key: hd * element size in [16, 512] bytes. Checked
+    once per (hd, dtype)."""
+    row_bytes = hd * torch.finfo(dtype).bits // 8
+    if not 16 <= row_bytes <= 512:
+        raise ValueError(f"head dim {hd} in {dtype} is {row_bytes} bytes; the kernel takes "
+                         f"16 to 512")
+
+
 def decode_attention(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, *, hd: int,
                      q_len: int, n_obj: int):
     """Fused one-row decode attention.
@@ -74,11 +86,13 @@ def decode_attention(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, *, hd: int,
     le, t_max = k_enc.shape[1], k_dec.shape[1]
     dev, dt = q.device, q.dtype
     code = cuda_build.dtype_code(dt)
+    check_kernel_head_dim(hd, dt)
+    # shapes were checked above
     for name, x in (("q", q), ("k_enc", k_enc), ("v_enc", v_enc),
                     ("k_dec", k_dec), ("v_dec", v_dec)):
-        cuda_build.require(x, name, dt, x.shape, dev)
-    cuda_build.require(seg_lens, "seg_lens", torch.int32, (b, 3), dev)
-    cuda_build.require(t, "t", torch.int32, (1,), dev)
+        cuda_build.require(x, name, dt, None, dev, aligned=True)
+    cuda_build.require(seg_lens, "seg_lens", torch.int32, None, dev)
+    cuda_build.require(t, "t", torch.int32, None, dev)
     lib = cuda_build.library("decode_attention", _declare)
     out = torch.empty_like(q)
     p = cuda_build.ptr
@@ -88,7 +102,7 @@ def decode_attention(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, *, hd: int,
         1.0 / math.sqrt(hd), cuda_build.stream(dev),
     )
     cuda_build.check(lib, rc, "decode_attention")
-    cuda_build.count_launch("decode_attention")
+    cuda_build.count_launch("decode_attention", dt)
     return out
 
 

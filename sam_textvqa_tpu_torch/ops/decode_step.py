@@ -25,7 +25,8 @@ import torch
 
 from ..models.layers import gelu_erf, layer_norm_tf
 from . import cuda_build
-from .decode_attention import check_decode_shapes, decode_attention_plain
+from .decode_attention import (check_decode_shapes, check_kernel_head_dim,
+                               decode_attention_plain)
 
 WEIGHT_NAMES = ("wqkv", "bqkv", "wout", "bout", "ln1w", "ln1b",
                 "wff1", "bff1", "wff2", "bff2", "ln2w", "ln2b")
@@ -88,14 +89,15 @@ def decode_step_fused(t, seg_lens, x0, wqkv, bqkv, wout, bout, ln1w, ln1b,
         raise ValueError(f"decode_step_fused runs on cuda or cpu, not {x0.device}")
     dev, dt = x0.device, x0.dtype
     code = cuda_build.dtype_code(dt)
+    check_kernel_head_dim(hd, dt)
+    # shapes were checked above
     for name, x in w.items():
-        cuda_build.require(x, name, torch.float32 if name.startswith("ln") else dt,
-                           x.shape, dev)
+        cuda_build.require(x, name, torch.float32 if name.startswith("ln") else dt, None, dev)
     for name, x in (("x0", x0), ("k_enc", k_enc), ("v_enc", v_enc),
                     ("k_dec", k_dec), ("v_dec", v_dec)):
-        cuda_build.require(x, name, dt, x.shape, dev)
-    cuda_build.require(seg_lens, "seg_lens", torch.int32, (b, 3), dev)
-    cuda_build.require(t, "t", torch.int32, (1,), dev)
+        cuda_build.require(x, name, dt, None, dev, aligned=True)
+    cuda_build.require(seg_lens, "seg_lens", torch.int32, None, dev)
+    cuda_build.require(t, "t", torch.int32, None, dev)
     lib = cuda_build.library("decode_step", _declare)
     x_out = torch.empty_like(x0)
     scratch = torch.empty(lib.sam_decode_step_scratch(b, d, f), dtype=dt, device=dev)
@@ -106,7 +108,7 @@ def decode_step_fused(t, seg_lens, x0, wqkv, bqkv, wout, bout, ln1w, ln1b,
         n_layers, b, d, f, le, t_max, hd, q_len, n_obj, cuda_build.stream(dev),
     )
     cuda_build.check(lib, rc, "decode_step_fused")
-    cuda_build.count_launch("decode_step")
+    cuda_build.count_launch("decode_step", dt)
     return x_out
 
 

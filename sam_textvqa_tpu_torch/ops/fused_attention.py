@@ -15,6 +15,7 @@ zeroed (reference sam/sa_m4c.py:504-584).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Sequence
 
@@ -28,11 +29,31 @@ _MAX_SMEM = 232448  # bytes a block may use on Hopper
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sam_spatial_attention.restype = i
-    lib.sam_spatial_attention.argtypes = [p] * 7 + [i] * 8 + [ctypes.c_float, p]
+    lib.sam_spatial_attention.argtypes = ([i] + [p] * 3 + [i64] * 9 + [p] * 5 + [i] * 8
+                                          + [ctypes.c_float, p])
     lib.sam_spatial_attention_smem.restype = ctypes.c_size_t
-    lib.sam_spatial_attention_smem.argtypes = [i, i]
+    lib.sam_spatial_attention_smem.argtypes = [i, i, i]
+    lib.sam_spatial_attention_scratch.restype = ctypes.c_size_t
+    lib.sam_spatial_attention_scratch.argtypes = [i, i]
+
+
+#: the head dims the kernel is built for, by input dtype (see the C dispatch)
+HEAD_DIMS = {torch.float32: (16, 64), torch.bfloat16: (64,)}
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_plan(lib: ctypes.CDLL, dtype, b: int, length: int, d: int):
+    """(dtype code, scratch bytes) for one input kind, checked once: the
+    head dim is built and the CTA's shared memory fits."""
+    code = cuda_build.dtype_code(dtype)
+    if d not in HEAD_DIMS[dtype]:
+        raise ValueError(f"head dim {d} in {dtype} is not one the kernel is built for "
+                         f"({HEAD_DIMS[dtype]})")
+    if lib.sam_spatial_attention_smem(code, length, d) > _MAX_SMEM:
+        raise ValueError(f"L={length}, D={d} needs more shared memory than a block has")
+    return code, lib.sam_spatial_attention_scratch(b, length)
 
 
 def _check_args(q, k, v, classes, lut, col_mask, q_len, n_ctx, dec_len, mask_quadrants):
@@ -62,42 +83,53 @@ def spatial_attention(
     """Fused deterministic forward.
 
     Args:
-      q, k, v: (B, H, L, D) float32, L = q_len + n_ctx + dec_len.
+      q, k, v: (B, H, L, D) float32 or bfloat16 (all three alike), L =
+        q_len + n_ctx + dec_len. Strided views such as
+        ``models.bert.split_heads`` of a (B, L, H*D) tensor are taken as
+        they are: the kernel needs only the last stride to be 1 and 16-byte
+        aligned rows. On CUDA, D is one of :data:`HEAD_DIMS`.
       classes: (B, n_ctx, n_ctx) int8 relation classes of the obj+OCR block.
       lut: (13, H) float32 relation->head LUT (nonzero = allowed).
       col_mask: (B, L) float32, > 0 on attendable columns.
       spatial: apply the relation LUT and quadrant cuts (spatial heads).
     Returns:
-      (B, H, L, D) float32.
+      (B, H, L, D) in the dtype of q: the ``transpose(1, 2)`` of a
+      contiguous (B, L, H, D) buffer, so ``merge_heads`` of it is a view.
+      For bfloat16 inputs: f32 scores of the exact bf16 products, f32
+      softmax and P.V, one rounding to bfloat16 (what the JAX kernel
+      computes on bfloat16 inputs).
     """
     _check_args(q, k, v, classes, lut, col_mask, q_len, n_ctx, dec_len, mask_quadrants)
+    b, h, length, d = q.shape
+    out = q.new_empty(b, length, h, d).transpose(1, 2)
     if q.device.type == "cpu":
-        return spatial_attention_plain(
+        out.copy_(spatial_attention_plain(
             q, k, v, classes, lut, col_mask, q_len=q_len, n_ctx=n_ctx,
             dec_len=dec_len, mask_quadrants=mask_quadrants, spatial=spatial,
-        )
+        ))
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"spatial_attention runs on cuda or cpu, not {q.device}")
-    b, h, length, d = q.shape
-    dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        cuda_build.require(t, name, torch.float32, q.shape, dev)
-    cuda_build.require(classes, "classes", torch.int8, (b, n_ctx, n_ctx), dev)
-    cuda_build.require(lut, "lut", torch.float32, (13, h), dev)
-    cuda_build.require(col_mask, "col_mask", torch.float32, (b, length), dev)
+    dev, dt = q.device, q.dtype
     lib = cuda_build.library("spatial_attention", _declare)
-    if lib.sam_spatial_attention_smem(length, d) > _MAX_SMEM:
-        raise ValueError(f"L={length}, D={d} needs more shared memory than a block has")
-    out = torch.empty_like(q)
+    code, scratch_bytes = _kernel_plan(lib, dt, b, length, d)
+    # shapes were checked by _check_args
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        cuda_build.require_rows(t, name, dt, None, dev)
+    cuda_build.require(classes, "classes", torch.int8, None, dev)
+    cuda_build.require(lut, "lut", torch.float32, None, dev)
+    cuda_build.require(col_mask, "col_mask", torch.float32, None, dev)
     quad_bits = sum(1 << qd for qd in set(mask_quadrants))
+    scratch = torch.empty(scratch_bytes, dtype=torch.int8, device=dev)
     p = cuda_build.ptr
     rc = lib.sam_spatial_attention(
-        p(q), p(k), p(v), p(classes), p(lut), p(col_mask), p(out),
+        code, p(q), p(k), p(v), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        p(classes), p(lut), p(col_mask), p(out), p(scratch),
         b, h, length, d, q_len, n_ctx, quad_bits, int(spatial),
         1.0 / math.sqrt(d), cuda_build.stream(dev),
     )
     cuda_build.check(lib, rc, "spatial_attention")
-    cuda_build.count_launch("spatial_attention")
+    cuda_build.count_launch("spatial_attention", dt)
     return out
 
 
@@ -120,12 +152,19 @@ def combined_permission(classes, lut, col_mask, *, q_len, n_ctx, dec_len,
 
 def spatial_attention_plain(q, k, v, classes, lut, col_mask, *, q_len, n_ctx,
                             dec_len, mask_quadrants=(1, 2), spatial=True):
-    """Plain PyTorch version of :func:`spatial_attention` (same arguments)."""
+    """Plain PyTorch version of :func:`spatial_attention` (same arguments).
+    Inputs other than float32 go through the float32 path, and its result
+    is rounded once to their dtype."""
+    if q.dtype != torch.float32:
+        return spatial_attention_plain(
+            q.float(), k.float(), v.float(), classes, lut, col_mask, q_len=q_len,
+            n_ctx=n_ctx, dec_len=dec_len, mask_quadrants=mask_quadrants, spatial=spatial,
+        ).to(q.dtype)
     ok = combined_permission(
         classes, lut, col_mask, q_len=q_len, n_ctx=n_ctx, dec_len=dec_len,
         mask_quadrants=mask_quadrants, spatial=spatial, num_heads=q.shape[1],
     )
     scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
     scores = scores + torch.where(ok, 0.0, MASK_BIAS)
-    probs = torch.softmax(scores.float(), dim=-1) * ok.any(-1, keepdim=True)
-    return torch.matmul(probs.to(q.dtype), v)
+    probs = torch.softmax(scores, dim=-1) * ok.any(-1, keepdim=True)
+    return torch.matmul(probs, v)

@@ -9,7 +9,9 @@ Tolerances: f32 differs from the plain version only in summation order
 (1e-4 after up to 6 layers); bf16 rounds the same values at the same places
 but sums in another order, so single bf16 ulps may differ (3e-2 absolute
 on unit-scale attention outputs, 0.25 on unit-scale LayerNorm outputs after
-6 layers, with a mean below 1e-2).
+6 layers, with a mean below 1e-2). The spatial attention on bf16 inputs
+rounds once, at its output: 1.6e-2 absolute (one ulp of values below 4),
+and a mean below 1e-4, which only a near-f32 P.V holds.
 """
 
 import dataclasses
@@ -20,6 +22,7 @@ import torch
 
 from sam_textvqa_tpu_torch.config import task_config_from_dict
 from sam_textvqa_tpu_torch.data.synthetic import device_batch, make_batch
+from sam_textvqa_tpu_torch.models.bert import split_heads
 from sam_textvqa_tpu_torch.models.fast_decode import greedy_decode_fast
 from sam_textvqa_tpu_torch.models.sa_m4c import SAM4C, SAM4CParams
 from sam_textvqa_tpu_torch.ops import cuda_build
@@ -55,22 +58,41 @@ def _spatial_inputs(rng, b, h, q_len, n_ctx, dec_len, d, dev):
     return q, k, v, classes, lut, torch.from_numpy(col_mask).to(dev)
 
 
-@pytest.mark.parametrize("shape", [(3, 12, 20, 150, 12, 64), (2, 4, 6, 14, 4, 16),
-                                   (2, 12, 20, 150, 0, 64)])
+_C3_L182, _C3_L170 = (3, 12, 20, 150, 12, 64), (2, 12, 20, 150, 0, 64)  # c3 widths
+
+
+# the kernel builds head dim 64 in both dtypes, and 16 in f32
+@pytest.mark.parametrize("shape,dtype", [
+    (_C3_L182, torch.float32), (_C3_L182, torch.bfloat16),
+    (_C3_L170, torch.float32), (_C3_L170, torch.bfloat16),
+    ((2, 4, 6, 14, 4, 16), torch.float32),
+])
+@pytest.mark.parametrize("views", [False, True])  # split_heads views of (B, L, H*hd)
 @pytest.mark.parametrize("quadrants", [(1, 2), (1, 2, 4, 7, 8, 9)])
 @pytest.mark.parametrize("spatial", [True, False])
-def test_spatial_attention_matches_plain(dev, shape, quadrants, spatial):
+def test_spatial_attention_matches_plain(dev, shape, dtype, views, quadrants, spatial):
     b, h, q_len, n_ctx, dec_len, d = shape
-    args = _spatial_inputs(np.random.RandomState(0), b, h, q_len, n_ctx, dec_len, d, dev)
+    q, k, v, *rest = _spatial_inputs(np.random.RandomState(0), b, h, q_len, n_ctx, dec_len,
+                                     d, dev)
+    length = q.shape[2]
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    if views:
+        q, k, v = (split_heads(x.transpose(1, 2).reshape(b, length, h * d), h)
+                   for x in (q, k, v))
+    assert q.is_contiguous() != views
     kw = dict(q_len=q_len, n_ctx=n_ctx, dec_len=dec_len, mask_quadrants=quadrants,
               spatial=spatial)
     before = cuda_build.launch_counts()["spatial_attention"]
-    out = spatial_attention(*args, **kw)
+    out = spatial_attention(q, k, v, *rest, **kw)
     torch.cuda.synchronize()
     assert cuda_build.launch_counts()["spatial_attention"] == before + 1
-    ref = spatial_attention_plain(*args, **kw)
-    err = (out - ref).abs().max().item()
-    assert err < 1e-4, err
+    assert out.dtype == dtype and out.transpose(1, 2).is_contiguous()
+    diff = (out.float() - spatial_attention_plain(q, k, v, *rest, **kw).float()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() < 1e-4, diff.max().item()
+    else:
+        assert diff.max().item() <= 1.6e-2 and diff.mean().item() <= 1e-4, (
+            diff.max().item(), diff.mean().item())
 
 
 def _decode_inputs(rng, b, d, le, t_max, q_len, n_obj, dtype, dev, layers=None):
@@ -88,9 +110,10 @@ def _decode_inputs(rng, b, d, le, t_max, q_len, n_obj, dtype, dev, layers=None):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("step", [0, 7, 11])
-def test_decode_attention_matches_plain(dev, dtype, tol, step):
-    rng = np.random.RandomState(step)
-    b, d, hd, le, t_max, q_len, n_obj = 5, 768, 64, 170, 12, 20, 100
+@pytest.mark.parametrize("b", [1, 5, 8, 32])  # 1, 8, 32: the serving buckets
+def test_decode_attention_matches_plain(dev, dtype, tol, step, b):
+    rng = np.random.RandomState(b + step)
+    d, hd, le, t_max, q_len, n_obj = 768, 64, 170, 12, 20, 100
     k_enc, v_enc, k_dec, v_dec, seg = _decode_inputs(rng, b, d, le, t_max, q_len, n_obj,
                                                      dtype, dev)
     q = torch.from_numpy(rng.randn(b, d).astype(np.float32)).to(dev, dtype)
