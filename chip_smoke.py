@@ -18,7 +18,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    the first slice), the device time per call from a replayed CUDA graph
    (``device_ms``, ``library_device_ms``), and the host's time per call
    (``host_ms``, ``library_host_ms``); the least time the card could take
-   (``bound_ms``) is computed from this run's inputs;
+   (``bound_ms``) is computed from this run's inputs. The decode step runs
+   this at each serving bucket (batch 1, 8 and 32, under ``buckets``; the
+   row's own numbers are batch 32's), its library call is the same step as
+   PyTorch calls (``F.linear``, SDPA over concatenated [enc; dec] K/V,
+   ``F.layer_norm``, erf ``F.gelu``), and the device time of its 24
+   ``F.linear`` products alone is printed;
 3. the main path at the full width of the c3 model (random weights from a
    seed): the ``ServingEngine`` is warmed, the launch counts are zeroed, it
    answers 64 synthetic requests over buckets (1, 8, 32) in bf16 with
@@ -31,8 +36,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    decodes (bf16 answer agreement is printed) and one bf16 ``mega`` and
    one ``fused`` decode of them are timed;
 4. after every timed phase, ``torch.profiler`` device time by kernel of one
-   spatial-attention call (code pass and attention) and of one bf16
-   ``mega`` decode of the batch (with the card's idle share); then in f32
+   spatial-attention call (code pass and attention), of one bf16 decode
+   step at batch 32 (its kernels by name with launch counts, so launches
+   per step read off) and of one bf16 ``mega`` decode of the batch (with
+   the card's idle share); then in f32
    the three backends must give identical ids and the full forward with
    the kernel attention must match the plain one;
 5. one JSON line of the kernels, then the result line
@@ -92,7 +99,8 @@ TOL = {
     "decode_attention": {torch.float32: 1e-5, torch.bfloat16: 3e-2},
     "decode_step": {torch.float32: 1e-4, torch.bfloat16: 0.25},
 }
-MEAN_TOL = {"spatial_attention": {torch.bfloat16: 1e-4}}
+MEAN_TOL = {"spatial_attention": {torch.bfloat16: 1e-4}, "decode_step": {torch.bfloat16: 1e-2}}
+STEP_BUCKETS = (1, 8, 32)  # the serving buckets the decode step is held and timed at
 REPLACES = {
     "spatial_attention": "sam_textvqa_tpu/ops/fused_attention.py:262",
     "decode_attention": "sam_textvqa_tpu/ops/decode_attention.py:167",
@@ -368,51 +376,125 @@ def bench_decode_attention(task, seg, gen) -> dict:
     return out
 
 
-def bench_decode_step(task, model, seg, gen) -> dict:
+def library_step(consts, k_enc, v_enc, k_dec, v_dec, seg, step, hd, q_len, n_obj):
+    """The decode step as PyTorch calls, timed beside the kernel (the port
+    never calls it): per layer ``F.linear`` for the four products, row t
+    written into [enc; dec] K/V buffers concatenated once up front, SDPA
+    over them with an additive mask, ``F.layer_norm`` and erf ``F.gelu``."""
+    n_layers, b, le, d = k_enc.shape
+    t_max, h = k_dec.shape[2], d // hd
+    dt = k_enc.dtype
+    ln = {n: consts[n].to(dt) for n in ("ln1w", "ln1b", "ln2w", "ln2b")}
+
+    def heads(x):  # (L, B, n, D) -> (L, B, H, n, hd)
+        return x.view(n_layers, b, x.shape[2], h, hd).transpose(2, 3)
+
+    k_all = torch.cat([heads(k_enc), heads(k_dec)], dim=3).contiguous()
+    v_all = torch.cat([heads(v_enc), heads(v_dec)], dim=3).contiguous()
+    valid = torch.zeros(b, le + t_max, dtype=torch.bool, device=k_enc.device)
+    valid[:, :le] = encoder_valid(seg, le, q_len, n_obj)
+    valid[:, le:le + step + 1] = True
+    mask = torch.where(valid, 0.0, -10000.0).to(dt)[:, None, None, :]
+
+    def run(x0):
+        x = x0
+        for l in range(n_layers):
+            q, k, v = F.linear(x, consts["wqkv"][l], consts["bqkv"][l]).split(d, dim=-1)
+            k_all[l, :, :, le + step] = k.view(b, h, hd)
+            v_all[l, :, :, le + step] = v.view(b, h, hd)
+            ctx = F.scaled_dot_product_attention(q.view(b, h, 1, hd), k_all[l], v_all[l],
+                                                 attn_mask=mask).reshape(b, d)
+            attn = F.layer_norm(F.linear(ctx, consts["wout"][l], consts["bout"][l]) + x, (d,),
+                                ln["ln1w"][l], ln["ln1b"][l], eps=1e-12)
+            inter = F.gelu(F.linear(attn, consts["wff1"][l], consts["bff1"][l]))
+            x = F.layer_norm(F.linear(inter, consts["wff2"][l], consts["bff2"][l]) + attn, (d,),
+                             ln["ln2w"][l], ln["ln2b"][l], eps=1e-12)
+        return x
+
+    return run
+
+
+def bench_decode_step(task, model, seg32, gen):
+    """K3 against its plain version in f32 and bf16 and its times in bf16 at
+    each serving bucket. Returns the row (batch 32's numbers at the top,
+    every bucket's under ``buckets``) and the batch-32 bf16 call."""
     mmt = task.mmt
     d, f, t_max = mmt.hidden_size, mmt.intermediate_size, mmt.num_decoding_steps
     n_layers = len(mmt.layer_type_list)
     hd = d // mmt.num_attention_heads
     q_len, n_obj = mmt.max_seq_length, mmt.max_obj_num
     le = q_len + n_obj + mmt.max_ocr_num
-    b = seg.shape[0]
     step = t_max - 1
     t = torch.tensor([step], dtype=torch.int32, device="cuda")
     kw = dict(hd=hd, q_len=q_len, n_obj=n_obj)
-    out = {"step": step}
-    for dtype in (torch.float32, torch.bfloat16):
-        consts = _mega_step_consts(model.mmt, dtype)
-        weights = [consts[n] for n in WEIGHT_NAMES]
-        x0 = rand(gen, b, d, dtype=dtype)
-        k_enc, v_enc = (rand(gen, n_layers, b, le, d, dtype=dtype) for _ in range(2))
-        k_dec, v_dec = (rand(gen, n_layers, b, t_max, d, dtype=dtype) for _ in range(2))
-        kd2, vd2 = k_dec.clone(), v_dec.clone()
-        mine = decode_step_fused(t, seg, x0, *weights, k_enc, v_enc, k_dec, v_dec, **kw)
-        plain = decode_step_plain(t, seg, x0, *weights, k_enc, v_enc, kd2, vd2, **kw)
-        err = max_err(mine, plain)
-        check("decode_step", dtype, err)
-        out[f"max_abs_err_{str(dtype)[6:]}"] = err
-        out[f"mean_abs_err_{str(dtype)[6:]}"] = (mine.float() - plain.float()).abs().mean().item()
+    consts = {dt: _mega_step_consts(model.mmt, dt) for dt in (torch.float32, torch.bfloat16)}
     esize = 2
-    n_valid = _n_valid(seg, step)
     mats = 3 * d * d + d * d + 2 * f * d
-    nbytes = (n_layers * (esize * (mats + 3 * d + d + f + d) + 4 * 4 * d)
-              + n_layers * esize * (2 * d * n_valid + 2 * b * d) + 2 * esize * b * d
-              + seg.numel() * 4 + 4)
-    ops = n_layers * (2.0 * b * mats + 4.0 * d * n_valid)
-    bound_ms, bound_by = bound(nbytes, ops, torch.bfloat16)
-    out.update(
-        max_abs_err=out["max_abs_err_bfloat16"], dtype="bfloat16",
+    buckets, call = {}, None
+    for b in STEP_BUCKETS:
+        seg = seg32[:b].contiguous()
+        row = {"step": step}
+        for dtype in (torch.float32, torch.bfloat16):
+            weights = [consts[dtype][n] for n in WEIGHT_NAMES]
+            x0 = rand(gen, b, d, dtype=dtype)
+            k_enc, v_enc = (rand(gen, n_layers, b, le, d, dtype=dtype) for _ in range(2))
+            k_dec, v_dec = (rand(gen, n_layers, b, t_max, d, dtype=dtype) for _ in range(2))
+            kd2, vd2 = k_dec.clone(), v_dec.clone()
+            mine = decode_step_fused(t, seg, x0, *weights, k_enc, v_enc, k_dec, v_dec, **kw)
+            plain = decode_step_plain(t, seg, x0, *weights, k_enc, v_enc, kd2, vd2, **kw)
+            err, mean = max_err(mine, plain), mean_err(mine, plain)
+            log(f"  decode_step B={b}:")
+            check("decode_step", dtype, err, mean)
+            row[f"max_abs_err_{str(dtype)[6:]}"] = err
+            row[f"mean_abs_err_{str(dtype)[6:]}"] = mean
+        # times in bf16, the serving dtype (the last inputs of the loop)
+        lib = library_step(consts[torch.bfloat16], k_enc, v_enc, k_dec.clone(), v_dec.clone(),
+                           seg, step, hd, q_len, n_obj)
+        row["library_vs_plain_max_abs_err"] = max_err(lib(x0), plain)
+        n_valid = _n_valid(seg, step)
+        nbytes = (n_layers * (esize * (mats + 3 * d + d + f + d) + 4 * 4 * d)
+                  + n_layers * esize * (2 * d * n_valid + 2 * b * d) + 2 * esize * b * d
+                  + seg.numel() * 4 + 4)
+        ops = n_layers * (2.0 * b * mats + 4.0 * d * n_valid)
+        bound_ms, bound_by = bound(nbytes, ops, torch.bfloat16)
+
+        def kernel(x0=x0, weights=weights, k_enc=k_enc, v_enc=v_enc, k_dec=k_dec, v_dec=v_dec,
+                   seg=seg):
+            return decode_step_fused(t, seg, x0, *weights, k_enc, v_enc, k_dec, v_dec, **kw)
+
+        row.update(times(kernel,
+                         lambda: decode_step_plain(t, seg, x0, *weights, k_enc, v_enc, kd2, vd2,
+                                                   **kw),
+                         lambda: lib(x0)),
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops)
+        log(f"  decode_step B={b} bf16: device {row['device_ms']:.4f} ms (bound "
+            f"{bound_ms:.4f}, {bound_by}), eager {row['ms']:.4f}, host {row['host_ms']:.4f}; "
+            f"library step device {row['library_device_ms']:.4f}, eager "
+            f"{row['library_ms']:.4f}")
+        buckets[b] = row
+        call = kernel
+    # the 24 products alone as F.linear, at batch 32 (the last bucket's inputs)
+    w = consts[torch.bfloat16]
+    x_f = rand(gen, b, f, dtype=torch.bfloat16)
+
+    def linears():
+        for l in range(n_layers):
+            F.linear(x0, w["wqkv"][l], w["bqkv"][l])
+            F.linear(x0, w["wout"][l], w["bout"][l])
+            F.linear(x0, w["wff1"][l], w["bff1"][l])
+            F.linear(x_f, w["wff2"][l], w["bff2"][l])
+
+    out = dict(
+        buckets[STEP_BUCKETS[-1]], buckets=buckets, f_linear_24_device_ms=graph_ms(linears),
+        max_abs_err=max(r["max_abs_err_bfloat16"] for r in buckets.values()), dtype="bfloat16",
         shape=f"{n_layers} layers, x ({b},{d}), FFN {f}, enc K/V ({n_layers},{b},{le},{d}) "
-              f"bf16, t={step}",
-        **times(lambda: decode_step_fused(t, seg, x0, *weights, k_enc, v_enc, k_dec, v_dec,
-                                          **kw),
-                lambda: decode_step_plain(t, seg, x0, *weights, k_enc, v_enc, kd2, vd2, **kw),
-                None),
-        library=None,
-        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
+              f"bf16, t={step}; also B = 1, 8 under buckets",
+        library="the step as PyTorch calls: F.linear x4, SDPA over concatenated [enc; dec] "
+                "K/V with an additive mask, F.layer_norm, erf F.gelu (per layer)",
     )
-    return out
+    log(f"  24 F.linear products of the step alone (B={b}, bf16): device "
+        f"{out['f_linear_24_device_ms']:.4f} ms")
+    return out, call
 
 
 # ---------------------------------------------------------------- phase 3
@@ -567,8 +649,8 @@ def main() -> int:
     kernels = {
         "spatial_attention": spatial,
         "decode_attention": bench_decode_attention(task, seg, gen),
-        "decode_step": bench_decode_step(task, model, seg, gen),
     }
+    kernels["decode_step"], step_call = bench_decode_step(task, model, seg, gen)
 
     log("== phase 3: main path (serving, c3, bf16, auto backend)")
     main = main_path(task, vocab, model, samples)
@@ -583,9 +665,29 @@ def main() -> int:
     breakdown["decode_step_share"] = breakdown["decode_step_kernels_ms"] / breakdown["decode_ms"]
     # profiles come after every timed phase, so that no timing runs after
     # the profiler has been started in this process
-    log("== phase 4: device profiles (K1 call, B=32 bf16 mega decode)")
+    log("== phase 4: device profiles (K1 call, K3 step at B=32, B=32 bf16 mega decode)")
     split = device_profile(spatial_call)
     kernels["spatial_attention"]["device_split"] = split.get("kernels", split)
+    step_graph = torch.cuda.CUDAGraph()  # one step, replayed: no host gaps in the span
+    with torch.cuda.graph(step_graph):
+        step_call()
+    step_profile = device_profile(step_graph.replay)
+    k3 = kernels["decode_step"]
+    k3["device_split"] = step_profile.get("kernels", step_profile)
+    if "kernels" in step_profile:
+        names = ("product_kernel", "decode_attention_kernel", "layernorm_kernel")
+        k3["launches_per_step"] = sum(k["count"] for k in step_profile["kernels"]
+                                      if any(n in k["name"] for n in names))
+        k3["product_kernels_profile_ms"] = sum(k["ms"] for k in step_profile["kernels"]
+                                               if "product_kernel" in k["name"])
+        k3["profile_span_ms"] = step_profile["span_ms"]
+        log(f"  K3 at B=32, one step replayed: {k3['launches_per_step']} launches, span "
+            f"{k3['profile_span_ms']:.4f} ms; its product kernels' intervals sum to "
+            f"{k3['product_kernels_profile_ms']:.4f} ms (they overlap: each starts before its "
+            f"predecessor ends, programmatic dependent launch), beside the 24 F.linear "
+            f"products alone {k3['f_linear_24_device_ms']:.4f} ms")
+        if k3["launches_per_step"] > 5 * len(task.mmt.layer_type_list) + 1:
+            raise AssertionError(f"K3 launched {k3['launches_per_step']} kernels per step")
     main["profile_b32"] = device_profile(
         lambda: greedy_decode_fast(model, main["batch"], vocab.special_ids().bos,
                                    backend="mega"))

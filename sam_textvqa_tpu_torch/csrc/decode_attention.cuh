@@ -183,6 +183,10 @@ decode_attention_kernel(const T* q, int q_stride, const T* kv_row, int kv_stride
                         const int* seg_lens, const int* t_ptr, int H, int hd, int le,
                         int t_max, int q_len, int n_obj, float scale) {
   extern __shared__ __align__(16) unsigned char attn_smem[];
+  // launched as a programmatic dependent (the per-step decode), wait for the
+  // kernel before; a no-op in a plain launch. The next kernel starts when
+  // this one ends (an earlier start measured slower).
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int d_model = H * hd;
   const int n_ocr = le - q_len - n_obj;
@@ -202,16 +206,18 @@ decode_attention_kernel(const T* q, int q_stride, const T* kv_row, int kv_stride
 }
 
 // Launch one CTA per (sample, head) on ``stream``; raises the kernel's
-// dynamic shared-memory limit first where it needs more than 48 KB. Returns
-// cudaGetLastError(): a refused launch never runs. ``static`` gives each
-// library its own copy of the limit it has set: the static local of an
+// dynamic shared-memory limit first where it needs more than 48 KB. With
+// ``dependent`` the launch may start while the kernel before it still runs
+// (programmatic dependent launch; the kernel waits for it before reading).
+// Returns cudaGetLastError(): a refused launch never runs. ``static`` gives
+// each library its own copy of the limit it has set: the static local of an
 // inline template would be one symbol across every library in the process.
 template <typename T>
 static cudaError_t launch_decode_attention(const T* q, int q_stride, const T* kv_row, int kv_stride,
                                     const T* k_enc, const T* v_enc, T* k_dec, T* v_dec, T* out,
                                     const int* seg_lens, const int* t, int B, int H, int hd,
                                     int le, int t_max, int q_len, int n_obj, float scale,
-                                    cudaStream_t stream) {
+                                    cudaStream_t stream, bool dependent = false) {
   static size_t smem_allowed = 48 * 1024;  // per instantiation, raised once
   const size_t smem = decode_attention_smem<T>(hd, le, t_max);
   if (smem > smem_allowed) {
@@ -221,10 +227,20 @@ static cudaError_t launch_decode_attention(const T* q, int q_stride, const T* kv
     if (err != cudaSuccess) return err;
     smem_allowed = smem;
   }
-  decode_attention_kernel<T><<<B * H, kAttnThreads, smem, stream>>>(
-      q, q_stride, kv_row, kv_stride, k_enc, v_enc, k_dec, v_dec, out, seg_lens, t, H, hd, le,
-      t_max, q_len, n_obj, scale);
-  return cudaGetLastError();
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(B * H);
+  config.blockDim = dim3(kAttnThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = dependent ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, decode_attention_kernel<T>, q, q_stride, kv_row, kv_stride, k_enc, v_enc, k_dec,
+      v_dec, out, seg_lens, t, H, hd, le, t_max, q_len, n_obj, scale);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace sam

@@ -125,14 +125,28 @@ def test_decode_attention_matches_plain(dev, dtype, tol, step, b):
     assert err < tol, err
 
 
+# (layers, D, F, Le, T, q_len, n_obj): a small shape and the c3 widths
+_STEP_SMALL, _STEP_C3 = (2, 256, 512, 30, 4, 6, 14), (6, 768, 3072, 170, 12, 20, 100)
+
+
+# B 1, 8, 32: the serving buckets (40: two groups of batch rows); "twice"
+# calls the kernel back to back and "graph" replays it in a CUDA graph, both
+# must repeat the first result bit for bit (the split-K reduction is in a
+# fixed order and keeps no state between launches)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_step_matches_plain(dev, dtype):
+@pytest.mark.parametrize("shape,b,step,mode", [(_STEP_SMALL, 5, 2, "once"),
+                                                 (_STEP_SMALL, 40, 2, "once")] + [
+    (_STEP_C3, b, step, "once") for b in (1, 5, 8, 32) for step in (0, 11)] + [
+    (_STEP_C3, 32, 11, "twice"), (_STEP_C3, 32, 11, "graph")])
+def test_decode_step_matches_plain(dev, dtype, shape, b, step, mode):
     rng = np.random.RandomState(1)
-    n_layers, b, d, f, hd, le, t_max, q_len, n_obj = 2, 5, 256, 512, 64, 30, 4, 6, 14
+    n_layers, d, f, le, t_max, q_len, n_obj = shape
+    hd = 64
     k_enc, v_enc, k_dec, v_dec, seg = _decode_inputs(rng, b, d, le, t_max, q_len, n_obj,
                                                      dtype, dev, layers=n_layers)
     shapes = {"wqkv": (3 * d, d), "bqkv": (3 * d,), "wout": (d, d), "bout": (d,),
               "wff1": (f, d), "bff1": (f,), "wff2": (d, f), "bff2": (d,)}
+    scale = 0.8 / np.sqrt(d)  # 0.05 at D=256: products of unit scale
     w = {}
     for name in WEIGHT_NAMES:
         if name.startswith("ln"):
@@ -141,12 +155,31 @@ def test_decode_step_matches_plain(dev, dtype):
                 (base + 0.1 * rng.randn(n_layers, d)).astype(np.float32)).to(dev)
         else:
             w[name] = torch.from_numpy(
-                (0.05 * rng.randn(n_layers, *shapes[name])).astype(np.float32)).to(dev, dtype)
+                (scale * rng.randn(n_layers, *shapes[name])).astype(np.float32)).to(dev, dtype)
     x0 = torch.from_numpy(rng.randn(b, d).astype(np.float32)).to(dev, dtype)
-    t = torch.tensor([2], dtype=torch.int32, device=dev)
+    t = torch.tensor([step], dtype=torch.int32, device=dev)
     kw = dict(hd=hd, q_len=q_len, n_obj=n_obj)
     kd2, vd2 = k_dec.clone(), v_dec.clone()
-    out = decode_step_fused(t, seg, x0, *w.values(), k_enc, v_enc, k_dec, v_dec, **kw)
+
+    def call():
+        return decode_step_fused(t, seg, x0, *w.values(), k_enc, v_enc, k_dec, v_dec, **kw)
+
+    before = cuda_build.launch_counts()["decode_step"]
+    out = call()
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts()["decode_step"] == before + 1
+    if mode == "twice":
+        again = call()
+        assert torch.equal(again, out)
+    elif mode == "graph":
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = call()
+        for _ in range(2):
+            captured.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(captured, out)
     ref = decode_step_plain(t, seg, x0, *w.values(), k_enc, v_enc, kd2, vd2, **kw)
     diff = (out.float() - ref.float()).abs()
     if dtype == torch.float32:
@@ -160,6 +193,9 @@ def test_decode_step_matches_plain(dev, dtype):
     for mine, plain in ((k_dec, kd2), (v_dec, vd2)):
         err = (mine[0].float() - plain[0].float()).abs().max().item()
         assert err < row_tol, err
+    # rows other than t are untouched
+    rows = [r for r in range(t_max) if r != step]
+    assert torch.equal(k_dec[:, :, rows], kd2[:, :, rows])
 
 
 def test_greedy_backends_agree_on_card(dev):

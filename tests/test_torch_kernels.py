@@ -21,7 +21,7 @@ from sam_textvqa_tpu.ops.fused_attention import spatial_attention_fwd
 from sam_textvqa_tpu_torch.models.bert import merge_heads, split_heads
 from sam_textvqa_tpu_torch.ops import cuda_build
 from sam_textvqa_tpu_torch.ops.decode_attention import check_kernel_head_dim, decode_attention
-from sam_textvqa_tpu_torch.ops.decode_step import WEIGHT_NAMES, decode_step_fused
+from sam_textvqa_tpu_torch.ops.decode_step import WEIGHT_NAMES, _weight_shapes, decode_step_fused
 from sam_textvqa_tpu_torch.ops.fused_attention import spatial_attention
 from sam_textvqa_tpu_torch.ops.spatial_graph import build_spatial_graph, relation_head_lut
 
@@ -221,3 +221,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         spatial_attention(qkv, qkv, qkv, torch.zeros(1, 4, 4, dtype=torch.int8),
                           torch.zeros(13, 2), torch.zeros(1, 10), q_len=4, n_ctx=4,
                           dec_len=2, mask_quadrants=(3,))
+    # the decode step: a weight of the wrong shape, a LayerNorm param that is
+    # not float32, a bf16 weight under an f32 step (checked on the CPU too)
+    n_layers, f = 2, 128
+    w = {name: torch.zeros(n_layers, *shape[1:]) for name, shape
+         in _weight_shapes(n_layers, d, f).items()}
+    kv = [torch.zeros(n_layers, b, n, d) for n in (le, le, t_max, t_max)]
+    kw = dict(hd=32, q_len=6, n_obj=8)
+    decode_step_fused(t, seg, q, *w.values(), *kv, **kw)  # the well-formed call runs
+    for name, bad, match in (("wff1", torch.zeros(n_layers, f, d + 1), "wff1 has shape"),
+                             ("ln1w", torch.zeros(n_layers, d, dtype=torch.bfloat16),
+                              "ln1w has dtype"),
+                             ("wout", torch.zeros(n_layers, d, d, dtype=torch.bfloat16),
+                              "wout has dtype")):
+        with pytest.raises(ValueError, match=match):
+            decode_step_fused(t, seg, q, *{**w, name: bad}.values(), *kv, **kw)
