@@ -35,21 +35,34 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    the first 32 requests go through the ``plain``, ``fused`` and ``mega``
    decodes (bf16 answer agreement is printed) and one bf16 ``mega`` and
    one ``fused`` decode of them are timed;
+3b. the training path (``training.step``): one f32 train step of c3 at
+   batch 4 and dropout 0 (TF32 off) on the card and on the CPU from the
+   same weights, held against each other (loss, gradient norm before the
+   clip, clipped gradients, parameters after the update); then c3 in bf16
+   at batch 96 with dropout as configured: 3 warm-up and 10 timed steps on
+   one repeated batch (CUDA events per step; median, min, max, samples/s,
+   peak memory, every loss, the matmul FLOPs and ``mfu``), with the launch
+   counts zeroed before and read after (training runs no kernel: all must
+   be 0); the eval step of the trained model with ``attention_backend``
+   ``kernel`` (K1 must launch) and ``plain`` (argmax agreement, times); and
+   the trained model's f32 greedy ids, identical across ``plain`` and
+   ``mega``;
 4. after every timed phase, ``torch.profiler`` device time by kernel of one
    spatial-attention call (code pass and attention), of one bf16 decode
    step at batch 32 (its kernels by name with launch counts, so launches
-   per step read off) and of one bf16 ``mega`` decode of the batch (with
-   the card's idle share); then in f32
-   the three backends must give identical ids and the full forward with
-   the kernel attention must match the plain one;
-5. one JSON line of the kernels, then the result line
-   ``{"ok": true, "device": {...}}``.
+   per step read off), of one bf16 ``mega`` decode of the batch (with
+   the card's idle share) and of one bf16 train step at batch 96; then in
+   f32 the three backends must give identical ids and the full forward
+   with the kernel attention must match the plain one;
+5. one JSON line of the training path and one of the kernels, then the
+   result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX, and exits nonzero without a CUDA device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -62,6 +75,7 @@ import torch
 import torch.nn.functional as F
 
 from sam_textvqa_tpu_torch.config import load_task_config
+from sam_textvqa_tpu_torch.data.synthetic import device_batch, make_batch
 from sam_textvqa_tpu_torch.evaluation.metrics import decode_predictions
 from sam_textvqa_tpu_torch.models.bert import split_heads
 from sam_textvqa_tpu_torch.models.fast_decode import (_mega_step_consts, _seg_lens,
@@ -79,6 +93,9 @@ from sam_textvqa_tpu_torch.ops.spatial_graph import relation_head_lut
 from sam_textvqa_tpu_torch.serve import (build_model, build_vocab, run_demo,
                                          synthetic_requests)
 from sam_textvqa_tpu_torch.serving.engine import SAMPLE_KEYS, ServingEngine
+from sam_textvqa_tpu_torch.training.optimizer import make_optimizer
+from sam_textvqa_tpu_torch.training.step import (create_train_state, make_eval_step,
+                                                 make_train_step)
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "train-tvqa-eval-tvqa-c3.yml"
@@ -101,6 +118,17 @@ TOL = {
 }
 MEAN_TOL = {"spatial_attention": {torch.bfloat16: 1e-4}, "decode_step": {torch.bfloat16: 1e-2}}
 STEP_BUCKETS = (1, 8, 32)  # the serving buckets the decode step is held and timed at
+TRAIN_BATCH = 96  # the reference's batch (configs/train-tvqa-eval-tvqa-c3.yml)
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+PARITY_BATCH = 4
+# the f32 train step on the card against the CPU, TF32 off, dropout 0: the
+# loss and the gradient norm differ only by f32 summation order; so do the
+# clipped gradients, held as one vector (relative L2); an Adam step moves an
+# element by at most lr * warmup_factor whatever its gradient, and elements
+# whose gradient is float noise can move that far in opposite directions,
+# so parameters are held to twice that, and the share beyond the CPU tests'
+# tolerances (rtol 2e-4, atol 2e-6) is printed
+TRAIN_PARITY = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-4, "grad_rel_l2": 1e-4}
 REPLACES = {
     "spatial_attention": "sam_textvqa_tpu/ops/fused_attention.py:262",
     "decode_attention": "sam_textvqa_tpu/ops/decode_attention.py:167",
@@ -586,6 +614,167 @@ def main_path(task, vocab, model, samples) -> dict:
     )
 
 
+# ---------------------------------------------------------------- phase 3b
+
+def without_dropout(task):
+    zero = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    return dataclasses.replace(task, mmt=dataclasses.replace(task.mmt, obj_drop=0.0,
+                                                             ocr_drop=0.0, **zero),
+                               text_bert=dataclasses.replace(task.text_bert, **zero))
+
+
+def train_step_flops(task, b: int, num_answers: int) -> float:
+    """Matmul FLOPs of one train step at batch ``b``: the forward's products
+    (2 m n k each: projections, FFNs, QK^T and PV of every attention layer,
+    the obj/OCR input projections, classifier and pointer net), times 3 for
+    the forward and the two products of the backward."""
+    m, tb = task.mmt, task.text_bert
+    q, length, t = m.max_seq_length, m.joint_length, m.num_decoding_steps
+
+    def encoder(n_layers, rows, seq, d, f):
+        return n_layers * b * rows * (2 * (4 * d * d + 2 * d * f) + 4 * seq * d)
+
+    ocr_in = (300 + 604 if m.use_phoc_fasttext else 0) + m.obj_feature_size + 50
+    fwd = (encoder(tb.num_hidden_layers, q, q, tb.hidden_size, tb.intermediate_size)
+           + encoder(len(m.layer_type_list), length, length, m.hidden_size,
+                     m.intermediate_size)
+           + 2 * b * m.max_obj_num * (m.obj_feature_size + 4) * m.hidden_size
+           + 2 * b * m.max_ocr_num * (ocr_in + 4) * m.hidden_size
+           + 2 * b * t * m.hidden_size * num_answers
+           + 2 * b * (t + m.max_ocr_num) * m.hidden_size * m.ptr_query_size
+           + 2 * b * t * m.max_ocr_num * m.ptr_query_size)
+    if tb.hidden_size != m.hidden_size:
+        fwd += 2 * b * q * tb.hidden_size * m.hidden_size
+    return 3.0 * fwd
+
+
+def train_parity(task, num_answers: int, card=torch.device("cuda")) -> dict:
+    """One f32 train step of c3 at dropout 0 from the same weights (seed 0)
+    on the card and on the CPU; bars in ``TRAIN_PARITY``."""
+    task0 = without_dropout(task)
+    batch_np = make_batch(task0, PARITY_BATCH, seed=2, num_answers_vocab=num_answers)
+    runs = {}
+    for name, dev in (("card", card), ("cpu", torch.device("cpu"))):
+        model = build_model(task0, num_answers, torch.float32, seed=0, device=dev)
+        optimizer = make_optimizer(model, task0)
+        step = make_train_step(model, optimizer)
+        t0 = time.monotonic()
+        _, metrics = step(create_train_state(model, optimizer), device_batch(batch_np, dev),
+                          torch.Generator(device=dev).manual_seed(0))
+        runs[name] = (model, {k: v.cpu() for k, v in metrics.items()}, time.monotonic() - t0)
+    (card, m_card, s_card), (cpu, m_cpu, s_cpu) = runs["card"], runs["cpu"]
+    loss_rel = abs(m_card["loss"].item() / m_cpu["loss"].item() - 1)
+    norm_rel = abs(m_card["grad_norm"].item() / m_cpu["grad_norm"].item() - 1)
+    grads = [(a.grad.cpu(), b.grad) for a, b in zip(card.parameters(), cpu.parameters())]
+    grad_rel = (torch.linalg.vector_norm(torch.stack([(a - b).norm() for a, b in grads]))
+                / torch.linalg.vector_norm(torch.stack([b.norm() for _, b in grads]))).item()
+    worst, beyond, total = 0.0, 0, 0
+    for a, b in zip(card.parameters(), cpu.parameters()):
+        diff = (a.detach().cpu() - b.detach()).abs()
+        worst = max(worst, diff.max().item())
+        beyond += int((diff > 2e-6 + 2e-4 * b.detach().abs()).sum())
+        total += diff.numel()
+    param_bar = 2 * task0.lr * task0.warmup_factor
+    out = dict(batch=PARITY_BATCH, loss_card=m_card["loss"].item(),
+               loss_cpu=m_cpu["loss"].item(), loss_rel_err=loss_rel,
+               grad_norm_card=m_card["grad_norm"].item(),
+               grad_norm_cpu=m_cpu["grad_norm"].item(), grad_norm_rel_err=norm_rel,
+               clipped_grad_rel_l2=grad_rel, param_max_abs_err=worst, param_bar=param_bar,
+               params_beyond_cpu_test_tol=beyond, params=total,
+               pred_ids_agreement=(m_card["pred_ids"] == m_cpu["pred_ids"]).float().mean().item(),
+               card_s=s_card, cpu_s=s_cpu, bars=TRAIN_PARITY)
+    log(f"  f32 train step, card vs CPU: {json.dumps(out)}")
+    if not (loss_rel <= TRAIN_PARITY["loss_rtol"] and norm_rel <= TRAIN_PARITY["grad_norm_rtol"]
+            and grad_rel <= TRAIN_PARITY["grad_rel_l2"] and worst <= param_bar):
+        raise AssertionError(f"f32 train step on the card differs from the CPU: {out}")
+    return out
+
+
+def train_path(task, vocab, dev=torch.device("cuda")):
+    """c3 in bf16 at batch 96 (dropout as configured): warm-up and timed
+    steps on one repeated batch, with the launch counts zeroed before and
+    read after. Returns (results, model, batch, a call of one more step)."""
+    num_answers = len(vocab)
+    model = build_model(task, num_answers, torch.bfloat16, seed=0, device=dev)
+    optimizer = make_optimizer(model, task)
+    state = create_train_state(model, optimizer)
+    train_step = make_train_step(model, optimizer)
+    batch = device_batch(make_batch(task, TRAIN_BATCH, seed=3, num_answers_vocab=num_answers),
+                         dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = train_step(state, batch, gen)
+        end.record()
+        end.synchronize()
+        losses.append(metrics["loss"].item())
+        if i >= TRAIN_WARMUP:
+            step_ms.append(start.elapsed_time(end))
+    launches = cuda_build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    median = float(np.median(step_ms))
+    flops = train_step_flops(task, TRAIN_BATCH, num_answers)
+    out = dict(batch=TRAIN_BATCH, dtype="bfloat16 compute, f32 parameters and Adam state",
+               dropout=dict(hidden=task.mmt.hidden_dropout_prob,
+                            attention=task.mmt.attention_probs_dropout_prob,
+                            obj=task.mmt.obj_drop, ocr=task.mmt.ocr_drop),
+               warmup_steps=TRAIN_WARMUP, step_ms=step_ms, step_ms_median=median,
+               step_ms_min=min(step_ms), step_ms_max=max(step_ms),
+               samples_per_s=TRAIN_BATCH / (median / 1e3), peak_memory_bytes=peak,
+               losses=losses, last_grad_norm=metrics["grad_norm"].item(),
+               matmul_flops_per_step=flops, mfu=flops / (median / 1e3) / PEAK_OPS[torch.bfloat16],
+               mfu_peak="989 TFLOP/s dense bf16", launches=launches)
+    log(f"  train steps (c3, bf16, B={TRAIN_BATCH}): median {median:.2f} ms, "
+        f"{out['samples_per_s']:.1f} samples/s, peak {peak / 2**30:.2f} GiB, "
+        f"mfu {out['mfu']:.4f}, losses {[round(x, 3) for x in losses]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses are not finite and falling: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"the train steps launched kernels: {launches}")
+    return out, model, batch, (lambda: train_step(state, batch, gen))
+
+
+def trained_checks(task, vocab, model, batch) -> dict:
+    """The eval step of the trained model with the kernel attention (K1
+    must launch, counts zeroed before) and the plain one, timed; then its
+    f32 greedy ids on 32 rows, identical across ``plain`` and ``mega``."""
+    eval_step = make_eval_step(model)
+    out = {}
+    for backend in ("kernel", "plain"):
+        model.mmt.attention_backend = backend
+        cuda_build.reset_launch_counts()
+        out[backend] = eval_step(batch)
+        torch.cuda.synchronize()
+        out[f"{backend}_launches"] = cuda_build.launch_counts()
+        out[f"{backend}_ms"] = cuda_ms(lambda: eval_step(batch), iters=5, warmup=1)
+    model.mmt.attention_backend = "plain"
+    require_launched(out["kernel_launches"], ("spatial_attention",), "kernel eval step")
+    if any(out["plain_launches"].values()):
+        raise AssertionError(f"the plain eval step launched kernels: {out['plain_launches']}")
+    k, p = out.pop("kernel"), out.pop("plain")
+    out.update(batch=TRAIN_BATCH, loss_kernel=k["loss"].item(), loss_plain=p["loss"].item(),
+               argmax_agreement=(k["pred_ids"] == p["pred_ids"]).float().mean().item())
+    bos = vocab.special_ids().bos
+    rows = {key: v[:BATCH] for key, v in batch.items()}
+    model.dtype = torch.float32
+    ids = {b: greedy_decode_fast(model, rows, bos, backend=b)[1] for b in ("plain", "mega")}
+    model.dtype = torch.bfloat16
+    if not torch.equal(ids["mega"], ids["plain"]):
+        raise AssertionError("trained model: f32 greedy ids differ between mega and plain")
+    out["trained_f32_greedy_ids_identical_mega_vs_plain"] = True
+    log(f"  eval step of the trained model (B={TRAIN_BATCH}, bf16): kernel "
+        f"{out['kernel_ms']:.2f} ms ({out['kernel_launches']['spatial_attention']} K1 launches), "
+        f"plain {out['plain_ms']:.2f} ms, argmax agreement {out['argmax_agreement']:.4f}; "
+        f"f32 greedy ids identical across plain and mega")
+    return out
+
+
 def f32_checks(task, vocab, model, batch, prev_ids) -> dict:
     bos = vocab.special_ids().bos
     model.dtype = torch.float32
@@ -663,9 +852,15 @@ def main() -> int:
         breakdown[f"{name}_kernels_ms"] = n * kernels[name]["ms"]
         breakdown[f"{name}_kernels_device_ms"] = n * kernels[name]["device_ms"]
     breakdown["decode_step_share"] = breakdown["decode_step_kernels_ms"] / breakdown["decode_ms"]
+
+    log("== phase 3b: training path (c3: f32 card vs CPU; bf16 batch 96 train steps; eval)")
+    training = {"parity_f32": train_parity(task, len(vocab))}
+    training["train"], trained, train_batch, train_call = train_path(task, vocab)
+    training["eval"] = trained_checks(task, vocab, trained, train_batch)
     # profiles come after every timed phase, so that no timing runs after
     # the profiler has been started in this process
-    log("== phase 4: device profiles (K1 call, K3 step at B=32, B=32 bf16 mega decode)")
+    log("== phase 4: device profiles (K1 call, K3 step at B=32, B=32 bf16 mega decode, "
+        "B=96 bf16 train step)")
     split = device_profile(spatial_call)
     kernels["spatial_attention"]["device_split"] = split.get("kernels", split)
     step_graph = torch.cuda.CUDAGraph()  # one step, replayed: no host gaps in the span
@@ -691,6 +886,7 @@ def main() -> int:
     main["profile_b32"] = device_profile(
         lambda: greedy_decode_fast(model, main["batch"], vocab.special_ids().bos,
                                    backend="mega"))
+    training["profile_train_step"] = device_profile(train_call)
     log(json.dumps({k: v for k, v in main.items() if k not in ("batch", "ids_mega_bf16")}))
     checks = f32_checks(task, vocab, model, main["batch"], main["ids_mega_bf16"])
     log(json.dumps(checks))
@@ -704,8 +900,11 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": (main["fused_launches"] if fused else main["launches"])[name],
             "path": "serving, backend fused" if fused else "serving, backend auto (mega)",
+            "train_launches": training["train"]["launches"][name],
+            "kernel_eval_step_launches": training["eval"]["kernel_launches"][name],
             "parity": "ok", **res,
         })
+    print(json.dumps({"training": training}), flush=True)
     log(f"total seconds: {time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -98,6 +98,10 @@ class MMTConfig:
     spatial_type: str = "top"
     use_bias: bool = False
     no_drop: bool = False
+    # opt-in dropout variants of the JAX package (its config.py:122,135),
+    # not ported yet: SAM4C raises when either is set
+    dropout_mask_reuse: bool = False
+    dropout_fused_draw: bool = False
 
     @property
     def joint_length(self) -> int:

@@ -284,9 +284,11 @@ def resolve_backend(backend: str, cfg: MMTConfig, device: torch.device) -> str:
     return chosen
 
 
+@torch.no_grad()
 def _mega_step_consts(mmt, dtype) -> Dict[str, torch.Tensor]:
     """Stacked per-layer weights in torch (out, in) layout, cast once per
-    decode: matrices and biases in ``dtype``, LayerNorm params in f32."""
+    decode: matrices and biases in ``dtype``, LayerNorm params in f32. Taken
+    outside autograd: the decode-step kernel has no backward."""
     layers = [layer for _, _, layer in mmt.iter_layers()]
 
     def stack(get, dt):

@@ -5,15 +5,23 @@
 * :func:`gelu_erf` — erf GeLU (reference sam/sa_m4c.py:985-991);
 * :func:`masked_softmax_attention` — f32 softmax over 0/-10000 additive
   biases, with fully-masked rows zeroed (reference sam/sa_m4c.py:574-584);
-* :func:`l2_normalize` — ``F.normalize(dim=-1)`` semantics.
+* :func:`l2_normalize` — ``F.normalize(dim=-1)`` semantics;
+* :func:`dropout` — inverted dropout drawn from an explicit
+  ``torch.Generator`` (the math of JAX ``apply_keep_mask``).
 
 Parameters are stored in f32; a module computes in the dtype of its input,
 like the JAX package's ``Dense`` (f32 params cast at the matmul).
+
+Dropout is switched by an explicit argument, never by
+``nn.Module.training``: every module's forward takes ``generator``, and
+``None`` (the default) is the deterministic forward. Only the top-level
+forwards take ``deterministic`` (:func:`dropout_generator`).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Iterable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -61,20 +69,49 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.clamp(norm, min=eps)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: ``where(keep, x / (1 - rate), 0)`` with ``keep`` a
+    bool mask drawn from ``generator`` on ``x``'s device (JAX
+    ``apply_keep_mask``, models/layers.py:37-43). The identity when
+    ``generator`` is None or ``rate`` is 0. Only the bool mask outlives the
+    call (autograd keeps it for the backward); the f32 uniforms are freed."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def dropout_generator(deterministic: bool, generator: Optional[torch.Generator],
+                      rates: Iterable[float]) -> Optional[torch.Generator]:
+    """The generator a top-level forward hands its modules: None when
+    ``deterministic``; with ``deterministic=False`` the caller's generator,
+    which must be given when any of ``rates`` is above 0."""
+    if deterministic:
+        return None
+    if generator is None and any(r > 0.0 for r in rates):
+        raise ValueError("deterministic=False with a dropout rate above 0 needs a "
+                         "torch.Generator on the inputs' device")
+    return generator
+
+
 def row_alive_from_bias(bias: torch.Tensor) -> torch.Tensor:
     """A row is alive if any key's additive bias sits above MASK_BIAS / 2
     (exact for every bias dtype; bf16 rounds -10000 to -9984)."""
     return bias.amax(dim=-1, keepdim=True) > (MASK_BIAS / 2)
 
 
-def masked_softmax_attention(scores, bias, zero_fully_masked: bool = False):
+def masked_softmax_attention(scores, bias, zero_fully_masked: bool = False,
+                             dropout_rate: float = 0.0, generator=None):
     """softmax(scores + bias) in f32, cast back to the scores' dtype; with
-    ``zero_fully_masked`` rows whose every key is masked become zeros."""
+    ``zero_fully_masked`` rows whose every key is masked become zeros. The
+    attention-probs dropout comes after the zeroing, as in JAX
+    ``masked_softmax_attention`` (models/layers.py:118-130)."""
     scores = scores + bias.to(scores.dtype)
     probs = torch.softmax(scores.float(), dim=-1).to(scores.dtype)
     if zero_fully_masked:
         probs = probs * row_alive_from_bias(bias).to(probs.dtype)
-    return probs
+    return dropout(probs, dropout_rate, generator)
 
 
 def causal_mask(length: int, device=None) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """Multimodal transformer (MMT) over the joint [question; objects; OCR;
 decoder] stream, with interleaved normal/spatial layers, previous-prediction
 embeddings and the OCR pointer network (reference MMT / BertSpatialEncoder /
-PrevPredEmbeddings / OcrPtrNet, sam/sa_m4c.py:687-948). Deterministic
-forward; dropout belongs to the training step, a later part of the port.
+PrevPredEmbeddings / OcrPtrNet, sam/sa_m4c.py:687-948). Dropout sites as
+in the JAX package's ``models/mmt.py``: the decoder embeddings (:93) and
+every layer's attention probs and hidden states, with ``no_drop`` zeroing
+only the spatial layers' attention-probs rate (:195).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from ..config import MATRIX_TYPE_MAP, MMTConfig
 from ..ops.fused_attention import combined_permission
 from ..ops.spatial_graph import relation_head_lut
 from .bert import BertLayer
-from .layers import MASK_BIAS, Dense, LayerNormTF
+from .layers import MASK_BIAS, Dense, LayerNormTF, dropout, dropout_generator
 from .spatial import SpatialBertLayer
 
 ATTENTION_BACKENDS = ("plain", "kernel")
@@ -31,15 +33,16 @@ class PrevPredEmbeddings(nn.Module):
     MAX_DEC_LENGTH = 100
     MAX_TYPE_NUM = 5
 
-    def __init__(self, hidden_size=768, layer_norm_eps=1e-12):
+    def __init__(self, hidden_size=768, layer_norm_eps=1e-12, hidden_dropout_prob=0.0):
         super().__init__()
+        self.hidden_dropout_prob = hidden_dropout_prob
         self.position_embeddings = nn.Embedding(self.MAX_DEC_LENGTH, hidden_size)
         self.token_type_embeddings = nn.Embedding(self.MAX_TYPE_NUM, hidden_size)
         self.ans_layer_norm = LayerNormTF(hidden_size, layer_norm_eps)
         self.ocr_layer_norm = LayerNormTF(hidden_size, layer_norm_eps)
         self.emb_layer_norm = LayerNormTF(hidden_size, layer_norm_eps)
 
-    def forward(self, ans_emb, ocr_emb, prev_inds):
+    def forward(self, ans_emb, ocr_emb, prev_inds, generator=None):
         dtype = ocr_emb.dtype
         seq_len = prev_inds.shape[1]
         ans_num = ans_emb.shape[0]
@@ -61,7 +64,7 @@ class PrevPredEmbeddings(nn.Module):
             self.position_embeddings.weight[None, :seq_len]
             + self.token_type_embeddings.weight[token_type]
         ).to(dtype)
-        return raw + self.emb_layer_norm(emb)
+        return raw + dropout(self.emb_layer_norm(emb), self.hidden_dropout_prob, generator)
 
 
 class OcrPtrNet(nn.Module):
@@ -93,7 +96,8 @@ class MMT(nn.Module):
     """Joint-stream transformer (reference MMT, sa_m4c.py:773-863).
 
     ``attention_backend``: ``"plain"`` (explicit masks) or ``"kernel"`` (the
-    fused spatial-attention kernel; the forward is deterministic either way).
+    fused spatial-attention kernel, for deterministic forwards: with dropout
+    active the plain attention runs, as in JAX ``mmt.py:176``).
     """
 
     def __init__(self, config: MMTConfig, attention_backend: str = "plain"):
@@ -108,14 +112,19 @@ class MMT(nn.Module):
         self.config = config
         self.attention_backend = attention_backend
         c = config
-        self.prev_pred_embeddings = PrevPredEmbeddings(c.hidden_size, c.layer_norm_eps)
+        self.prev_pred_embeddings = PrevPredEmbeddings(c.hidden_size, c.layer_norm_eps,
+                                                       c.hidden_dropout_prob)
         n_normal = c.layer_type_list.count("n")
         n_spatial = c.layer_type_list.count("s")
+        spatial_attn_drop = 0.0 if c.no_drop else c.attention_probs_dropout_prob
         self.encoder = _SpatialEncoder(
             [BertLayer(c.hidden_size, c.num_attention_heads, c.intermediate_size,
-                       c.layer_norm_eps) for _ in range(n_normal)],
+                       c.layer_norm_eps, hidden_dropout_prob=c.hidden_dropout_prob,
+                       attention_probs_dropout_prob=c.attention_probs_dropout_prob)
+             for _ in range(n_normal)],
             [SpatialBertLayer(c.hidden_size, c.num_spatial_relations, c.intermediate_size,
-                              c.layer_norm_eps, c.use_bias) for _ in range(n_spatial)],
+                              c.layer_norm_eps, c.use_bias, c.hidden_dropout_prob,
+                              spatial_attn_drop) for _ in range(n_spatial)],
         )
 
     def iter_layers(self) -> Iterator[Tuple[str, str, BertLayer]]:
@@ -127,9 +136,12 @@ class MMT(nn.Module):
             yield layer_type, mix, next(normal if layer_type == "n" else spatial)
 
     def forward(self, text_bert_emb, obj_mmt_in, ocr_mmt_in, fixed_ans_emb, prev_inds,
-                question_mask, obj_mask, ocr_mask, spatial_classes) -> Dict[str, torch.Tensor]:
+                question_mask, obj_mask, ocr_mask, spatial_classes, deterministic: bool = True,
+                generator=None) -> Dict[str, torch.Tensor]:
         cfg = self.config
-        dec_emb = self.prev_pred_embeddings(fixed_ans_emb, ocr_mmt_in, prev_inds)
+        generator = dropout_generator(deterministic, generator, (
+            cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob))
+        dec_emb = self.prev_pred_embeddings(fixed_ans_emb, ocr_mmt_in, prev_inds, generator)
         x = torch.cat([text_bert_emb, obj_mmt_in, ocr_mmt_in, dec_emb], dim=1)
         b, length, _ = x.shape
         dec_len = dec_emb.shape[1]
@@ -154,7 +166,8 @@ class MMT(nn.Module):
                 continue
             lut = torch.tensor(relation_head_lut(key)[:, :hs], dtype=torch.float32,
                                device=x.device)
-            if self.attention_backend == "kernel":
+            # the kernel has no dropout and no backward: deterministic only
+            if self.attention_backend == "kernel" and deterministic:
                 spatial_args[key] = {"kernel_ctx": dict(
                     classes=spatial_classes.contiguous(), lut=lut, col_mask=col_mask,
                     spatial=True, **perm)}
@@ -164,9 +177,9 @@ class MMT(nn.Module):
 
         for layer_type, mix, layer in self.iter_layers():
             if layer_type == "n":
-                x = layer(x, base_bias)
+                x = layer(x, base_bias, generator=generator)
             else:
-                x = layer(x, **spatial_args[MATRIX_TYPE_MAP[mix]])
+                x = layer(x, generator=generator, **spatial_args[MATRIX_TYPE_MAP[mix]])
 
         ocr_begin = q_len + cfg.max_obj_num
         return {

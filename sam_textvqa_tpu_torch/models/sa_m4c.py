@@ -6,6 +6,10 @@ Submodule names give the reference ``state_dict`` keys, so a converted JAX
 tree (``utils.checkpoint.state_dict_from_jax``) or a reference checkpoint
 loads with ``load_state_dict(strict=True)``. Parameters stay float32; the
 forward computes in ``dtype`` (float32 or bfloat16).
+
+Dropout is on only in a forward called with ``deterministic=False`` and a
+``torch.Generator`` (JAX's ``deterministic`` with its ``dropout`` rng); a
+freshly built module in training mode still runs the deterministic forward.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from torch import nn
 from ..config import MMTConfig, TextBertConfig
 from .bert import TextBert
 from .encoders import ImageEncoder
-from .layers import Dense, LayerNormTF, l2_normalize
+from .layers import Dense, LayerNormTF, dropout, dropout_generator, l2_normalize
 from .mmt import MMT, OcrPtrNet
 
 
@@ -37,6 +41,9 @@ class SAM4C(nn.Module):
         mmt_cfg, tb_cfg = params_cfg.mmt, params_cfg.text_bert
         if mmt_cfg.use_aux_heads:
             raise NotImplementedError("the aux spatial heads are not ported yet")
+        for option in ("dropout_mask_reuse", "dropout_fused_draw"):
+            if getattr(mmt_cfg, option):
+                raise NotImplementedError(f"{option} is not ported yet")
         self.params_cfg = params_cfg
         self.dtype = dtype
         hidden = mmt_cfg.hidden_size
@@ -49,6 +56,8 @@ class SAM4C(nn.Module):
             layer_norm_eps=tb_cfg.layer_norm_eps,
             max_position_embeddings=tb_cfg.max_position_embeddings,
             type_vocab_size=tb_cfg.type_vocab_size,
+            hidden_dropout_prob=tb_cfg.hidden_dropout_prob,
+            attention_probs_dropout_prob=tb_cfg.attention_probs_dropout_prob,
         )
         # TextBERT -> MMT projection, only when the widths differ
         # (reference sa_m4c.py:93-103)
@@ -89,12 +98,19 @@ class SAM4C(nn.Module):
                 module.bias.zero_()
         return self
 
+    def _dropout_rates(self) -> Tuple[float, ...]:
+        m, t = self.params_cfg.mmt, self.params_cfg.text_bert
+        return (m.hidden_dropout_prob, m.attention_probs_dropout_prob, m.obj_drop,
+                m.ocr_drop, t.hidden_dropout_prob, t.attention_probs_dropout_prob)
+
     # ----- modality encoders (decode-invariant) -----
 
-    def encode(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def encode(self, batch: Dict[str, torch.Tensor], deterministic: bool = True,
+               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """Everything that does not depend on the previous predictions."""
         cfg = self.params_cfg.mmt
         dt = self.dtype
+        generator = dropout_generator(deterministic, generator, self._dropout_rates())
         obj_feat = self.obj_faster_rcnn_fc7(batch["pad_obj_features"].to(dt))
         if cfg.normalize:
             obj_feat = l2_normalize(obj_feat)
@@ -102,6 +118,7 @@ class SAM4C(nn.Module):
         obj_mmt_in = self.obj_feat_layer_norm(
             self.linear_obj_feat_to_mmt_in(obj_feat)
         ) + self.obj_bbox_layer_norm(self.linear_obj_bbox_to_mmt_in(obj_bbox))
+        obj_mmt_in = dropout(obj_mmt_in, cfg.obj_drop, generator)
 
         ocr_fasttext = batch["ocr_fasttext"].to(dt)
         ocr_phoc = batch["ocr_phoc"].to(dt)
@@ -118,9 +135,10 @@ class SAM4C(nn.Module):
         ocr_mmt_in = self.ocr_feat_layer_norm(
             self.linear_ocr_feat_to_mmt_in(ocr_feat)
         ) + self.ocr_bbox_layer_norm(self.linear_ocr_bbox_to_mmt_in(ocr_bbox))
+        ocr_mmt_in = dropout(ocr_mmt_in, cfg.ocr_drop, generator)
 
         text_bert_out = self.text_bert(
-            batch["question_indices"], batch["question_mask"], dt
+            batch["question_indices"], batch["question_mask"], dt, generator
         )
         if self.text_bert_out_linear is not None:
             text_bert_out = self.text_bert_out_linear(text_bert_out)
@@ -130,13 +148,15 @@ class SAM4C(nn.Module):
             "ocr_mmt_in": ocr_mmt_in,
         }
 
-    def decode_step(self, encodings, batch, prev_inds) -> Dict[str, torch.Tensor]:
+    def decode_step(self, encodings, batch, prev_inds, deterministic: bool = True,
+                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """One MMT + output-heads pass for given previous predictions."""
         dt = self.dtype
         out = self.mmt(
             encodings["text_bert_emb"], encodings["obj_mmt_in"], encodings["ocr_mmt_in"],
             self.classifier.weight, prev_inds, batch["question_mask"],
             batch["pad_obj_mask"], batch["pad_ocr_mask"], batch["spatial_classes"],
+            deterministic, generator,
         )
         fixed_scores = self.classifier(out["mmt_dec_output"])
         dynamic_scores = self.ocr_ptr_net(
@@ -145,9 +165,13 @@ class SAM4C(nn.Module):
         out["scores"] = torch.cat([fixed_scores, dynamic_scores], dim=-1)
         return out
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Teacher-forced forward on ``train_prev_inds``."""
-        return self.decode_step(self.encode(batch), batch, batch["train_prev_inds"])
+    def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Teacher-forced forward on ``train_prev_inds``; with
+        ``deterministic=False`` every dropout site draws from ``generator``
+        in a fixed order."""
+        return self.decode_step(self.encode(batch, deterministic, generator), batch,
+                                batch["train_prev_inds"], deterministic, generator)
 
 
 @torch.no_grad()

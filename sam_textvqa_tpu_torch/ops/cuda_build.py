@@ -161,6 +161,17 @@ def stream(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+def refuse_grad(what: str, tensors: Iterable[torch.Tensor]) -> None:
+    """Raise when grad mode is on and any of ``tensors`` requires grad: the
+    kernels have no backward (neither have the JAX package's), and writing
+    into a preallocated output would silently drop the gradient. Checked
+    before the device branch, so the CPU path refuses the same calls."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward; call it under torch.no_grad() on "
+                           f"tensors that do not require grad (training uses the "
+                           f"plain attention)")
+
+
 def _require_kind(t: torch.Tensor, name: str, dtype, shape, device: torch.device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")

@@ -64,7 +64,8 @@ def check_kernel_head_dim(hd: int, dtype) -> None:
 
 def decode_attention(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, *, hd: int,
                      q_len: int, n_obj: int):
-    """Fused one-row decode attention.
+    """Fused one-row decode attention; raises under grad on inputs that
+    require it (no backward).
 
     Args:
       q: (B, D) decoder-row queries, head-flat, float32 or bfloat16.
@@ -76,6 +77,7 @@ def decode_attention(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, *, hd: int,
     Returns:
       (B, D) attention context, head-flat.
     """
+    cuda_build.refuse_grad("decode_attention", (q, k_enc, v_enc, k_dec, v_dec))
     check_decode_shapes(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, hd, q_len, n_obj)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t,

@@ -105,6 +105,7 @@ def decode_step_fused(t, seg_lens, x0, wqkv, bqkv, wout, bout, ln1w, ln1b,
                       wff1, bff1, wff2, bff2, ln2w, ln2b, k_enc, v_enc,
                       k_dec, v_dec, *, hd: int, q_len: int, n_obj: int):
     """One decode step (all layers). Updates ``k_dec``/``v_dec`` in place.
+    Raises under grad on inputs that require it (no backward).
 
     Args:
       t: (1,) int32 step index on the device (one build serves every step).
@@ -120,6 +121,7 @@ def decode_step_fused(t, seg_lens, x0, wqkv, bqkv, wout, bout, ln1w, ln1b,
     """
     args = (t, seg_lens, x0, wqkv, bqkv, wout, bout, ln1w, ln1b, wff1, bff1, wff2, bff2,
             ln2w, ln2b, k_enc, v_enc, k_dec, v_dec)
+    cuda_build.refuse_grad("decode_step_fused", args)
     n_layers, b, le, d, t_max, f = _check_config(
         tuple(x.shape for x in args), tuple(x.dtype for x in args), hd, q_len, n_obj)
     if x0.device.type == "cpu":

@@ -80,7 +80,8 @@ def spatial_attention(
     mask_quadrants: Sequence[int] = (1, 2),
     spatial: bool = True,
 ):
-    """Fused deterministic forward.
+    """Fused deterministic forward; raises under grad on inputs that require
+    it (no backward).
 
     Args:
       q, k, v: (B, H, L, D) float32 or bfloat16 (all three alike), L =
@@ -99,6 +100,7 @@ def spatial_attention(
       softmax and P.V, one rounding to bfloat16 (what the JAX kernel
       computes on bfloat16 inputs).
     """
+    cuda_build.refuse_grad("spatial_attention", (q, k, v, lut, col_mask))
     _check_args(q, k, v, classes, lut, col_mask, q_len, n_ctx, dec_len, mask_quadrants)
     b, h, length, d = q.shape
     out = q.new_empty(b, length, h, d).transpose(1, 2)

@@ -31,6 +31,9 @@ from sam_textvqa_tpu_torch.ops.decode_step import (WEIGHT_NAMES, decode_step_fus
                                                    decode_step_plain)
 from sam_textvqa_tpu_torch.ops.fused_attention import spatial_attention, spatial_attention_plain
 from sam_textvqa_tpu_torch.ops.spatial_graph import build_spatial_graph, relation_head_lut
+from sam_textvqa_tpu_torch.training.optimizer import make_optimizer
+from sam_textvqa_tpu_torch.training.step import (create_train_state, make_eval_step,
+                                                 make_train_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -216,3 +219,120 @@ def test_greedy_backends_agree_on_card(dev):
         s_k, p_k = greedy_decode_fast(model, batch, 1, backend=backend)
         assert torch.equal(p_k, p_p), backend
         assert (s_k - s_p).abs().max().item() < 1e-4, backend
+
+
+# ---------------------------------------------------------------- training
+
+
+def _train_task(**mmt):
+    """A small config whose head dims the kernels take (64): hidden 128, 2
+    heads, one TextBERT layer, 8 objects, 6 OCR tokens, 4 decode steps."""
+    cfg = task_config_from_dict({"SA-M4C": {}, "TextBERT": {"num_hidden_layers": 1}})
+    m = dataclasses.replace(
+        cfg.mmt, hidden_size=128, intermediate_size=256, ptr_query_size=128, max_obj_num=8,
+        max_ocr_num=6, num_decoding_steps=4, max_seq_length=6, num_attention_heads=2,
+        num_spatial_relations=2, **mmt)
+    tb = dataclasses.replace(cfg.text_bert, hidden_size=128, intermediate_size=256,
+                             num_attention_heads=2)
+    return dataclasses.replace(cfg, mmt=m, text_bert=tb)
+
+
+def _train_once(task, dev, dtype=torch.float32, batch_size=4):
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, 40), dtype=dtype)
+    model = model.init_weights(torch.Generator().manual_seed(0)).to(dev)
+    optimizer = make_optimizer(model, task)
+    batch = device_batch(make_batch(task, batch_size, num_answers_vocab=40), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    _, metrics = make_train_step(model, optimizer)(create_train_state(model, optimizer), batch,
+                                                   gen)
+    return model, metrics
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One f32 step at dropout 0 from the same weights on the card and the
+    CPU (TF32 off): loss rtol 1e-5 and gradient norm rtol 1e-4 (f32 sums in
+    another order); the clipped gradients' difference below 1e-4 of their
+    norm; parameters within the most one Adam step can move an element
+    (lr times the warm-up factor) on each side."""
+    task = _train_task(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                       obj_drop=0.0, ocr_drop=0.0)
+    task = dataclasses.replace(task, text_bert=dataclasses.replace(
+        task.text_bert, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
+    card, m_card = _train_once(task, dev)
+    cpu, m_cpu = _train_once(task, torch.device("cpu"))
+    assert m_card["loss"].item() == pytest.approx(m_cpu["loss"].item(), rel=1e-5)
+    assert m_card["grad_norm"].item() == pytest.approx(m_cpu["grad_norm"].item(), rel=1e-4)
+    grads = [(a.grad.cpu(), b.grad) for a, b in zip(card.parameters(), cpu.parameters())]
+    diff = torch.linalg.vector_norm(torch.stack([(a - b).norm() for a, b in grads]))
+    norm = torch.linalg.vector_norm(torch.stack([b.norm() for _, b in grads]))
+    assert diff.item() <= 1e-4 * norm.item(), (diff.item(), norm.item())
+    step_bound = 2 * task.lr * task.warmup_factor
+    for (name, a), b in zip(card.named_parameters(), cpu.parameters()):
+        assert (a.detach().cpu() - b.detach()).abs().max().item() <= step_bound, name
+
+
+def test_bf16_train_step_on_card(dev):
+    """bf16 compute over f32 parameters, dropout 0.1: a finite loss and a
+    finite gradient on every parameter; no kernel launched."""
+    before = cuda_build.launch_counts()
+    model, metrics = _train_once(_train_task(), dev, torch.bfloat16, batch_size=8)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts() == before
+    assert torch.isfinite(metrics["loss"]).item()
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.float32 and p.grad is not None, name
+        assert torch.isfinite(p.grad).all().item(), name
+
+
+@pytest.mark.parametrize("name", ["spatial_attention", "decode_attention", "decode_step"])
+def test_kernel_wrappers_refuse_grad_on_card(dev, name):
+    rng = np.random.RandomState(0)
+    if name == "spatial_attention":
+        q, k, v, *rest = _spatial_inputs(rng, 2, 2, 6, 14, 4, 16, dev)
+        args, call = [q, k, v], lambda *a: spatial_attention(*a, *rest, q_len=6, n_ctx=14,
+                                                             dec_len=4)
+    else:
+        layers = None if name == "decode_attention" else 2
+        d, f, le, t_max = 128, 256, 20, 4
+        k_enc, v_enc, k_dec, v_dec, seg = _decode_inputs(rng, 2, d, le, t_max, 6, 8,
+                                                         torch.float32, dev, layers=layers)
+        t = torch.tensor([1], dtype=torch.int32, device=dev)
+        x = torch.from_numpy(rng.randn(2, d).astype(np.float32)).to(dev)
+        kw = dict(hd=64, q_len=6, n_obj=8)
+        if layers is None:
+            args = [x, k_enc, v_enc, k_dec, v_dec]
+            call = lambda *a: decode_attention(*a, seg, t, **kw)  # noqa: E731
+        else:
+            shapes = {"wqkv": (3 * d, d), "bqkv": (3 * d,), "wout": (d, d), "bout": (d,),
+                      "ln1w": (d,), "ln1b": (d,), "wff1": (f, d), "bff1": (f,),
+                      "wff2": (d, f), "bff2": (d,), "ln2w": (d,), "ln2b": (d,)}
+            w = [torch.from_numpy(0.05 * rng.randn(layers, *shapes[n]).astype(np.float32))
+                 .to(dev) for n in WEIGHT_NAMES]
+            args = [x, *w, k_enc, v_enc, k_dec, v_dec]
+            call = lambda *a: decode_step_fused(t, seg, *a, **kw)  # noqa: E731
+    before = cuda_build.launch_counts()[name]
+    call(*args)
+    args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(*args)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts()[name] == before + 1  # the refused call launched nothing
+
+
+def test_eval_step_kernel_backend_launches_k1(dev):
+    """The eval step with ``attention_backend="kernel"`` runs K1 once per
+    spatial layer and agrees with the plain backend (f32: loss rtol 1e-5,
+    ids equal)."""
+    task = _train_task()
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, 40))
+    model = model.init_weights(torch.Generator().manual_seed(0)).to(dev)
+    batch = device_batch(make_batch(task, 4, num_answers_vocab=40), dev)
+    plain = make_eval_step(model)(batch)
+    model.mmt.attention_backend = "kernel"
+    before = cuda_build.launch_counts()["spatial_attention"]
+    out = make_eval_step(model)(batch)
+    torch.cuda.synchronize()
+    launched = cuda_build.launch_counts()["spatial_attention"] - before
+    assert launched == task.mmt.layer_type_list.count("s")
+    assert out["loss"].item() == pytest.approx(plain["loss"].item(), rel=1e-5)
+    assert torch.equal(out["pred_ids"], plain["pred_ids"])
