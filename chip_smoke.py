@@ -47,6 +47,25 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    ``kernel`` (K1 must launch) and ``plain`` (argmax agreement, times); and
    the trained model's f32 greedy ids, identical across ``plain`` and
    ``mega``;
+5. the train CLI (``sam_textvqa_tpu_torch.train.main``, in this process)
+   at the full width of c3, bf16, batch 96, ``--synthetic 480`` (5 steps
+   per epoch; 120 validation samples, 2 batches of 96, the second
+   repeat-padded), under a temporary ``output_dir``: 2 epochs with
+   validation (the loop's samples/s beside the bare step's of phase 3b,
+   each validation's accuracy, seconds, samples/s and kernel launches, K1
+   and K3 required there and none in the train steps, the checkpoints'
+   bytes and save seconds, peak memory); then the resume check in a child
+   process started with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and run with
+   ``torch.use_deterministic_algorithms`` on: an uninterrupted 2-epoch
+   ``main`` against 1 epoch plus a ``--resume``-d second in fresh ``main``
+   calls (step and parameters bit-identical); ``--pretrained_eval`` of the
+   best model with ``auto``
+   (K1 and K3 launched, accuracy equal to the loop's best) and with
+   ``fused`` (K1 and K2 launched), both writing ``evalai_val.json``; the
+   best model's f32 greedy ids over the whole val split identical across
+   ``plain``, ``fused`` and ``mega``; and K1 and K3 against their plain
+   versions at batch 96, the validation's batch. It runs before phase 4,
+   so that no timing follows the profiler;
 4. after every timed phase, ``torch.profiler`` device time by kernel of one
    spatial-attention call (code pass and attention), of one bf16 decode
    step at batch 32 (its kernels by name with launch counts, so launches
@@ -54,8 +73,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    the card's idle share) and of one bf16 train step at batch 96; then in
    f32 the three backends must give identical ids and the full forward
    with the kernel attention must match the plain one;
-5. one JSON line of the training path and one of the kernels, then the
-   result line ``{"ok": true, "device": {...}}``.
+6. JSON lines of the training path, of the train CLI and of the kernels,
+   then the result line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --resume-check CONFIG DIR [DEVICE]`` is that child: it prints
+one JSON line. The parent sets the cuBLAS workspace variable for the child
+only, so the phases it times run as they ran before phase 5 existed.
 
 It imports nothing of JAX, and exits nonzero without a CUDA device.
 """
@@ -64,18 +87,24 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sam_textvqa_tpu_torch import train as train_cli
 from sam_textvqa_tpu_torch.config import load_task_config
-from sam_textvqa_tpu_torch.data.synthetic import device_batch, make_batch
+from sam_textvqa_tpu_torch.data.dataset import EpochBatcher
+from sam_textvqa_tpu_torch.data.synthetic import SyntheticDataset, device_batch, make_batch
 from sam_textvqa_tpu_torch.evaluation.metrics import decode_predictions
 from sam_textvqa_tpu_torch.models.bert import split_heads
 from sam_textvqa_tpu_torch.models.fast_decode import (_mega_step_consts, _seg_lens,
@@ -96,6 +125,7 @@ from sam_textvqa_tpu_torch.serving.engine import SAMPLE_KEYS, ServingEngine
 from sam_textvqa_tpu_torch.training.optimizer import make_optimizer
 from sam_textvqa_tpu_torch.training.step import (create_train_state, make_eval_step,
                                                  make_train_step)
+from sam_textvqa_tpu_torch.utils.checkpoint import restore_checkpoint
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "train-tvqa-eval-tvqa-c3.yml"
@@ -775,6 +805,241 @@ def trained_checks(task, vocab, model, batch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 5
+
+CLI_SYNTHETIC = 480  # 5 train steps per epoch at 96; 120 val samples: 2 batches
+CLI_EPOCHS = 2
+
+
+def cli_args(config: str, tag: str, *extra: str, dev=torch.device("cuda")) -> list:
+    return ["--config", config, "--tag", tag, "--synthetic", str(CLI_SYNTHETIC),
+            "--batch_size", str(TRAIN_BATCH), "--device", dev.type, "--dtype", "bf16", *extra]
+
+
+def final_params(result) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in result["state"].model.state_dict().items()}
+
+
+def resume_child(config: str, out_dir: str, device: str = "cuda") -> int:
+    """``--resume-check``: with deterministic algorithms on (warn only), an
+    uninterrupted run of CLI_EPOCHS epochs, then one epoch plus a resumed
+    second, each in a fresh ``main``. Prints one JSON line: the steps, the
+    largest parameter difference, bit-identity, the ops that reported no
+    deterministic CUDA version and, when there are any and the runs
+    differ, the largest difference between two uninterrupted runs."""
+    out_dir = Path(out_dir)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def run(tag, *extra):
+        result = train_cli.main(cli_args(config, tag, *extra, dev=torch.device(device)))
+        params = final_params(result)
+        step, epochs = result["state"].step, [h["epoch"] for h in result["history"]]
+        del result
+        return params, step, epochs
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ref, ref_step, _ = run("det_a", "--num_train_epochs", str(CLI_EPOCHS))
+        shutil.rmtree(out_dir / "det_a")
+        run("det_b", "--num_train_epochs", "1")
+        mine, step, epochs = run("det_b", "--num_train_epochs", str(CLI_EPOCHS), "--resume")
+        shutil.rmtree(out_dir / "det_b")
+        out = dict(step=step, uninterrupted_step=ref_step, resumed_epochs=epochs,
+                   max_abs_diff=max(max_err(mine[k], ref[k]) for k in ref),
+                   bit_identical=all(torch.equal(mine[k], ref[k]) for k in ref),
+                   cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+        out["ops_without_deterministic_cuda"] = sorted({
+            str(w.message).split(" does not have")[0] for w in caught
+            if "deterministic" in str(w.message)})
+        if not out["bit_identical"] and out["ops_without_deterministic_cuda"]:
+            other, _, _ = run("det_c", "--num_train_epochs", str(CLI_EPOCHS))
+            shutil.rmtree(out_dir / "det_c")
+            out["bar_two_uninterrupted_runs"] = max(max_err(other[k], ref[k]) for k in ref)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def resume_check(config: str, out_dir: Path, dev=torch.device("cuda")) -> dict:
+    """The resume check in a child process (see :func:`resume_child`),
+    started with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` as deterministic cuBLAS
+    needs before CUDA starts. The bar is bit-identity; if an op reported
+    that it has no deterministic CUDA version, it becomes the largest
+    difference between two uninterrupted runs, printed beside it."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--resume-check",
+                            config, str(out_dir), dev.type], env=env, capture_output=True,
+                           text=True, timeout=900)
+    if child.returncode != 0:
+        raise AssertionError(f"the resume check failed ({child.returncode}): "
+                             f"{child.stderr[-4000:]}")
+    out = json.loads(child.stdout.strip().splitlines()[-1])
+    log(f"  resume check: {json.dumps(out)}")
+    if out["step"] != out["uninterrupted_step"] or out["resumed_epochs"] != [CLI_EPOCHS - 1]:
+        raise AssertionError(f"the resumed run took other steps: {out}")
+    if not out["bit_identical"] and not (
+            out["ops_without_deterministic_cuda"]
+            and out["max_abs_diff"] <= out["bar_two_uninterrupted_runs"]):
+        raise AssertionError(f"the resumed run differs from the uninterrupted one: {out}")
+    return out
+
+
+def f32_best_model_ids(task, vocab, best_model: str, dev=torch.device("cuda")) -> dict:
+    """The best model's f32 greedy ids over the whole val split (the CLI's:
+    ``max(N // 4, batch)`` samples of seed 1, unshuffled), identical across
+    ``plain``, ``fused`` and ``mega``."""
+    model = build_model(task, len(vocab), torch.float32, seed=0, device=dev)
+    model.load_state_dict(restore_checkpoint(best_model, map_location=dev)["model_state_dict"],
+                          strict=True)
+    val = SyntheticDataset(task, max(CLI_SYNTHETIC // 4, TRAIN_BATCH), seed=1,
+                           num_answers_vocab=len(vocab))
+    bos, batches, rows = vocab.special_ids().bos, 0, 0
+    for host in EpochBatcher(val, TRAIN_BATCH, shuffle=False, supervised=False).epoch_batches():
+        batch = device_batch({k: host[k] for k in SAMPLE_KEYS}, dev)
+        ids = {b: greedy_decode_fast(model, batch, bos, backend=b)[1]
+               for b in ("plain", "fused", "mega")}
+        for b in ("fused", "mega"):
+            if not torch.equal(ids[b], ids["plain"]):
+                raise AssertionError(f"best model: f32 greedy ids differ, {b} vs plain")
+        batches, rows = batches + 1, rows + host["_real_count"]
+    return dict(val_batches=batches, val_rows=rows, identical_across=["plain", "fused", "mega"])
+
+
+def parity_b96(task, model, batch, gen) -> dict:
+    """K1 (encoder-cache pass, L = 170) and K3 (the last decode step)
+    against their plain versions at batch 96, in f32 and bf16, within the
+    bars of phase 2 (``TOL``, ``MEAN_TOL``)."""
+    mmt = task.mmt
+    b, dev = batch["question_mask"].shape[0], batch["question_mask"].device
+    h, d = mmt.num_spatial_relations, mmt.hidden_size // mmt.num_spatial_relations
+    q_len, n_ctx = mmt.max_seq_length, mmt.max_obj_num + mmt.max_ocr_num
+    lut = torch.tensor(relation_head_lut("3")[:, :h], dtype=torch.float32, device=dev)
+    col_mask = torch.cat([batch["question_mask"], batch["pad_obj_mask"],
+                          batch["pad_ocr_mask"]], dim=1).float()
+    kw = dict(q_len=q_len, n_ctx=n_ctx, dec_len=0,
+              mask_quadrants=tuple(mmt.attention_mask_quadrants), spatial=True)
+    proj = [rand(gen, b, q_len + n_ctx, h * d, dev=dev) for _ in range(3)]
+    seg = _seg_lens(batch)
+    dm, t_max, n_layers = mmt.hidden_size, mmt.num_decoding_steps, len(mmt.layer_type_list)
+    le = q_len + n_ctx
+    t = torch.tensor([t_max - 1], dtype=torch.int32, device=dev)
+    step_kw = dict(hd=dm // mmt.num_attention_heads, q_len=q_len, n_obj=mmt.max_obj_num)
+    out = {"batch": b}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        args = (*(split_heads(x.to(dtype), h) for x in proj), batch["spatial_classes"], lut,
+                col_mask)
+        mine, plain = spatial_attention(*args, **kw), spatial_attention_plain(*args, **kw)
+        log(f"  spatial_attention B={b}:")
+        check("spatial_attention", dtype, max_err(mine, plain), mean_err(mine, plain))
+        out[f"spatial_attention_max_abs_err_{name}"] = max_err(mine, plain)
+        weights = [_mega_step_consts(model.mmt, dtype)[n] for n in WEIGHT_NAMES]
+        x0 = rand(gen, b, dm, dtype=dtype, dev=dev)
+        k_enc, v_enc = (rand(gen, n_layers, b, le, dm, dtype=dtype, dev=dev) for _ in range(2))
+        k_dec, v_dec = (rand(gen, n_layers, b, t_max, dm, dtype=dtype, dev=dev)
+                        for _ in range(2))
+        kd2, vd2 = k_dec.clone(), v_dec.clone()
+        mine = decode_step_fused(t, seg, x0, *weights, k_enc, v_enc, k_dec, v_dec, **step_kw)
+        plain = decode_step_plain(t, seg, x0, *weights, k_enc, v_enc, kd2, vd2, **step_kw)
+        log(f"  decode_step B={b}:")
+        check("decode_step", dtype, max_err(mine, plain), mean_err(mine, plain))
+        out[f"decode_step_max_abs_err_{name}"] = max_err(mine, plain)
+        out[f"decode_step_mean_abs_err_{name}"] = mean_err(mine, plain)
+    return out
+
+
+def train_cli_path(task, vocab, model, bare_step, gen, dev=torch.device("cuda")) -> dict:
+    """Phase 5: the train CLI at full c3 width (see the module docstring).
+    ``bare_step`` is phase 3b's train-step result, printed beside the
+    loop's rate; ``model`` the phase 3 model, whose weights K3's B=96
+    check uses."""
+    import yaml
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        tmp = Path(tmp)
+        raw = yaml.safe_load(CONFIG.read_text())
+        raw["output_dir"] = str(tmp)
+        config = tmp / "c3.yml"
+        config.write_text(yaml.safe_dump(raw))
+        config = str(config)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        run = train_cli.main(cli_args(config, "full", "--num_train_epochs", str(CLI_EPOCHS),
+                                      dev=dev))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated()
+        history = run["history"]
+        for h in history:
+            require_launched(h["val_launches"], ("spatial_attention", "decode_step"),
+                             f"train CLI validation, epoch {h['epoch']}")
+            if any(h["train_launches"].values()):
+                raise AssertionError(f"the train steps launched kernels: {h['train_launches']}")
+            if not np.isfinite(h["loss"]):
+                raise AssertionError(f"non-finite epoch loss: {h}")
+        if run["state"].step != CLI_EPOCHS * CLI_SYNTHETIC // TRAIN_BATCH:
+            raise AssertionError(f"the loop took {run['state'].step} steps")
+        best_val = max(h["val_accuracy"] for h in history)
+        out["train"] = dict(
+            epochs=history, steps=run["state"].step, wall_s=wall, peak_memory_bytes=peak,
+            loop_samples_per_s=[h["samples_per_s"] for h in history],
+            bare_step_samples_per_s=bare_step["samples_per_s"],
+            final_eval={s: {"accuracy": r["accuracy"], "predictions": len(r["predictions"])}
+                        for s, r in run["eval"].items()})
+        del run
+        for h in history:
+            log(f"  epoch {h['epoch']}: loop {h['samples_per_s']:.1f} samples/s "
+                f"({h['steps']} steps, {h['train_s']:.3f} s; bare step of phase 3b "
+                f"{bare_step['samples_per_s']:.1f}), loss {h['loss']:.3f}; validation "
+                f"accuracy {h['val_accuracy']:.4f} in {h['val_s']:.3f} s "
+                f"({h['val_samples_per_s']:.1f} samples/s), launches {h['val_launches']} "
+                f"(train steps {h['train_launches']}); best_model "
+                f"{h.get('best_model_bytes')} B in {h.get('best_model_save_s')} s, "
+                f"last_state {h['last_state_bytes']} B in {h['last_state_save_s']:.3f} s")
+        log(f"  peak memory {out['train']['peak_memory_bytes'] / 2**30:.2f} GiB, "
+            f"whole main {wall:.1f} s")
+
+        best_model = str(tmp / "full" / "best_model")
+        evals = {}
+        for backend, kernels in (("auto", ("spatial_attention", "decode_step")),
+                                 ("fused", ("spatial_attention", "decode_attention"))):
+            dumped = tmp / "full" / "evalai_val.json"
+            dumped.unlink(missing_ok=True)
+            cuda_build.reset_launch_counts()
+            t0 = time.monotonic()
+            res = train_cli.main(cli_args(config, "eval", "--pretrained_eval", best_model,
+                                          "--decode_backend", backend, dev=dev))
+            torch.cuda.synchronize()
+            launches = cuda_build.launch_counts()
+            require_launched(launches, kernels, f"--pretrained_eval, {backend}")
+            val = res["eval"]["val"]
+            if len(json.loads(dumped.read_text())) != len(val["predictions"]):
+                raise AssertionError(f"{dumped} does not hold the val predictions")
+            evals[backend] = dict(val_accuracy=val["accuracy"], launches=launches,
+                                  seconds=time.monotonic() - t0,
+                                  answers=[p["pred_answer"] for p in val["predictions"]])
+        if evals["auto"]["val_accuracy"] != best_val:
+            raise AssertionError(f"--pretrained_eval auto accuracy {evals['auto']['val_accuracy']}"
+                                 f" differs from the loop's best {best_val}")
+        agree = float(np.mean([a == b for a, b in zip(evals["auto"].pop("answers"),
+                                                      evals["fused"].pop("answers"))]))
+        out["pretrained_eval"] = dict(evals, loop_best_val_accuracy=best_val,
+                                      bf16_answer_agreement_auto_vs_fused=agree)
+        log(f"  --pretrained_eval: {json.dumps(out['pretrained_eval'])}")
+        out["best_model_f32_ids"] = f32_best_model_ids(task, vocab, best_model, dev)
+        log(f"  best model, f32 greedy ids over the val split: "
+            f"{json.dumps(out['best_model_f32_ids'])}")
+        shutil.rmtree(tmp / "full")
+        out["resume"] = resume_check(config, tmp, dev)
+
+    val_batch = device_batch(make_batch(task, TRAIN_BATCH, seed=1,
+                                        num_answers_vocab=len(vocab)), dev)
+    out["parity_b96"] = parity_b96(task, model, val_batch, gen)
+    return out
+
+
 def f32_checks(task, vocab, model, batch, prev_ids) -> dict:
     bos = vocab.special_ids().bos
     model.dtype = torch.float32
@@ -857,6 +1122,8 @@ def main() -> int:
     training = {"parity_f32": train_parity(task, len(vocab))}
     training["train"], trained, train_batch, train_call = train_path(task, vocab)
     training["eval"] = trained_checks(task, vocab, trained, train_batch)
+    log("== phase 5: the train CLI (c3, bf16, batch 96, --synthetic 480)")
+    cli = train_cli_path(task, vocab, model, training["train"], gen)
     # profiles come after every timed phase, so that no timing runs after
     # the profiler has been started in this process
     log("== phase 4: device profiles (K1 call, K3 step at B=32, B=32 bf16 mega decode, "
@@ -901,10 +1168,12 @@ def main() -> int:
             "launches": (main["fused_launches"] if fused else main["launches"])[name],
             "path": "serving, backend fused" if fused else "serving, backend auto (mega)",
             "train_launches": training["train"]["launches"][name],
+            "train_cli_val_launches": cli["train"]["epochs"][-1]["val_launches"][name],
             "kernel_eval_step_launches": training["eval"]["kernel_launches"][name],
             "parity": "ok", **res,
         })
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"train_cli": cli}), flush=True)
     log(f"total seconds: {time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -914,4 +1183,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resume-check"]:
+        sys.exit(resume_child(*sys.argv[2:5]))
     sys.exit(main())

@@ -131,3 +131,73 @@ def device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
         for k, v in batch.items()
         if not k.startswith("_")
     }
+
+
+class SyntheticDataset:
+    """Fixture dataset with the batch-serving interface of the real one
+    (``len``, ``get_batch(indices, rng)``), used by the train CLI's
+    ``--synthetic`` mode and the tests; the analogue of the reference's
+    "debug" imdb split. ``get_batch`` is bit-equal to the JAX package's for
+    the same indices and per-row RNGs."""
+
+    def __init__(
+        self,
+        task_cfg: TaskConfig,
+        size: int,
+        seed: int = 0,
+        num_answers_vocab: int = 5000,
+        with_answers: bool = True,
+    ):
+        from .processors import M4CAnswerProcessor
+        from .vocab import VocabDict
+
+        self.cfg = task_cfg
+        self.num_answers_vocab = num_answers_vocab
+        self.pool = make_batch(task_cfg, size, seed=seed, num_answers_vocab=num_answers_vocab)
+        self.with_answers = with_answers
+        # the ground-truth answers are OCR-token phrases and the decoding
+        # targets are built from them by the real answer processor, so
+        # training on this fixture teaches pointer copying and the decode
+        # accuracy means something
+        words = ["<pad>", "<s>", "</s>", "<unk>"] + [
+            f"w{i}" for i in range(num_answers_vocab - 4)
+        ]
+        self._processor = M4CAnswerProcessor(
+            VocabDict(words),
+            max_copy_steps=task_cfg.mmt.num_decoding_steps,
+            max_ocr_tokens=task_cfg.mmt.max_ocr_num,
+        )
+        self._answers = []
+        self._matches = []
+        for tokens in self.pool["_ocr_tokens"]:
+            toks = [w for w in tokens if w != "<pad>"]
+            answers = [" ".join(toks[:2]) if toks else "nothing"] * 10
+            self._answers.append(answers)
+            self._matches.append(self._processor.match(answers, tokens))
+
+    def __len__(self) -> int:
+        return int(self.pool["question_indices"].shape[0])
+
+    def get_batch(self, indices, rng=None) -> Dict:
+        """The rows ``indices`` of the pool (host-only ``_`` keys as lists),
+        with ``_answers``; given ``rng`` (one RandomState, or one per row)
+        and answers, the decoding targets are sampled from the answer
+        matches, row by row."""
+        from .dataset import _row_rng
+
+        idx = np.asarray(list(indices))
+        out = {}
+        for k, v in self.pool.items():
+            out[k] = [v[i] for i in idx] if k.startswith("_") else v[idx]
+        out["_answers"] = (
+            [self._answers[i] for i in idx] if self.with_answers else [[] for _ in idx]
+        )
+        if rng is not None and self.with_answers:
+            for row, i in enumerate(idx):
+                sampled = self._processor.sample_decoding_targets(
+                    self._matches[i], _row_rng(rng, row)
+                )
+                out["train_prev_inds"][row] = sampled["train_prev_inds"]
+                out["train_loss_mask"][row] = sampled["train_loss_mask"]
+                out["targets"][row] = sampled["targets"]
+        return out

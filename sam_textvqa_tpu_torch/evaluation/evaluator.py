@@ -1,0 +1,180 @@
+"""Evaluation: greedy decode over a split, EvalAI-format prediction
+dumps, VQA / ST-VQA / OCR-VQA / ANLS accuracy (JAX package
+``evaluation/evaluator.py``).
+
+Reference: evaluator.py (run_model_no_beam :162-176, evaluate_no_beam
+:52-63) and the metric dispatch in task_utils.py:60-67. String work stays
+on the host, keyed by batch position. Each batch decodes through
+:func:`..models.fast_decode.greedy_decode_fast` with the evaluator's backend
+(``auto`` is ``mega`` on the card: the spatial-attention kernel in the
+encoder-cache pass, the decode-step kernel per step). Beam search and the
+obj/OCR width ladders are not ported yet (ROADMAP queue 1, items 5 and 7).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+from collections import deque
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..data.prefetch import cast_features_for_transfer
+from ..data.vocab import VocabDict
+from ..models.fast_decode import greedy_decode_fast
+from ..serving.engine import SAMPLE_KEYS
+from .metrics import (
+    OCRVQAAccuracyEvaluator,
+    STVQAAccuracyEvaluator,
+    STVQAANLSEvaluator,
+    TextVQAAccuracyEvaluator,
+    decode_predictions,
+)
+
+logger = logging.getLogger(__name__)
+
+METRIC_EVALUATORS = {
+    "textvqa": TextVQAAccuracyEvaluator,
+    "stvqa": STVQAAccuracyEvaluator,
+    "ocrvqa": OCRVQAAccuracyEvaluator,
+    "anls": STVQAANLSEvaluator,
+}
+
+#: decoded batches whose ids are not yet on the host: batch i's ids are
+#: fetched after batch i+1 is dispatched, so the host turns batch i into
+#: strings while the card decodes batch i+1
+PIPELINE_DEPTH = 1
+
+
+def _batch_qids(batch, host_only):
+    """Per-row question identities, preferring the raw host-side ids (int
+    for TextVQA, str for ST-VQA; reference evaluator.py:304-356 keeps the
+    real qids through eval, the array carries int surrogates)."""
+    raw = host_only.get("_question_id_raw")
+    if raw is not None:
+        return [int(q) if isinstance(q, (int, np.integer)) else str(q) for q in raw]
+    return [int(q) for q in np.asarray(batch["question_id"])]
+
+
+def _pipelined(batches, dispatch, consume):
+    """Run ``dispatch`` over every batch with at most ``PIPELINE_DEPTH``
+    results in flight before ``consume``-ing the oldest."""
+    pending: deque = deque()
+    for batch in batches:
+        pending.append(dispatch(batch))
+        while len(pending) > PIPELINE_DEPTH:
+            consume(pending.popleft())
+    while pending:
+        consume(pending.popleft())
+
+
+class Evaluator:
+    def __init__(self, model, answer_vocab: VocabDict, metric: str = "textvqa",
+                 decode_backend: str = "auto"):
+        self.model = model
+        self.answer_vocab = answer_vocab
+        self.special = answer_vocab.special_ids()
+        self.metric_evaluator = METRIC_EVALUATORS[metric]()
+        self.decode_backend = decode_backend
+
+    def _transfer_batch(self, batch, device: torch.device) -> Dict[str, torch.Tensor]:
+        """The arrays the decoder reads, features cast to the model's
+        compute dtype on the host (bit-identical: the model's first use of
+        them is that cast), copied to ``device`` from pinned memory."""
+        picked = cast_features_for_transfer({k: batch[k] for k in SAMPLE_KEYS},
+                                            self.model.dtype)
+        if device.type != "cuda":
+            return {k: v.to(device) for k, v in picked.items()}
+        return {k: v.pin_memory().to(device, non_blocking=True) for k, v in picked.items()}
+
+    def run_split(
+        self,
+        batches,
+        gt_answers_by_qid: Optional[Dict[int, List[str]]] = None,
+        ocr_bucket=None,
+        obj_bucket=None,
+    ) -> Dict:
+        """Greedy-decode every batch; returns the accuracy, the EvalAI
+        predictions and the number of scored predictions.
+
+        ``batches`` yields host batch dicts (with ``_ocr_tokens``,
+        ``_answers``, ``question_id`` and optionally ``_real_count``).
+        ``gt_answers_by_qid`` supplies ground truth where the split carries
+        none, the analogue of the reference's eval_df join (reference
+        evaluator.py:67-93, 304-356). Decoding runs under
+        ``torch.no_grad()``, so a model in training mode with parameters
+        that require grad can be evaluated."""
+        if ocr_bucket is not None or obj_bucket is not None:
+            raise NotImplementedError(
+                "obj/OCR width ladders are not ported yet (ROADMAP queue 1, item 7)")
+        device = next(self.model.parameters()).device
+        all_preds: List[Dict] = []
+        scored_preds: List[Dict] = []
+
+        def dispatch(batch):
+            host_only = {k: v for k, v in batch.items() if k.startswith("_")}
+            qids = _batch_qids(batch, host_only)
+            with torch.no_grad():
+                _, pred_ids = greedy_decode_fast(
+                    self.model, self._transfer_batch(batch, device), self.special.bos,
+                    backend=self.decode_backend)
+            fetched = None
+            if device.type == "cuda":
+                host = torch.empty(pred_ids.shape, dtype=pred_ids.dtype, pin_memory=True)
+                host.copy_(pred_ids, non_blocking=True)
+                fetched = torch.cuda.Event()
+                fetched.record()
+                pred_ids = host
+            return pred_ids, fetched, host_only, qids
+
+        def consume(item):
+            pred_ids, fetched, host_only, qids = item
+            if fetched is not None:
+                fetched.synchronize()
+            pred_ids = pred_ids.numpy()
+            decoded = decode_predictions(
+                pred_ids, host_only["_ocr_tokens"], self.answer_vocab.word_list,
+                self.special.eos,
+            )
+            real = host_only.get("_real_count", pred_ids.shape[0])
+            for i in range(real):
+                entry = {
+                    "question_id": qids[i],
+                    "pred_answer": decoded[i]["pred_answer"],
+                    "belongs_to": decoded[i]["belongs_to"],
+                }
+                gt = host_only["_answers"][i]
+                if not gt and gt_answers_by_qid:
+                    gt = gt_answers_by_qid.get(qids[i], [])
+                if gt:
+                    scored_preds.append({**entry, "gt_answers": list(gt)})
+                all_preds.append(entry)
+
+        _pipelined(batches, dispatch, consume)
+
+        accuracy = None
+        if scored_preds:
+            accuracy, _ = self.metric_evaluator.eval_pred_list(scored_preds)
+        return {
+            "accuracy": accuracy,
+            "predictions": all_preds,
+            "num_scored": len(scored_preds),
+        }
+
+    def run_split_beam(self, *args, **kwargs) -> Dict:
+        raise NotImplementedError("beam search is not ported yet (ROADMAP queue 1, item 5)")
+
+    def dump_evalai(self, result: Dict, out_path: str) -> str:
+        """EvalAI-format JSON dump (reference evaluator.py:52-63)."""
+        payload = [
+            {"question_id": p["question_id"], "answer": p["pred_answer"]}
+            for p in result["predictions"]
+        ]
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(payload, f)
+        logger.info("dumped %d predictions to %s", len(payload), out_path)
+        return out_path

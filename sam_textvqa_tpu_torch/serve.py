@@ -1,12 +1,13 @@
 """Online serving CLI for SA-M4C greedy decoding (PyTorch port).
 
-Synthetic load test: builds the model from the task YAML (random weights
-from ``--seed``; no checkpoint format is ported yet), submits N synthetic
-requests from C client threads and prints one JSON line of
-latency/throughput stats::
+Synthetic load test: builds the model from the task YAML, with the weights
+of ``--checkpoint`` (a ``best_model`` or ``last_state`` of
+``sam_textvqa_tpu_torch.train``, or a reference ``best_model.tar``) or else
+random ones from ``--seed``, submits N synthetic requests from C client
+threads and prints one JSON line of latency/throughput stats::
 
   python -m sam_textvqa_tpu_torch.serve \\
-      --config configs/train-tvqa-eval-tvqa-c3.yml --demo 64
+      --config configs/train-tvqa-eval-tvqa-c3.yml --demo 64 [--checkpoint save/run1/best_model]
 
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions instead.
 """
@@ -28,6 +29,7 @@ from .data.synthetic import make_batch
 from .data.vocab import VocabDict, synthetic_vocab
 from .models.sa_m4c import SAM4C, SAM4CParams
 from .serving.engine import SAMPLE_KEYS, ServingEngine
+from .utils.checkpoint import restore_checkpoint
 from .utils.device import resolve_device
 
 logger = logging.getLogger("serve")
@@ -46,6 +48,8 @@ def get_args(argv=None):
                    default="auto")
     p.add_argument("--device", default=None, help="default: cuda")
     p.add_argument("--seed", type=int, default=0, help="weights and requests")
+    p.add_argument("--checkpoint", default="",
+                   help="weights to serve (default: random ones from --seed)")
     return p.parse_args(argv)
 
 
@@ -113,8 +117,13 @@ def main(argv=None):
     task_cfg = load_task_config(args.config)
     vocab = build_vocab(task_cfg)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    logger.warning("no checkpoint loading yet: serving RANDOM weights (seed %d)", args.seed)
     model = build_model(task_cfg, len(vocab), dtype, args.seed, device)
+    if args.checkpoint:
+        restored = restore_checkpoint(args.checkpoint, map_location=device)
+        model.load_state_dict(restored["model_state_dict"], strict=True)
+        logger.info("serving the weights of %s", args.checkpoint)
+    else:
+        logger.warning("no --checkpoint: serving RANDOM weights (seed %d)", args.seed)
     engine = ServingEngine(
         model, vocab, buckets=[int(b) for b in args.buckets.split(",") if b],
         max_wait_ms=args.max_wait_ms, decode_backend=args.decode_backend, device=device,

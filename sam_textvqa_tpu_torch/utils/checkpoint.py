@@ -1,15 +1,28 @@
-"""Weights across frameworks: the JAX param tree -> the port's state_dict.
+"""Checkpoints and weights across frameworks (JAX package
+``utils/checkpoint.py``).
 
-The port's modules are named after the reference PyTorch SA-M4C
-(``sam/sa_m4c.py``), so a reference ``state_dict`` and a converted JAX tree
-both load with ``load_state_dict(strict=True)``. The JAX package's Dense
-stores weights in torch's (out, in) layout, so the conversion is a pure
-rename through :func:`reference_name_map`.
+* :func:`save_checkpoint` / :func:`restore_checkpoint`: one ``torch.save``
+  file holding the model's ``state_dict``, the optimizer's and the LR
+  schedule's state, the step and the meta (``epoch_id``, ``val_score``):
+  enough for a resumed run to continue bit-identically. The JAX package
+  writes orbax directories instead, which the port does not read (that
+  would need ``jax``).
+* A reference ``best_model.tar`` restores too: its ``model_state_dict``
+  keys are the port's own module names (a ``module.`` prefix is dropped),
+  the JAX package's ``convert_torch_state_dict`` without the rename.
+* :func:`state_dict_from_jax`: a JAX param tree -> the port's state_dict.
+  The port's modules are named after the reference PyTorch SA-M4C
+  (``sam/sa_m4c.py``) and the JAX package's Dense stores weights in torch's
+  (out, in) layout, so the conversion is a pure rename through
+  :func:`reference_name_map`.
+* :func:`init_text_bert_from_bert_base`: TextBERT from a local
+  bert-base-uncased checkpoint (reference sam/sa_m4c.py:75-82).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple
+import os
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -115,3 +128,142 @@ def state_dict_from_jax(
             continue
         sd[dst] = torch.from_numpy(np.array(leaf, dtype=np.float32))
     return sd, unmapped
+
+
+# ---------------------------------------------------------------------------
+# save / restore
+# ---------------------------------------------------------------------------
+
+#: marks a checkpoint written by :func:`save_checkpoint` (a reference
+#: ``best_model.tar`` lacks it)
+CHECKPOINT_FORMAT = "sam_textvqa_tpu_torch/1"
+
+
+def save_checkpoint(path: str, state, *, epoch_id: int, val_score: float) -> int:
+    """Write ``state`` (a ``training.step.TrainState``) to the file ``path``:
+    the model's ``state_dict``, the optimizer's and the schedule's state,
+    the step and the meta. The file is written under a temporary name,
+    flushed to disk and renamed over ``path``, so an interruption during
+    the save leaves the previous checkpoint whole. Returns its size in
+    bytes."""
+    payload = {
+        "format": CHECKPOINT_FORMAT,
+        "step": int(state.step),
+        "model_state_dict": state.model.state_dict(),
+        "optimizer_state_dict": state.optimizer.adam.state_dict(),
+        "scheduler_state_dict": state.optimizer.scheduler.state_dict(),
+        "meta": {"epoch_id": int(epoch_id), "val_score": float(val_score)},
+    }
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        torch.save(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return os.path.getsize(path)
+
+
+def restore_checkpoint(path: str, state=None, map_location: Any = "cpu") -> Dict[str, Any]:
+    """Read a checkpoint of :func:`save_checkpoint` or a reference
+    ``best_model.tar``. Returns ``{"model_state_dict", "step", "meta"}``
+    (``step`` and ``meta`` are None for a reference file), tensors on
+    ``map_location``.
+
+    With ``state`` (a ``TrainState``), a checkpoint of :func:`save_checkpoint`
+    is also loaded into it: the model with ``strict=True``, the optimizer
+    and the schedule; the result then holds ``state``, the given one with
+    the restored step."""
+    payload = torch.load(path, map_location=map_location, weights_only=True)
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in payload["model_state_dict"].items()}
+    ours = payload.get("format") == CHECKPOINT_FORMAT
+    out = {"model_state_dict": sd, "step": payload["step"] if ours else None,
+           "meta": payload["meta"] if ours else None}
+    if state is not None:
+        if not ours:
+            raise ValueError(f"{path} holds no optimizer state to resume from "
+                             "(a reference checkpoint restores the model only)")
+        state.model.load_state_dict(sd, strict=True)
+        adam = state.optimizer.adam
+        # the implementation flags follow this optimizer's device, not the
+        # saving one's (fused Adam on the card, another on the CPU)
+        flags = [{k: g[k] for k in ("fused", "foreach", "capturable") if k in g}
+                 for g in adam.param_groups]
+        adam.load_state_dict(payload["optimizer_state_dict"])
+        for group, own in zip(adam.param_groups, flags):
+            group.update(own)
+        state.optimizer.scheduler.load_state_dict(payload["scheduler_state_dict"])
+        out["state"] = state._replace(step=payload["step"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# TextBERT from bert-base-uncased
+# ---------------------------------------------------------------------------
+
+def bert_base_name_map(text_bert_layers: int = 3) -> Dict[str, str]:
+    """The port's ``text_bert.*`` state_dict keys -> HF/torch bert-base keys
+    (without the optional ``bert.`` prefix): the embeddings and the first
+    ``text_bert_layers`` encoder layers (reference sam/sa_m4c.py:75-82)."""
+    prefix = "text_bert."
+    return {dst: dst[len(prefix):]
+            for dst in reference_name_map((), text_bert_layers).values()
+            if dst.startswith(prefix)}
+
+
+def load_bert_base_state_dict(source: str) -> Dict[str, np.ndarray]:
+    """A bert-base-uncased state_dict from a local torch ``.bin``/``.pt``/
+    ``.tar`` file, an ``.npz``, or a model directory holding
+    ``pytorch_model.bin`` or ``model.npz``. ``bert.``/``module.`` prefixes
+    and the ``gamma``/``beta`` LayerNorm names of old checkpoints are
+    mapped to :func:`bert_base_name_map`'s keys."""
+    if os.path.isdir(source):
+        for cand in ("pytorch_model.bin", "model.npz"):
+            p = os.path.join(source, cand)
+            if os.path.exists(p):
+                source = p
+                break
+        else:
+            raise FileNotFoundError(f"no model weights found in {source}")
+    if source.endswith(".npz"):
+        with np.load(source) as z:
+            sd = {k: z[k] for k in z.files}
+    else:
+        raw = torch.load(source, map_location="cpu", weights_only=True)
+        if isinstance(raw, dict) and "state_dict" in raw:
+            raw = raw["state_dict"]
+        sd = {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+              for k, v in raw.items()}
+    out = {}
+    for k, v in sd.items():
+        for prefix in ("module.", "bert."):
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+        k = k.replace(".gamma", ".weight").replace(".beta", ".bias")
+        out[k] = np.asarray(v)
+    return out
+
+
+@torch.no_grad()
+def init_text_bert_from_bert_base(model, source: str) -> Tuple[int, List[str]]:
+    """Copy a local bert-base-uncased checkpoint into ``model.text_bert`` in
+    place (position embeddings cut to the model's length). Returns
+    ``(n_loaded, missing)``, ``missing`` the text_bert keys with no source
+    (empty for a real bert-base checkpoint)."""
+    sd = load_bert_base_state_dict(source)
+    name_map = bert_base_name_map(len(model.text_bert.encoder.layer))
+    params = model.state_dict()
+    missing, n_loaded = [], 0
+    for dst, src in name_map.items():
+        if src not in sd:
+            missing.append(dst)
+            continue
+        leaf = params[dst]
+        arr = np.asarray(sd[src], dtype=np.float32)
+        if src.endswith("position_embeddings.weight") and arr.shape[0] > leaf.shape[0]:
+            arr = arr[: leaf.shape[0]]  # 512 positions -> the model's
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"{src}: shape {arr.shape} does not fit {dst} {tuple(leaf.shape)}")
+        leaf.copy_(torch.from_numpy(arr))
+        n_loaded += 1
+    return n_loaded, missing

@@ -336,3 +336,98 @@ def test_eval_step_kernel_backend_launches_k1(dev):
     assert launched == task.mmt.layer_type_list.count("s")
     assert out["loss"].item() == pytest.approx(plain["loss"].item(), rel=1e-5)
     assert torch.equal(out["pred_ids"], plain["pred_ids"])
+
+
+# ---------------------------------------------------------------- train loop pieces
+
+
+def test_prefetched_batches_equal_host_batches(dev):
+    """The prefetcher's batches on the card equal the host batches: the
+    features cast to bf16 on the host are bit-equal to the same cast on the
+    card, everything else is copied as it is; stopping early leaves no
+    producer thread behind."""
+    import threading
+
+    from sam_textvqa_tpu_torch.data.dataset import EpochBatcher
+    from sam_textvqa_tpu_torch.data.prefetch import FEATURE_TRANSFER_KEYS, prefetch_to_device
+    from sam_textvqa_tpu_torch.data.synthetic import SyntheticDataset
+
+    task = _train_task()
+    ds = SyntheticDataset(task, 21, num_answers_vocab=40)
+    host = list(EpochBatcher(ds, 4).epoch_batches())
+    got = list(prefetch_to_device(EpochBatcher(ds, 4).epoch_batches(), dev,
+                                  feature_dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    assert len(got) == len(host) == 6
+    for a, b in zip(got, host):
+        for k, v in b.items():
+            if k.startswith("_"):
+                assert a[k] == v, k
+                continue
+            ref = torch.from_numpy(v).to(dev)
+            if k in FEATURE_TRANSFER_KEYS:
+                ref = ref.to(torch.bfloat16)
+            assert a[k].device.type == "cuda" and a[k].dtype == ref.dtype, k
+            assert torch.equal(a[k].view(torch.int16) if ref.dtype == torch.bfloat16 else a[k],
+                               ref.view(torch.int16) if ref.dtype == torch.bfloat16 else ref), k
+    threads = threading.active_count()
+    it = prefetch_to_device(EpochBatcher(ds, 4).epoch_batches(), dev)
+    next(it)
+    it.close()
+    assert threading.active_count() == threads
+
+
+def test_evaluator_mega_equals_plain_on_card(dev):
+    """``run_split`` in f32 on three batches (the last repeat-padded): the
+    same predictions with ``mega`` (K1 and K3 launched) as with ``plain``."""
+    from sam_textvqa_tpu_torch.data.dataset import EpochBatcher
+    from sam_textvqa_tpu_torch.data.synthetic import SyntheticDataset
+    from sam_textvqa_tpu_torch.data.vocab import synthetic_vocab
+    from sam_textvqa_tpu_torch.evaluation.evaluator import Evaluator
+
+    task = _train_task()
+    vocab = synthetic_vocab(40)
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, len(vocab)))
+    model = model.init_weights(torch.Generator().manual_seed(0)).to(dev).train()
+    ds = SyntheticDataset(task, 20, seed=1, num_answers_vocab=len(vocab))
+    results = {}
+    for backend in ("plain", "mega"):
+        before = cuda_build.launch_counts()
+        results[backend] = Evaluator(model, vocab, decode_backend=backend).run_split(
+            EpochBatcher(ds, 8, shuffle=False, supervised=False).epoch_batches())
+        launched = {k: v - before[k] for k, v in cuda_build.launch_counts().items()}
+        assert (launched["decode_step"] > 0 and launched["spatial_attention"] > 0) == (
+            backend == "mega"), (backend, launched)
+    assert results["mega"] == results["plain"]
+    assert len(results["plain"]["predictions"]) == 20
+
+
+def test_checkpoint_saved_on_card_restores_on_cpu(dev, tmp_path):
+    """A checkpoint of a state on the card restores into a model and
+    optimizer on the CPU bit-equal (parameters, Adam moments, schedule),
+    and the CPU optimizer keeps its own (unfused) implementation."""
+    from sam_textvqa_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    task = _train_task()
+    card = SAM4C(SAM4CParams(task.mmt, task.text_bert, 40), dtype=torch.bfloat16)
+    card = card.init_weights(torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer(card, task)
+    batch = device_batch(make_batch(task, 4, num_answers_vocab=40), dev)
+    state, _ = make_train_step(card, opt)(create_train_state(card, opt), batch,
+                                          torch.Generator().manual_seed(1))
+    save_checkpoint(str(tmp_path / "ck"), state, epoch_id=0, val_score=0.5)
+    cpu = SAM4C(SAM4CParams(task.mmt, task.text_bert, 40), dtype=torch.bfloat16)
+    cpu_opt = make_optimizer(cpu, task)
+    restored = restore_checkpoint(str(tmp_path / "ck"), create_train_state(cpu, cpu_opt))
+    assert restored["state"].step == 1 and restored["meta"]["val_score"] == 0.5
+    for (k, a), b in zip(card.state_dict().items(), cpu.state_dict().values()):
+        assert b.device.type == "cpu" and torch.equal(a.cpu(), b), k
+    for p, q in zip(opt.params, cpu_opt.params):
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(opt.adam.state[p][key].cpu(), cpu_opt.adam.state[q][key]), key
+    assert opt.scheduler.state_dict() == cpu_opt.scheduler.state_dict()
+    assert opt.adam.param_groups[0]["fused"] and not cpu_opt.adam.param_groups[0]["fused"]
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}  # the restored state steps on the CPU
+    state, metrics = make_train_step(cpu, cpu_opt)(restored["state"], cpu_batch,
+                                                   torch.Generator().manual_seed(1))
+    assert state.step == 2 and torch.isfinite(metrics["loss"]).item()

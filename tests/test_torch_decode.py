@@ -18,6 +18,7 @@ from sam_textvqa_tpu_torch.models.fast_decode import greedy_decode_fast, resolve
 from sam_textvqa_tpu_torch.models.sa_m4c import greedy_decode
 from sam_textvqa_tpu_torch.ops import cuda_build
 from test_torch_model import BOS, TOL, build_pair, tiny_raw
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ from sam_textvqa_tpu_torch.ops.decode_attention import check_kernel_head_dim, de
 from sam_textvqa_tpu_torch.ops.decode_step import WEIGHT_NAMES, _weight_shapes, decode_step_fused
 from sam_textvqa_tpu_torch.ops.fused_attention import spatial_attention
 from sam_textvqa_tpu_torch.ops.spatial_graph import build_spatial_graph, relation_head_lut
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _t(a):

@@ -32,6 +32,7 @@ from sam_textvqa_tpu_torch.models.encoders import ImageEncoder
 from sam_textvqa_tpu_torch.ops import phoc, spatial_graph
 from sam_textvqa_tpu_torch.utils.checkpoint import state_dict_from_jax
 from test_torch_model import tiny_raw
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 EXACT = dict(rtol=1e-6, atol=1e-6)

@@ -34,6 +34,18 @@ BATCH = 4
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tests run at small sizes, where intra-op threads buy
+    little; the suite runs in several worker processes at once, whose
+    threads would otherwise contend for the cores. Each port test module
+    imports this fixture (autouse: it applies where it is imported)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def tiny_raw(**mmt):
     """The small task config as a raw YAML dict (both packages read it)."""
     h = 128

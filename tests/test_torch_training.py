@@ -57,6 +57,7 @@ from sam_textvqa_tpu_torch.training.optimizer import (lr_factor_schedule, make_o
 from sam_textvqa_tpu_torch.training.step import (create_train_state, make_eval_step,
                                                  make_train_step, step_generator)
 from sam_textvqa_tpu_torch.utils.checkpoint import reference_name_map, state_dict_from_jax
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse fixture)
 
 NUM_ANSWERS = 50
 BATCH = 8
