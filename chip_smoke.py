@@ -35,6 +35,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    the first 32 requests go through the ``plain``, ``fused`` and ``mega``
    decodes (bf16 answer agreement is printed) and one bf16 ``mega`` and
    one ``fused`` decode of them are timed;
+3c. a warmed-up ``mega`` and ``fused`` decode of that batch, already on the
+   card, with the masks checked on the host (as the engine and the
+   evaluator decode), under ``torch.cuda.set_sync_debug_mode("error")``:
+   neither may wait for the device, and the same decode with the mask check
+   on a device copy must raise (the control);
 3b. the training path (``training.step``): one f32 train step of c3 at
    batch 4 and dropout 0 (TF32 off) on the card and on the CPU from the
    same weights, held against each other (loss, gradient norm before the
@@ -58,14 +63,32 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    process started with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and run with
    ``torch.use_deterministic_algorithms`` on: an uninterrupted 2-epoch
    ``main`` against 1 epoch plus a ``--resume``-d second in fresh ``main``
-   calls (step and parameters bit-identical); ``--pretrained_eval`` of the
-   best model with ``auto``
+   calls (step and parameters bit-identical), and the same once more in a
+   child without the variable and without deterministic algorithms, as the
+   CLI runs by default (the largest parameter difference is printed, with
+   no bar); ``--pretrained_eval`` of the best model with ``auto``
    (K1 and K3 launched, accuracy equal to the loop's best) and with
    ``fused`` (K1 and K2 launched), both writing ``evalai_val.json``; the
    best model's f32 greedy ids over the whole val split identical across
    ``plain``, ``fused`` and ``mega``; and K1 and K3 against their plain
-   versions at batch 96, the validation's batch. It runs before phase 4,
-   so that no timing follows the profiler;
+   versions at batch 96, the validation's batch;
+6. the train CLI on real-format files, which numpy writes from seed 0 with
+   the port's writers (no real TextVQA data is in the repository): 200
+   images' obj features as an LMDB environment and OCR features as an npz
+   directory (2048-d, some with more rows than c3 keeps, some with no OCR),
+   imdb files of 480 train and 120 val questions (some longer than 20
+   tokens), a fastText ``.bin`` (1,000 words, 100,000 buckets, dimension
+   300) and a 5,000-word answer vocab. Each split is preprocessed natively
+   and in Python (seconds of each, of PHOC, the spatial graphs and the
+   fastText lookups; the arrays must agree), then ``train.main`` runs
+   without ``--synthetic`` (c3, bf16, batch 96, 1 epoch; a missing test
+   split skipped): the loop's samples/s beside phase 5's and phase 3b's,
+   validation samples/s, K1 and K3 required in the validation and no
+   launch in the train steps, peak memory; the splits are built again from
+   the preprocess cache the run wrote (seconds), and K1 and K3 are held
+   against their plain versions on the first real-format val batch of 96.
+   Phases 5 and 6 run before phase 4, so that no timing follows the
+   profiler;
 4. after every timed phase, ``torch.profiler`` device time by kernel of one
    spatial-attention call (code pass and attention), of one bf16 decode
    step at batch 32 (its kernels by name with launch counts, so launches
@@ -73,12 +96,14 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    the card's idle share) and of one bf16 train step at batch 96; then in
    f32 the three backends must give identical ids and the full forward
    with the kernel attention must match the plain one;
-6. JSON lines of the training path, of the train CLI and of the kernels,
-   then the result line ``{"ok": true, "device": {...}}``.
+then JSON lines of the training path, of the train CLI, of the real-data
+run and of the kernels, and the result line ``{"ok": true, "device":
+{...}}``.
 
-``python3 chip_smoke.py --resume-check CONFIG DIR [DEVICE]`` is that child: it prints
-one JSON line. The parent sets the cuBLAS workspace variable for the child
-only, so the phases it times run as they ran before phase 5 existed.
+``python3 chip_smoke.py --resume-check CONFIG DIR [DEVICE [MODE]]`` is that child
+(``MODE`` ``deterministic``, the default, or ``default``): it prints one JSON
+line. The parent sets the cuBLAS workspace variable for the deterministic
+child only, so the phases it times run as they ran before phase 5 existed.
 
 It imports nothing of JAX, and exits nonzero without a CUDA device.
 """
@@ -103,8 +128,10 @@ import torch.nn.functional as F
 
 from sam_textvqa_tpu_torch import train as train_cli
 from sam_textvqa_tpu_torch.config import load_task_config
+from sam_textvqa_tpu_torch.data import dataset, fasttext_bin, features, lmdb_io, processors
 from sam_textvqa_tpu_torch.data.dataset import EpochBatcher
 from sam_textvqa_tpu_torch.data.synthetic import SyntheticDataset, device_batch, make_batch
+from sam_textvqa_tpu_torch.data.vocab import VocabDict
 from sam_textvqa_tpu_torch.evaluation.metrics import decode_predictions
 from sam_textvqa_tpu_torch.models.bert import split_heads
 from sam_textvqa_tpu_torch.models.fast_decode import (_mega_step_consts, _seg_lens,
@@ -118,7 +145,8 @@ from sam_textvqa_tpu_torch.ops.decode_step import (WEIGHT_NAMES, decode_step_fus
 from sam_textvqa_tpu_torch.ops.fused_attention import (combined_permission,
                                                        spatial_attention,
                                                        spatial_attention_plain)
-from sam_textvqa_tpu_torch.ops.spatial_graph import relation_head_lut
+from sam_textvqa_tpu_torch.ops.phoc import build_phoc_batch
+from sam_textvqa_tpu_torch.ops.spatial_graph import build_spatial_graph, relation_head_lut
 from sam_textvqa_tpu_torch.serve import (build_model, build_vocab, run_demo,
                                          synthetic_requests)
 from sam_textvqa_tpu_torch.serving.engine import SAMPLE_KEYS, ServingEngine
@@ -820,15 +848,18 @@ def final_params(result) -> dict:
     return {k: v.detach().cpu().clone() for k, v in result["state"].model.state_dict().items()}
 
 
-def resume_child(config: str, out_dir: str, device: str = "cuda") -> int:
-    """``--resume-check``: with deterministic algorithms on (warn only), an
-    uninterrupted run of CLI_EPOCHS epochs, then one epoch plus a resumed
-    second, each in a fresh ``main``. Prints one JSON line: the steps, the
-    largest parameter difference, bit-identity, the ops that reported no
-    deterministic CUDA version and, when there are any and the runs
-    differ, the largest difference between two uninterrupted runs."""
+def resume_child(config: str, out_dir: str, device: str = "cuda",
+                 mode: str = "deterministic") -> int:
+    """``--resume-check``: an uninterrupted run of CLI_EPOCHS epochs, then
+    one epoch plus a resumed second, each in a fresh ``main``, with
+    deterministic algorithms on (warn only) unless ``mode`` is ``default``.
+    Prints one JSON line: the steps, the largest parameter difference,
+    bit-identity, the ops that reported no deterministic CUDA version and,
+    when there are any and the runs differ, the largest difference between
+    two uninterrupted runs."""
     out_dir = Path(out_dir)
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    if mode == "deterministic":
+        torch.use_deterministic_algorithms(True, warn_only=True)
 
     def run(tag, *extra):
         result = train_cli.main(cli_args(config, tag, *extra, dev=torch.device(device)))
@@ -851,6 +882,7 @@ def resume_child(config: str, out_dir: str, device: str = "cuda") -> int:
         out["ops_without_deterministic_cuda"] = sorted({
             str(w.message).split(" does not have")[0] for w in caught
             if "deterministic" in str(w.message)})
+        out["mode"] = mode
         if not out["bit_identical"] and out["ops_without_deterministic_cuda"]:
             other, _, _ = run("det_c", "--num_train_epochs", str(CLI_EPOCHS))
             shutil.rmtree(out_dir / "det_c")
@@ -859,24 +891,31 @@ def resume_child(config: str, out_dir: str, device: str = "cuda") -> int:
     return 0
 
 
-def resume_check(config: str, out_dir: Path, dev=torch.device("cuda")) -> dict:
-    """The resume check in a child process (see :func:`resume_child`),
-    started with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` as deterministic cuBLAS
-    needs before CUDA starts. The bar is bit-identity; if an op reported
-    that it has no deterministic CUDA version, it becomes the largest
-    difference between two uninterrupted runs, printed beside it."""
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+def resume_check(config: str, out_dir: Path, dev=torch.device("cuda"),
+                 deterministic: bool = True) -> dict:
+    """The resume check in a child process (see :func:`resume_child`).
+    With ``deterministic``, the child starts with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, as deterministic cuBLAS needs
+    before CUDA starts, and the bar is bit-identity; if an op reported that
+    it has no deterministic CUDA version, it becomes the largest difference
+    between two uninterrupted runs, printed beside it. Without, the child
+    runs as the train CLI does by default (neither set), and the largest
+    parameter difference is measured, with no bar."""
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    if deterministic:
+        env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    mode = "deterministic" if deterministic else "default"
     child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--resume-check",
-                            config, str(out_dir), dev.type], env=env, capture_output=True,
-                           text=True, timeout=900)
+                            config, str(out_dir), dev.type, mode], env=env,
+                           capture_output=True, text=True, timeout=900)
     if child.returncode != 0:
-        raise AssertionError(f"the resume check failed ({child.returncode}): "
+        raise AssertionError(f"the resume check ({mode}) failed ({child.returncode}): "
                              f"{child.stderr[-4000:]}")
     out = json.loads(child.stdout.strip().splitlines()[-1])
-    log(f"  resume check: {json.dumps(out)}")
+    log(f"  resume check ({mode}): {json.dumps(out)}")
     if out["step"] != out["uninterrupted_step"] or out["resumed_epochs"] != [CLI_EPOCHS - 1]:
         raise AssertionError(f"the resumed run took other steps: {out}")
-    if not out["bit_identical"] and not (
+    if deterministic and not out["bit_identical"] and not (
             out["ops_without_deterministic_cuda"]
             and out["max_abs_diff"] <= out["bar_two_uninterrupted_runs"]):
         raise AssertionError(f"the resumed run differs from the uninterrupted one: {out}")
@@ -1033,10 +1072,275 @@ def train_cli_path(task, vocab, model, bare_step, gen, dev=torch.device("cuda"))
             f"{json.dumps(out['best_model_f32_ids'])}")
         shutil.rmtree(tmp / "full")
         out["resume"] = resume_check(config, tmp, dev)
+        out["resume_default"] = resume_check(config, tmp, dev, deterministic=False)
 
     val_batch = device_batch(make_batch(task, TRAIN_BATCH, seed=1,
                                         num_answers_vocab=len(vocab)), dev)
     out["parity_b96"] = parity_b96(task, model, val_batch, gen)
+    return out
+
+
+# ---------------------------------------------------------------- phase 6
+
+REAL_IMAGES = 200
+REAL_QUESTIONS = {"train": 480, "val": 120}  # 5 train steps at 96; 2 val batches
+REAL_FT_WORDS, REAL_FT_BUCKETS = 1000, 100_000
+
+
+def write_real_files(root: Path, task, seed: int = 0) -> dict:
+    """Files in the reference's formats, made with numpy from ``seed`` by the
+    port's writers (no real TextVQA data is in the repository): the obj
+    features of ``REAL_IMAGES`` images as an LMDB environment, their OCR
+    features as an npz directory (2048-d; up to 20 rows more than the c3
+    config keeps, so truncation runs, and some images with no OCR), imdb
+    files of the train and val questions (some longer than 20 tokens), a
+    fastText ``.bin`` (dimension 300) and an answer vocab of 5,000 words."""
+    rng = np.random.RandomState(seed)
+    bulk = np.random.default_rng(seed)
+    mmt = task.mmt
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz0123456789"))
+    pool = sorted({"".join(rng.choice(letters, rng.randint(2, 9))) for _ in range(2500)})
+    obj, ocr_dir, tokens = {}, root / "ocr", {}
+    ocr_dir.mkdir(parents=True)
+    rows = {"obj": [], "ocr": []}
+    for i in range(REAL_IMAGES):
+        w, h = (int(v) for v in rng.randint(400, 1025, size=2))
+        n_obj = rng.randint(10, mmt.max_obj_num + 21)
+        n_ocr = 0 if rng.rand() < 0.15 else rng.randint(1, mmt.max_ocr_num + 21)
+        recs = []
+        for n in (n_obj, n_ocr):
+            xy = rng.rand(n, 2) * [w * 0.9, h * 0.9]
+            box = np.concatenate([xy, np.minimum(xy + rng.rand(n, 2) * [w / 3, h / 3] + 2,
+                                                 [w, h])], axis=1)
+            recs.append(dict(features=bulk.standard_normal((n, 2048), dtype=np.float32),
+                             boxes=box.astype(np.float32), image_w=w, image_h=h))
+        rows["obj"].append(n_obj)
+        rows["ocr"].append(n_ocr)
+        obj[f"img{i}"] = recs[0]
+        np.savez(ocr_dir / f"img{i}.npz", **recs[1])
+        tokens[f"img{i}"] = [pool[j] for j in rng.randint(len(pool), size=n_ocr)]
+    lmdb_io.write_reference_feature_lmdb(str(root / "obj.lmdb"), obj)
+    del obj
+
+    vocab_words = ["<pad>", "<s>", "</s>", "<unk>"] + pool[:996]
+    vocab_words += [f"word{i}" for i in range(5000 - len(vocab_words))]
+    (root / "vocab.txt").write_text("\n".join(vocab_words) + "\n")
+    qlens = []
+    for split, n in REAL_QUESTIONS.items():
+        entries = [{"dataset": "textvqa", "split": split}]
+        for q in range(n):
+            image_id = f"img{rng.randint(REAL_IMAGES)}"
+            toks = tokens[image_id]
+            answer_pool = toks + vocab_words[4:40]
+            qlen = rng.randint(4, 31)
+            qlens.append(qlen)
+            entries.append({
+                "question": " ".join(pool[j] for j in rng.randint(len(pool), size=qlen)),
+                "question_id": 100_000 * (split == "val") + q, "image_id": image_id,
+                "image_height": 768, "image_width": 1024,
+                "google_ocr_tokens_filtered": toks,
+                "answers": [answer_pool[j] for j in rng.randint(len(answer_pool), size=10)],
+            })
+        np.save(root / f"imdb_{split}.npy", np.array(entries, dtype=object), allow_pickle=True)
+    fasttext_bin.write_fasttext_bin(
+        str(root / "wiki.generated.bin"), pool[:REAL_FT_WORDS],
+        bulk.standard_normal((REAL_FT_WORDS, 300), dtype=np.float32),
+        bucket=REAL_FT_BUCKETS,
+        ngram_vectors=bulk.standard_normal((REAL_FT_BUCKETS, 300), dtype=np.float32) * 0.1)
+    sizes = dict(
+        images=REAL_IMAGES, questions=dict(REAL_QUESTIONS),
+        obj_rows=dict(min=min(rows["obj"]), max=max(rows["obj"]),
+                      over_max=sum(n > mmt.max_obj_num for n in rows["obj"])),
+        ocr_rows=dict(min=min(rows["ocr"]), max=max(rows["ocr"]),
+                      none=rows["ocr"].count(0),
+                      over_max=sum(n > mmt.max_ocr_num for n in rows["ocr"])),
+        question_words=dict(min=min(qlens), max=max(qlens),
+                            over_max_seq_length=sum(n > mmt.max_seq_length for n in qlens)),
+        fasttext=dict(words=REAL_FT_WORDS, buckets=REAL_FT_BUCKETS, dim=300),
+        vocab=len(vocab_words),
+        bytes={name: sum(f.stat().st_size for f in (root / name).rglob("*") if f.is_file())
+               if (root / name).is_dir() else (root / name).stat().st_size
+               for name in ("obj.lmdb", "ocr", "wiki.generated.bin", "imdb_train.npy")})
+    return dict(root=root, sizes=sizes)
+
+
+def real_config(task_yaml: dict, root: Path) -> dict:
+    raw = dict(task_yaml, output_dir=str(root / "save"),
+               textvqa_obj=str(root / "obj.lmdb"), textvqa_ocr=str(root / "ocr"),
+               textvqa_imdb=str(root / "imdb_{}.npy"),
+               textvqa_spatial_cache=str(root / "cache_{}.pkl"),
+               fasttext_bin=str(root / "wiki.generated.bin"))
+    raw["Vocabs"] = dict(raw.get("Vocabs") or {}, vocab5k=str(root / "vocab.txt"))
+    return raw
+
+
+def preprocess_times(task, vocab, split: str, root: Path) -> dict:
+    """One split's preprocessing, native and in Python (no cache), and its
+    parts alone: PHOC and the spatial graphs, native and Python, and the
+    fastText lookups of a fresh processor. The two preprocessings must give
+    the same arrays."""
+    obj_src = features.open_feature_source(task.textvqa_obj)
+    ocr_src = features.open_feature_source(task.textvqa_ocr)
+    t0 = time.monotonic()
+    entries = dataset.load_split_entries(task, "textvqa", split, obj_src, ocr_src)
+    out = {"questions": len(entries), "read_entries_and_boxes_s": time.monotonic() - t0}
+    answers = processors.M4CAnswerProcessor(vocab, max_copy_steps=task.mmt.num_decoding_steps,
+                                            max_ocr_tokens=task.mmt.max_ocr_num)
+    packed, tokenizer = {}, processors.load_bert_tokenizer()
+    for native in (True, False):
+        ft = processors.FastTextProcessor(model_path=task.fasttext_bin)
+        t0 = time.monotonic()
+        packed[native] = dataset.preprocess_split(task, entries, tokenizer, ft, answers,
+                                                  native=native)
+        out["preprocess_native_s" if native else "preprocess_python_s"] = time.monotonic() - t0
+    for k in ("ocr_phoc_bits", "spatial_classes", "ocr_fasttext", "question_indices"):
+        if not np.array_equal(getattr(packed[True], k), getattr(packed[False], k)):
+            raise AssertionError(f"{split}: native and Python preprocessing differ in {k}")
+    n_ocr = task.mmt.max_ocr_num
+    tokens = [processors.word_cleaner(w) for e in entries
+              for w in e.get("google_ocr_tokens_filtered", [])[:n_ocr]]
+    boxes = np.stack([e["_pad_joint_boxes"] for e in entries])
+    for native in (True, False):
+        tag = "native" if native else "python"
+        t0 = time.monotonic()
+        build_phoc_batch(tokens, native=native)
+        out[f"phoc_{tag}_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        build_spatial_graph(boxes, task.distance_threshold, native=native)
+        out[f"spatial_graph_{tag}_s"] = time.monotonic() - t0
+    ft = processors.FastTextProcessor(model_path=task.fasttext_bin)
+    t0 = time.monotonic()
+    for e in entries:
+        ft([processors.word_cleaner(w) for w in e.get("google_ocr_tokens_filtered", [])], n_ocr)
+    out["fasttext_lookups_s"] = time.monotonic() - t0
+    out["ocr_tokens"], out["distinct_ocr_tokens"] = len(tokens), len(set(tokens))
+    out["featurize_ms_per_question"] = 1e3 * out["preprocess_native_s"] / len(entries)
+    out["spatial_classes_nonzero_share"] = float((packed[True].spatial_classes > 0).mean())
+    return out
+
+
+def real_data_path(task, vocab, model, cli, bare_step, gen, dev=torch.device("cuda")) -> dict:
+    """Phase 6: the train CLI on real-format files (see the module
+    docstring). ``cli`` is phase 5's result and ``bare_step`` phase 3b's,
+    printed beside the loop's rate; ``model`` the phase 3 model, whose
+    weights K3's check uses."""
+    import yaml
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as tmp:
+        root = Path(tmp)
+        t0 = time.monotonic()
+        files = write_real_files(root, task)
+        out["files"] = dict(files["sizes"], write_s=time.monotonic() - t0)
+        log(f"  generated files (numpy, seed 0; no real TextVQA data): "
+            f"{json.dumps(out['files'])}")
+        raw = real_config(yaml.safe_load(CONFIG.read_text()), root)
+        config = root / "real.yml"
+        config.write_text(yaml.safe_dump(raw))
+        real_task = load_task_config(str(config))
+        real_vocab = VocabDict(str(root / "vocab.txt"))
+        out["preprocess"] = {split: preprocess_times(real_task, real_vocab, split, root)
+                             for split in REAL_QUESTIONS}
+        for split, p in out["preprocess"].items():
+            log(f"  preprocess {split} ({p['questions']} questions, {p['ocr_tokens']} OCR "
+                f"tokens): native {p['preprocess_native_s']:.3f} s, Python "
+                f"{p['preprocess_python_s']:.3f} s; PHOC {p['phoc_native_s']:.4f} / "
+                f"{p['phoc_python_s']:.3f} s, spatial graphs {p['spatial_graph_native_s']:.4f}"
+                f" / {p['spatial_graph_python_s']:.3f} s, fastText lookups "
+                f"{p['fasttext_lookups_s']:.3f} s; featurize "
+                f"{p['featurize_ms_per_question']:.3f} ms per question")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        run = train_cli.main(["--config", str(config), "--tag", "real", "--batch_size",
+                              str(TRAIN_BATCH), "--device", dev.type, "--dtype", "bf16",
+                              "--num_train_epochs", "1"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        (h,) = run["history"]
+        require_launched(h["val_launches"], ("spatial_attention", "decode_step"),
+                         "real-data validation")
+        if any(h["train_launches"].values()):
+            raise AssertionError(f"the train steps launched kernels: {h['train_launches']}")
+        if not np.isfinite(h["loss"]) or run["state"].step != \
+                REAL_QUESTIONS["train"] // TRAIN_BATCH:
+            raise AssertionError(f"the real-data run: step {run['state'].step}, {h}")
+        if run["eval"].get("test") is not None or h["val_samples"] != REAL_QUESTIONS["val"]:
+            raise AssertionError(f"real-data splits: {sorted(run['eval'])}, {h['val_samples']}")
+        for name in ("best_model", "last_state", "evalai_val.json"):
+            if not (root / "save" / "real" / name).exists():
+                raise AssertionError(f"the real-data run wrote no {name}")
+        out["train"] = dict(epoch=h, wall_s=wall, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                            loop_samples_per_s=h["samples_per_s"],
+                            synthetic_loop_samples_per_s=cli["train"]["loop_samples_per_s"],
+                            bare_step_samples_per_s=bare_step["samples_per_s"])
+        del run
+        log(f"  train CLI on the files: loop {h['samples_per_s']:.1f} samples/s ({h['steps']} "
+            f"steps; phase 5 synthetic loop {cli['train']['loop_samples_per_s']}, bare step of "
+            f"phase 3b {bare_step['samples_per_s']:.1f}), loss {h['loss']:.3f}; validation "
+            f"{h['val_samples']} samples in {h['val_s']:.3f} s ({h['val_samples_per_s']:.1f} "
+            f"samples/s), launches {h['val_launches']} (train steps {h['train_launches']}); "
+            f"peak memory {out['train']['peak_memory_bytes'] / 2**30:.2f} GiB; whole main "
+            f"{wall:.1f} s")
+
+        # the CLI's run wrote each split's cache: build the splits again
+        # from it (the imdb and every image's boxes are still read)
+        reload, splits = {}, {}
+        obj_src = features.open_feature_source(real_task.textvqa_obj)
+        ocr_src = features.open_feature_source(real_task.textvqa_ocr)
+        tokenizer = processors.load_bert_tokenizer()
+        for split in REAL_QUESTIONS:
+            t0 = time.monotonic()
+            splits[split] = dataset.build_dataset(
+                real_task, "textvqa", split, tokenizer,
+                processors.FastTextProcessor(model_path=real_task.fasttext_bin), real_vocab,
+                obj_src, ocr_src, cache_path=real_task.textvqa_spatial_cache.format(split))
+            reload[f"{split}_build_dataset_from_cache_s"] = time.monotonic() - t0
+            if not all(os.path.exists(f) for f in dataset.cache_files(
+                    real_task.textvqa_spatial_cache.format(split))):
+                raise AssertionError(f"the CLI wrote no preprocess cache for {split}")
+        out["cache_reload"] = reload
+        log(f"  cache reload: {json.dumps(reload)}")
+
+        val = next(iter(EpochBatcher(splits["val"], TRAIN_BATCH, shuffle=False,
+                                     supervised=False).epoch_batches()))
+        batch = device_batch({k: val[k] for k in SAMPLE_KEYS}, dev)
+        out["parity_b96"] = parity_b96(task, model, batch, gen)
+    return out
+
+
+def sync_free_decodes(model, batch, bos: int) -> dict:
+    """A warmed-up ``mega`` and ``fused`` decode of a batch already on the
+    card, with the masks checked on the host beforehand (``check_masks=
+    False``, as the engine and the evaluator decode), under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that waits for the
+    device raises. The control, the same ``mega`` decode with its mask check
+    on a device copy, must raise."""
+    out = {}
+    for backend in ("mega", "fused"):
+        greedy_decode_fast(model, batch, bos, backend=backend, check_masks=False)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            greedy_decode_fast(model, batch, bos, backend=backend, check_masks=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        out[backend] = "no synchronizing call"
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        greedy_decode_fast(model, batch, bos, backend="mega")
+        control = None
+    except RuntimeError as e:
+        control = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if control is None:
+        raise AssertionError("the decode with its device-side mask check did not raise under "
+                             "the sync debug mode: the check cannot see syncs")
+    out["control_with_device_mask_check"] = control
     return out
 
 
@@ -1118,12 +1422,18 @@ def main() -> int:
         breakdown[f"{name}_kernels_device_ms"] = n * kernels[name]["device_ms"]
     breakdown["decode_step_share"] = breakdown["decode_step_kernels_ms"] / breakdown["decode_ms"]
 
+    log("== phase 3c: no host sync in a kernel decode (B=32, mega and fused)")
+    main["sync_free"] = sync_free_decodes(model, main["batch"], vocab.special_ids().bos)
+    log(f"  {json.dumps(main['sync_free'])}")
+
     log("== phase 3b: training path (c3: f32 card vs CPU; bf16 batch 96 train steps; eval)")
     training = {"parity_f32": train_parity(task, len(vocab))}
     training["train"], trained, train_batch, train_call = train_path(task, vocab)
     training["eval"] = trained_checks(task, vocab, trained, train_batch)
     log("== phase 5: the train CLI (c3, bf16, batch 96, --synthetic 480)")
     cli = train_cli_path(task, vocab, model, training["train"], gen)
+    log("== phase 6: the train CLI on real-format files (c3, bf16, batch 96, 1 epoch)")
+    real = real_data_path(task, vocab, model, cli, training["train"], gen)
     # profiles come after every timed phase, so that no timing runs after
     # the profiler has been started in this process
     log("== phase 4: device profiles (K1 call, K3 step at B=32, B=32 bf16 mega decode, "
@@ -1169,11 +1479,13 @@ def main() -> int:
             "path": "serving, backend fused" if fused else "serving, backend auto (mega)",
             "train_launches": training["train"]["launches"][name],
             "train_cli_val_launches": cli["train"]["epochs"][-1]["val_launches"][name],
+            "real_data_val_launches": real["train"]["epoch"]["val_launches"][name],
             "kernel_eval_step_launches": training["eval"]["kernel_launches"][name],
             "parity": "ok", **res,
         })
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"train_cli": cli}), flush=True)
+    print(json.dumps({"real_data": real}), flush=True)
     log(f"total seconds: {time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1184,5 +1496,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-check"]:
-        sys.exit(resume_child(*sys.argv[2:5]))
+        sys.exit(resume_child(*sys.argv[2:6]))
     sys.exit(main())

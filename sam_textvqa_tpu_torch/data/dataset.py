@@ -1,17 +1,374 @@
-"""Epoch batching over a dataset (JAX package ``data/dataset.py:354-530``).
+"""TextVQA / ST-VQA datasets: offline preprocessing and fixed-shape host
+batches (JAX package ``data/dataset.py``).
 
-Numpy on the host, bit-equal to the JAX package's batches: the same epoch
-order from ``seed + epoch``, the same repeat-padding of the final batch, and
-one decoding-target RNG stream per row from (seed, epoch, batch, row). The
-real-data dataset (``SAMDataset``, ``build_dataset``) is not ported yet;
-:class:`~.synthetic.SyntheticDataset` serves the same interface.
+Reference: sam/datasets/textvqa_dataset.py and stvqa_dataset.py. As in the
+JAX package:
+
+* imdb (.npy) loading, question-id sort and key filtering (reference
+  ImageDatabase :449-507, load_imdb :20-51);
+* one preprocessing pass per split: tokenized questions, cleaned OCR
+  tokens, PHOC and fastText features, answer matching and spatial graphs
+  (the native passes of ``csrc/host``, in place of the reference's
+  32-process scalar loop, :228-280), cached in the port's own format;
+* per-row dynamic answer sampling with an explicit RNG (the reference
+  samples inside ``__getitem__``, processors.py:655-665);
+* strings stay on the host, keyed by position in the batch.
+
+The packed arrays use compact dtypes (PHOC bit-packed, fastText float16,
+spatial classes int8); region features come from a :class:`FeatureSource`
+at batch time, kept in memory after their first read (the reference's
+``in_memory=True``). :class:`EpochBatcher` serves epochs of any dataset
+with ``get_batch`` (also :class:`~.synthetic.SyntheticDataset`), bit-equal
+to the JAX package's batches.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import json
+import logging
+import os
+import secrets
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..config import TaskConfig
+from ..ops.batcher import gather_rows
+from ..ops.phoc import PHOC_DIM, build_phoc_batch
+from ..ops.spatial_graph import build_spatial_graph
+from .features import FeatureSource, pad_features
+from .processors import (AnswerMatch, BertQuestionProcessor, FastTextProcessor,
+                         M4CAnswerProcessor, word_cleaner)
+from .vocab import VocabDict
+
+logger = logging.getLogger(__name__)
+
+IMDB_STORE_KEYS = [
+    "question",
+    "question_id",
+    "image_id",
+    "image_path",
+    "answers",
+    "image_height",
+    "image_width",
+    "google_ocr_tokens_filtered",
+]
+
+_PHOC_PACKED = (PHOC_DIM + 7) // 8
+#: the version of the preprocess cache's layout (:func:`preprocess_split`)
+CACHE_FORMAT = 1
+_CACHE_ARRAYS = ("question_indices", "question_mask", "ocr_phoc_bits", "ocr_fasttext",
+                 "spatial_classes", "question_id")
+
+
+def load_imdb_entries(imdb_path: str, dataset: str = "textvqa") -> List[Dict]:
+    """Load, sort and filter imdb entries (reference load_imdb /
+    ImageDatabase: row 0 is metadata, entries sorted by question_id).
+    ST-VQA derives the feature key from the image path (reference
+    stvqa_dataset.py:58)."""
+    try:
+        db = np.load(imdb_path, allow_pickle=True)
+    except (EOFError, ValueError) as e:
+        raise ValueError(f"{imdb_path}: not an imdb file ({e})") from e
+    if not isinstance(db, np.ndarray) or db.ndim != 1:
+        raise ValueError(f"{imdb_path}: not an imdb file (an array of entries)")
+    entries = []
+    for instance in sorted(db[1:], key=lambda x: x["question_id"]):
+        entry = {k: instance[k] for k in IMDB_STORE_KEYS if k in instance}
+        if dataset == "stvqa":
+            entry["image_id"] = entry["image_path"].split(".")[0] + ".npy"
+        entries.append(entry)
+    return entries
+
+
+@dataclass
+class PackedEntries:
+    """Fixed-shape per-question arrays from :func:`preprocess_split`."""
+
+    question_indices: np.ndarray   # (N, Q) int32
+    question_mask: np.ndarray      # (N, Q) f32
+    ocr_phoc_bits: np.ndarray      # (N, OCR, ceil(604/8)) uint8, bit-packed
+    ocr_fasttext: np.ndarray       # (N, OCR, 300) f16
+    spatial_classes: np.ndarray    # (N, 150, 150) int8
+    question_id: np.ndarray        # (N,) int64 (the position for string ids)
+    question_id_raw: List          # the imdb's ids (int for TextVQA, str for
+                                   # ST-VQA), for EvalAI dumps and GT joins
+    image_ids: List[str]
+    ocr_tokens: List[List[str]]    # padded to OCR with "<pad>"
+    answers: List[List[str]]       # raw answers (for eval); may be empty
+    matches: List[Optional[AnswerMatch]]
+
+    def __len__(self):
+        return self.question_indices.shape[0]
+
+
+class SAMDataset:
+    """One split of TextVQA or ST-VQA, preprocessed and served in batches.
+
+    With ``in_memory_features`` (the default, as in the JAX package and the
+    reference) each image's padded features stay in memory after their first
+    read, without a bound: about 1.2 MB per image at c3."""
+
+    def __init__(self, task_cfg: TaskConfig, packed: PackedEntries,
+                 obj_source: FeatureSource, ocr_source: FeatureSource,
+                 answer_processor: M4CAnswerProcessor, in_memory_features: bool = True):
+        self.cfg = task_cfg
+        self.packed = packed
+        self.obj_source = obj_source
+        self.ocr_source = ocr_source
+        self.answer_processor = answer_processor
+        self._feat_cache: Optional[Dict[Tuple[str, str], Tuple[np.ndarray, ...]]] = (
+            {} if in_memory_features else None)
+
+    def __len__(self) -> int:
+        return len(self.packed)
+
+    def _features(self, kind: str, image_id: str):
+        key = (kind, image_id)
+        if self._feat_cache is not None and key in self._feat_cache:
+            return self._feat_cache[key]
+        source = self.obj_source if kind == "obj" else self.ocr_source
+        max_num = self.cfg.mmt.max_obj_num if kind == "obj" else self.cfg.mmt.max_ocr_num
+        feats, boxes = source.get(image_id)
+        out = pad_features(feats, boxes, max_num)
+        if self._feat_cache is not None:
+            self._feat_cache[key] = out
+        return out
+
+    def get_batch(self, indices: Sequence[int],
+                  rng: Optional[np.random.RandomState] = None) -> Dict:
+        """One fixed-shape batch; ``rng`` (one stream, or one per row)
+        drives the answer sampling, and without it no training targets are
+        built (decode-only eval)."""
+        cfg = self.cfg.mmt
+        bsz = len(indices)
+        p = self.packed
+        t = cfg.num_decoding_steps
+        batch = {
+            "question_indices": p.question_indices[indices],
+            "question_mask": p.question_mask[indices],
+            "ocr_fasttext": p.ocr_fasttext[indices].astype(np.float32),
+            "ocr_phoc": np.unpackbits(p.ocr_phoc_bits[indices], axis=-1)[..., :PHOC_DIM]
+            .astype(np.float32),
+            "spatial_classes": p.spatial_classes[indices],
+            "train_prev_inds": np.zeros((bsz, t), np.int32),
+            "question_id": p.question_id[indices],
+            "_question_id_raw": [p.question_id_raw[i] for i in indices],
+            "_ocr_tokens": [p.ocr_tokens[i] for i in indices],
+            "_answers": [p.answers[i] for i in indices],
+        }
+        if rng is not None:
+            vocab_total = self.answer_processor.get_vocab_size()
+            batch["train_loss_mask"] = np.zeros((bsz, t), np.float32)
+            batch["train_acc_mask"] = np.zeros((bsz, t), np.float32)
+            batch["targets"] = np.zeros((bsz, t, vocab_total), np.float32)
+        # six native gathers, GIL-free (the reference's collate,
+        # task_utils.py:70-88)
+        obj_rows = [self._features("obj", p.image_ids[i]) for i in indices]
+        ocr_rows = [self._features("ocr", p.image_ids[i]) for i in indices]
+        for prefix, rows in (("pad_obj", obj_rows), ("pad_ocr", ocr_rows)):
+            for col, name in enumerate(("_features", "_mask", "_bboxes")):
+                batch[prefix + name] = gather_rows([r[col] for r in rows])
+        for row, i in enumerate(indices):
+            match = p.matches[i]
+            if match is not None and rng is not None:
+                sampled = self.answer_processor.sample_decoding_targets(
+                    match, _row_rng(rng, row))
+                batch["train_prev_inds"][row] = sampled["train_prev_inds"]
+                batch["train_loss_mask"][row] = sampled["train_loss_mask"]
+                batch["train_acc_mask"][row] = sampled["train_acc_mask"]
+                batch["targets"][row] = sampled["targets"]
+        return batch
+
+
+def cache_files(cache_path: str) -> Tuple[str, str]:
+    """The port's preprocess cache beside the configured ``cache_path``: an
+    ``.npz`` of the arrays and a JSON sidecar. The configured file itself
+    (the JAX package's pickle) is never read."""
+    base = f"{cache_path}.torch"
+    return base + ".npz", base + ".json"
+
+
+def _cache_key(task_cfg: TaskConfig, n: int, fasttext_dim: int) -> Dict:
+    """What a cache was built for; a cache built for anything else is
+    rebuilt."""
+    mmt = task_cfg.mmt
+    return {"format": CACHE_FORMAT, "entries": n, "max_seq_length": mmt.max_seq_length,
+            "max_obj_num": mmt.max_obj_num, "max_ocr_num": mmt.max_ocr_num,
+            "fasttext_dim": fasttext_dim, "distance_threshold": task_cfg.distance_threshold,
+            "needs_spatial": task_cfg.needs_spatial, "clean_answers": task_cfg.clean_answers}
+
+
+def _match_to_json(m: Optional[AnswerMatch]):
+    if m is None:
+        return None
+    return {"idx_seqs": [list(s) for s in m.idx_seqs],
+            "step0_scores": [[i, s] for i, s in m.step0_scores],
+            "ocr2inds": m.ocr2inds, "context_tokens": m.context_tokens}
+
+
+def _match_from_json(d) -> Optional[AnswerMatch]:
+    if d is None:
+        return None
+    return AnswerMatch(idx_seqs=[tuple(s) for s in d["idx_seqs"]],
+                       step0_scores=[(int(i), float(s)) for i, s in d["step0_scores"]],
+                       ocr2inds={k: list(v) for k, v in d["ocr2inds"].items()},
+                       context_tokens=list(d["context_tokens"]))
+
+
+def save_packed(cache_path: str, packed: PackedEntries, key: Dict) -> None:
+    """Write ``packed`` to :func:`cache_files` (each under a temporary name,
+    then renamed; a token ties the two files together)."""
+    npz_path, json_path = cache_files(cache_path)
+    os.makedirs(os.path.dirname(npz_path) or ".", exist_ok=True)
+    token = secrets.token_hex(8)
+    tmp = f"{npz_path}.{os.getpid()}.tmp.npz"
+    np.savez(tmp, token=np.array(token),
+             **{k: getattr(packed, k) for k in _CACHE_ARRAYS})
+    os.replace(tmp, npz_path)
+    meta = dict(key, token=token, question_id_raw=packed.question_id_raw,
+                image_ids=packed.image_ids, ocr_tokens=packed.ocr_tokens,
+                answers=[[str(a) for a in ans] for ans in packed.answers],
+                matches=[_match_to_json(m) for m in packed.matches])
+    tmp = f"{json_path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, json_path)
+
+
+def load_packed(cache_path: str, key: Dict) -> Optional[PackedEntries]:
+    """The cache of :func:`save_packed` if both files exist, belong together
+    and were built for ``key``; else None."""
+    npz_path, json_path = cache_files(cache_path)
+    if not (os.path.exists(npz_path) and os.path.exists(json_path)):
+        return None
+    with open(json_path) as f:
+        meta = json.load(f)
+    if {k: meta.get(k) for k in key} != key:
+        logger.warning("preprocess cache %s was built for other settings; rebuilding",
+                       json_path)
+        return None
+    with np.load(npz_path, allow_pickle=False) as z:
+        if str(z["token"]) != meta["token"]:
+            logger.warning("preprocess cache %s and %s do not match; rebuilding",
+                           npz_path, json_path)
+            return None
+        arrays = {k: z[k] for k in _CACHE_ARRAYS}
+    return PackedEntries(**arrays, question_id_raw=meta["question_id_raw"],
+                         image_ids=meta["image_ids"], ocr_tokens=meta["ocr_tokens"],
+                         answers=meta["answers"],
+                         matches=[_match_from_json(m) for m in meta["matches"]])
+
+
+def preprocess_split(task_cfg: TaskConfig, entries: List[Dict], tokenizer,
+                     fasttext: FastTextProcessor, answer_processor: M4CAnswerProcessor,
+                     cache_path: Optional[str] = None, native: bool = True) -> PackedEntries:
+    """Offline phase: tokenize, featurize OCR, match answers and build the
+    spatial graphs, with the native PHOC and spatial-graph passes (their
+    Python versions with ``native=False``). With ``cache_path`` (and not
+    ``debug``), the result is cached in the port's format beside it
+    (:func:`cache_files`) and reused by later runs.
+
+    The spatial graphs need the padded obj+OCR boxes: each entry carries
+    ``_pad_joint_boxes`` (N_joint, 4), put there by :func:`build_dataset`."""
+    n = len(entries)
+    key = _cache_key(task_cfg, n, fasttext.dim)
+    use_cache = bool(cache_path) and not task_cfg.debug
+    if use_cache:
+        cached = load_packed(cache_path, key)
+        if cached is not None:
+            logger.info("loaded preprocessed cache %s", cache_files(cache_path)[0])
+            return cached
+
+    q_proc = BertQuestionProcessor(tokenizer, task_cfg.mmt.max_seq_length)
+    n_ocr = task_cfg.mmt.max_ocr_num
+    n_joint = task_cfg.mmt.max_obj_num + n_ocr
+    packed = PackedEntries(
+        question_indices=np.zeros((n, task_cfg.mmt.max_seq_length), np.int32),
+        question_mask=np.zeros((n, task_cfg.mmt.max_seq_length), np.float32),
+        ocr_phoc_bits=np.zeros((n, n_ocr, _PHOC_PACKED), np.uint8),
+        ocr_fasttext=np.zeros((n, n_ocr, fasttext.dim), np.float16),
+        spatial_classes=np.zeros((n, n_joint, n_joint), np.int8),
+        question_id=np.zeros(n, np.int64),
+        question_id_raw=[], image_ids=[], ocr_tokens=[], answers=[], matches=[],
+    )
+    joint_boxes = np.zeros((n, n_joint, 4), np.float32)
+    for i, entry in enumerate(entries):
+        q = q_proc(entry["question"])
+        packed.question_indices[i] = q["question_indices"]
+        packed.question_mask[i] = q["question_mask"]
+        qid = entry["question_id"]
+        # string ids (ST-VQA) keep their identity in question_id_raw and
+        # take the position as the integer key
+        packed.question_id[i] = int(qid) if not isinstance(qid, str) else i
+        packed.question_id_raw.append(int(qid) if not isinstance(qid, str) else str(qid))
+        packed.image_ids.append(str(entry["image_id"]))
+
+        cleaned = [word_cleaner(w)
+                   for w in entry.get("google_ocr_tokens_filtered", [])][:n_ocr]
+        packed.ocr_tokens.append(cleaned + ["<pad>"] * (n_ocr - len(cleaned)))
+        if cleaned:
+            phoc = build_phoc_batch(cleaned, native=native)
+            packed.ocr_phoc_bits[i, :len(cleaned)] = np.packbits(phoc.astype(np.uint8),
+                                                                axis=-1)
+            packed.ocr_fasttext[i, :len(cleaned)] = fasttext(cleaned, n_ocr)[:len(cleaned)]
+
+        if "answers" in entry:
+            answers = list(entry["answers"])
+            packed.answers.append(answers)
+            cleaned_answers = ([word_cleaner(a) for a in answers]
+                               if task_cfg.clean_answers else answers)
+            packed.matches.append(answer_processor.match(cleaned_answers, cleaned))
+        else:
+            packed.answers.append([])
+            packed.matches.append(None)
+        if "_pad_joint_boxes" in entry:
+            joint_boxes[i] = entry["_pad_joint_boxes"]
+
+    if task_cfg.needs_spatial:
+        chunk = 64  # bounds the numpy version's (chunk, N, N) temporaries
+        for s in range(0, n, chunk):
+            packed.spatial_classes[s:s + chunk] = build_spatial_graph(
+                joint_boxes[s:s + chunk], task_cfg.distance_threshold, native=native)
+
+    if use_cache:
+        save_packed(cache_path, packed, key)
+    return packed
+
+
+def load_split_entries(task_cfg: TaskConfig, dataset: str, split: str,
+                       obj_source: FeatureSource, ocr_source: FeatureSource) -> List[Dict]:
+    """The imdb entries of one split, each with ``_pad_joint_boxes``, the
+    padded obj+OCR boxes of its image that the spatial graph reads
+    (reference process_spatials, textvqa_dataset.py:228-266)."""
+    prefix = "textvqa" if dataset == "textvqa" else "stvqa"
+    imdb_path = getattr(task_cfg, f"{prefix}_imdb").format(
+        "debug" if task_cfg.debug else split)
+    entries = load_imdb_entries(imdb_path, dataset)
+    mmt = task_cfg.mmt
+    for entry in entries:
+        image_id = str(entry["image_id"])
+        of, ob_boxes = obj_source.get(image_id)
+        cf, oc_boxes = ocr_source.get(image_id)
+        _, _, pad_ob = pad_features(of, ob_boxes, mmt.max_obj_num)
+        _, _, pad_oc = pad_features(cf, oc_boxes, mmt.max_ocr_num)
+        entry["_pad_joint_boxes"] = np.concatenate([pad_ob[:, :4], pad_oc[:, :4]], axis=0)
+    return entries
+
+
+def build_dataset(task_cfg: TaskConfig, dataset: str, split: str, tokenizer,
+                  fasttext: FastTextProcessor, answer_vocab: VocabDict,
+                  obj_source: FeatureSource, ocr_source: FeatureSource,
+                  cache_path: Optional[str] = None) -> SAMDataset:
+    """One split from its imdb file and feature sources."""
+    entries = load_split_entries(task_cfg, dataset, split, obj_source, ocr_source)
+    answer_processor = M4CAnswerProcessor(
+        answer_vocab, max_copy_steps=task_cfg.mmt.num_decoding_steps,
+        max_ocr_tokens=task_cfg.mmt.max_ocr_num)
+    packed = preprocess_split(task_cfg, entries, tokenizer, fasttext, answer_processor,
+                              cache_path)
+    return SAMDataset(task_cfg, packed, obj_source, ocr_source, answer_processor)
 
 
 def _row_rng(rng, i):
@@ -133,9 +490,12 @@ class EpochBatcher:
         batch["_real_count"] = real
         return batch
 
-    def epoch_batches(self):
+    def epoch_batches(self, skip: int = 0):
+        """The batches of the next epoch, from its ``skip``-th on: each
+        batch depends only on (seed, epoch, its index), so a resumed epoch
+        continues exactly where the interrupted one stopped."""
         epoch = self.epoch
-        specs = self._epoch_specs(epoch)
+        specs = self._epoch_specs(epoch)[skip:]
         if self.num_workers <= 0:
             for spec in specs:
                 yield self._assemble(epoch, spec)

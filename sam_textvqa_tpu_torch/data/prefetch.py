@@ -23,6 +23,8 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from ..ops.batcher import cast_bf16
+
 #: float32 arrays whose first use in the model is a cast to its compute
 #: dtype (``SAM4C.encode``): casting them on the host first is bit-identical
 #: (round to nearest even on both sides of the link) and halves the largest
@@ -40,15 +42,21 @@ FEATURE_TRANSFER_KEYS = (
 def cast_features_for_transfer(batch: Dict, dtype: Optional[torch.dtype]) -> Dict:
     """The batch's arrays as CPU tensors, with the float32 feature arrays of
     ``FEATURE_TRANSFER_KEYS`` cast to ``dtype`` when it is narrower than
-    float32; targets, masks and integer arrays are never cast. Host-only
-    (``_``-prefixed) keys are left out."""
+    float32 (to bf16 by the native threaded pass, bit-identical to
+    PyTorch's cast); targets, masks and integer arrays are never cast.
+    Host-only (``_``-prefixed) keys are left out."""
     narrow = dtype is not None and dtype.is_floating_point and dtype.itemsize < 4
     out = {}
     for k, v in batch.items():
         if k.startswith("_"):
             continue
+        cast = narrow and k in FEATURE_TRANSFER_KEYS
+        if cast and dtype == torch.bfloat16 and isinstance(v, np.ndarray) \
+                and v.dtype == np.float32:
+            out[k] = cast_bf16(v)
+            continue
         t = torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v
-        if narrow and k in FEATURE_TRANSFER_KEYS and t.dtype == torch.float32:
+        if cast and t.dtype == torch.float32:
             t = t.to(dtype)
         out[k] = t
     return out

@@ -1,24 +1,28 @@
-"""Answer-side preprocessing (JAX package ``data/processors.py``, its answer
-half; reference sam/datasets/processors.py:501-750).
+"""Host-side preprocessing processors (JAX package ``data/processors.py``;
+reference sam/datasets/processors.py).
 
-Everything deterministic about an answer is computed once
-(:meth:`M4CAnswerProcessor.match`); the only per-step random operation, the
+Everything deterministic is computed once, offline: the question tokens
+(:class:`BertQuestionProcessor`), the OCR word vectors
+(:class:`FastTextProcessor`) and the answer matching
+(:meth:`M4CAnswerProcessor.match`). The only per-step random operation, the
 reference's dynamic answer sampling inside ``__getitem__``
 (processors.py:655-680), is :meth:`M4CAnswerProcessor.sample_decoding_targets`,
-which the input pipeline calls per row with an explicit RNG. The question
-tokenizer and the fastText processor belong to the real-data input pipeline
-and are not ported yet.
+which the input pipeline calls per row with an explicit RNG.
 """
 
 from __future__ import annotations
 
+import zlib
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .vocab import VocabDict
+
+#: distinct tokens whose fastText vectors :class:`FastTextProcessor` keeps
+FASTTEXT_MEMO = 65536
 
 
 def word_cleaner(word: str) -> str:
@@ -26,6 +30,134 @@ def word_cleaner(word: str) -> str:
     word = word.lower()
     word = word.replace(",", "").replace("?", "").replace("'s", " 's")
     return word.strip()
+
+
+class BertQuestionProcessor:
+    """Tokenize and pad a question to ``max_length`` ids (reference
+    BertTokenizerProcessor, processors.py:467-498). Takes any tokenizer with
+    ``encode(text, add_special_tokens=True)`` and ``pad_token`` (e.g.
+    transformers' BertTokenizerFast) whose padding id is 0, as the reference
+    requires."""
+
+    def __init__(self, tokenizer, max_length: int = 20):
+        self.max_length = max_length
+        self.tokenizer = tokenizer
+        if tokenizer.encode(tokenizer.pad_token, add_special_tokens=False) != [0]:
+            raise ValueError("the tokenizer's padding token must encode to id 0")
+
+    def __call__(self, question: str) -> Dict[str, np.ndarray]:
+        token_inds = np.zeros(self.max_length, dtype=np.int32)
+        tokens_mask = np.zeros(self.max_length, dtype=np.float32)
+        indices = self.tokenizer.encode(question, add_special_tokens=True)
+        indices = indices[: self.max_length]
+        token_inds[: len(indices)] = indices
+        tokens_mask[: len(indices)] = 1.0
+        return {
+            "question_indices": token_inds,
+            "question_mask": tokens_mask,
+            "num_question_tokens": len(indices),
+        }
+
+
+class SimpleWordpieceTokenizer:
+    """Offline fallback tokenizer with BERT's interface, for when the
+    bert-base-uncased vocab is not on the machine: word ids bucketed by
+    crc32 into [1000, 30522), [CLS]/[SEP]/[PAD] at BERT's ids. The ids equal
+    the JAX package's fallback."""
+
+    pad_token = "[PAD]"
+    cls_id, sep_id, pad_id = 101, 102, 0
+    vocab_size = 30522
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
+        if text == self.pad_token:
+            return [self.pad_id]
+        # crc32, not hash(): hash() is salted per process, and a cache
+        # written by one run must agree with the tokens of the next
+        ids = [1000 + (zlib.crc32(w.encode("utf-8")) % (self.vocab_size - 1000))
+               for w in text.lower().split()]
+        if add_special_tokens:
+            ids = [self.cls_id] + ids + [self.sep_id]
+        return ids
+
+
+def load_bert_tokenizer():
+    """transformers' BertTokenizerFast for bert-base-uncased when the package
+    and its files are installed locally (local files only, no download),
+    else :class:`SimpleWordpieceTokenizer`; the caller logs the fallback."""
+    try:
+        from transformers import BertTokenizerFast
+
+        return BertTokenizerFast.from_pretrained("bert-base-uncased", local_files_only=True)
+    except Exception:  # not installed, or no local files: either way the fallback
+        return SimpleWordpieceTokenizer()
+
+
+class FastTextProcessor:
+    """300-d OCR word vectors (reference FastTextProcessor,
+    processors.py:181-226: the mean over space-split subwords).
+
+    Sources, in order of preference: a fastText ``.bin`` (``model_path``,
+    read by the port's :mod:`.fasttext_bin`), a ``{word: vector}`` table
+    (``table``, or ``table_path``: an npz with parallel ``words`` and
+    ``vectors`` arrays), else deterministic hash vectors so that the
+    pipeline runs without either (:attr:`is_fallback`).
+    """
+
+    def __init__(self, model_path: Optional[str] = None,
+                 table: Optional[Dict[str, np.ndarray]] = None,
+                 table_path: Optional[str] = None, dim: int = 300):
+        self.dim = dim
+        self.model = None
+        self.table = table
+        self._cache: Dict[str, np.ndarray] = {}
+        if table_path:
+            with np.load(table_path, allow_pickle=False) as z:
+                words = [str(w) for w in z["words"]]
+                vectors = np.asarray(z["vectors"], dtype=np.float32)
+            if vectors.ndim != 2 or len(words) != len(vectors):
+                raise ValueError(f"{table_path}: {len(words)} words, vectors {vectors.shape}")
+            self.table = dict(zip(words, vectors))
+            self.dim = int(vectors.shape[1])
+        if model_path:
+            from .fasttext_bin import load_fasttext_bin
+
+            self.model = load_fasttext_bin(model_path)
+            self.dim = self.model.get_dimension()
+
+    @property
+    def is_fallback(self) -> bool:
+        return self.model is None and self.table is None
+
+    def _vector(self, word: str) -> np.ndarray:
+        """Memoized per token (OCR tokens repeat heavily and every source is
+        deterministic); at most FASTTEXT_MEMO tokens are kept, and a kept
+        vector is never mutated."""
+        v = self._cache.get(word)
+        if v is None:
+            v = self._vector_uncached(word)
+            if len(self._cache) < FASTTEXT_MEMO:
+                self._cache[word] = v
+        return v
+
+    def _vector_uncached(self, word: str) -> np.ndarray:
+        if self.model is not None:
+            return np.mean([self.model.get_word_vector(w) for w in word.split(" ")], axis=0)
+        if self.table is not None:
+            vecs = [self.table.get(w, np.zeros(self.dim, np.float32)) for w in word.split(" ")]
+            return np.mean(vecs, axis=0)
+        # hash fallback: a unit-normal-ish vector per word, seeded by crc32
+        vecs = []
+        for w in word.split(" "):
+            rng = np.random.RandomState(zlib.crc32(w.encode("utf-8")) % (2**31))
+            vecs.append(rng.randn(self.dim).astype(np.float32) * 0.1)
+        return np.mean(vecs, axis=0)
+
+    def __call__(self, tokens: Sequence[str], max_length: int = 50) -> np.ndarray:
+        out = np.zeros((max_length, self.dim), dtype=np.float32)
+        for i, tok in enumerate(tokens[:max_length]):
+            out[i] = self._vector(tok)
+        return out
 
 
 def match_answer_to_vocab_ocr_seq(

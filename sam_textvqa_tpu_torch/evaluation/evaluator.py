@@ -24,7 +24,8 @@ import torch
 
 from ..data.prefetch import cast_features_for_transfer
 from ..data.vocab import VocabDict
-from ..models.fast_decode import greedy_decode_fast
+from ..models.fast_decode import (MASK_KEYS, check_prefix_masks, greedy_decode_fast,
+                                  resolve_backend)
 from ..serving.engine import SAMPLE_KEYS
 from .metrics import (
     OCRVQAAccuracyEvaluator,
@@ -111,16 +112,21 @@ class Evaluator:
             raise NotImplementedError(
                 "obj/OCR width ladders are not ported yet (ROADMAP queue 1, item 7)")
         device = next(self.model.parameters()).device
+        backend = resolve_backend(self.decode_backend, self.model.params_cfg.mmt, device)
         all_preds: List[Dict] = []
         scored_preds: List[Dict] = []
 
         def dispatch(batch):
             host_only = {k: v for k, v in batch.items() if k.startswith("_")}
             qids = _batch_qids(batch, host_only)
+            # the kernel backends' mask check runs here, on the host arrays,
+            # so that the decode never waits for the device
+            if backend != "plain":
+                check_prefix_masks(batch[k] for k in MASK_KEYS)
             with torch.no_grad():
                 _, pred_ids = greedy_decode_fast(
                     self.model, self._transfer_batch(batch, device), self.special.bos,
-                    backend=self.decode_backend)
+                    backend=backend, check_masks=False)
             fetched = None
             if device.type == "cuda":
                 host = torch.empty(pred_ids.shape, dtype=pred_ids.dtype, pin_memory=True)

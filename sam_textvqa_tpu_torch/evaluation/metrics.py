@@ -8,18 +8,21 @@ reference sam/datasets/metrics.py):
   ``min(matches/3, 1)`` (reference metrics.py:305-341);
 * :class:`STVQAAccuracyEvaluator` and :class:`OCRVQAAccuracyEvaluator`:
   exact match (reference metrics.py:344-357, 84-89);
-* :class:`STVQAANLSEvaluator`: ANLS with a Python Levenshtein (reference
-  metrics.py:360-382);
+* :class:`STVQAANLSEvaluator`: ANLS (reference metrics.py:360-382) over
+  :func:`levenshtein`, the native edit distance of ``csrc/host``;
 * :func:`decode_predictions`: argmax ids -> words with the OCR-copy offset
   and the EOS stop (reference metrics.py:21-68).
 """
 
 from __future__ import annotations
 
+import ctypes
 import re
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from ..ops import host_build
 
 
 class EvalAIAnswerProcessor:
@@ -180,9 +183,27 @@ class STVQAAccuracyEvaluator:
         return accuracy, pred_scores
 
 
-def levenshtein(s1: str, s2: str) -> int:
-    """Edit distance, in Python (the JAX package also has a native C++
-    version, csrc/editdistance.cc, not ported yet)."""
+def _declare_edit(lib: ctypes.CDLL) -> None:
+    lib.sam_edit_distance_u32.restype = ctypes.c_int
+    lib.sam_edit_distance_u32.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_void_p, ctypes.c_int]
+
+
+def levenshtein(s1: str, s2: str, native: bool = True) -> int:
+    """Edit distance over code points: the native pass
+    (``csrc/host/editdistance.cc``; the reference uses the ``editdistance``
+    package, metrics.py:360-364), or :func:`levenshtein_python`, its plain
+    twin, with ``native=False``."""
+    if not native:
+        return levenshtein_python(s1, s2)
+    lib = host_build.library("editdistance", _declare_edit)
+    a = (ctypes.c_uint * len(s1))(*map(ord, s1))
+    b = (ctypes.c_uint * len(s2))(*map(ord, s2))
+    return lib.sam_edit_distance_u32(a, len(s1), b, len(s2))
+
+
+def levenshtein_python(s1: str, s2: str) -> int:
+    """Edit distance in Python."""
     if len(s1) < len(s2):
         s1, s2 = s2, s1
     if not s2:

@@ -22,6 +22,7 @@ through the fused spatial-attention kernel (ops/fused_attention.py).
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 from typing import Dict, List, NamedTuple, Tuple
@@ -111,8 +112,7 @@ def build_mmt_cache(mmt, text_bert_emb, obj_mmt_in, ocr_mmt_in, question_mask,
         if layer_type == "n":
             ctx = _attention(q, k, v, col_bias, zero_fully_masked=False)
         elif attention_backend == "kernel":
-            lut = torch.tensor(relation_head_lut(key)[:, :h], dtype=torch.float32,
-                               device=x.device)
+            lut = _device_lut(key, h, x.device)
             ctx = spatial_attention(
                 q, k, v, spatial_classes.contiguous(), lut, col_mask, q_len=q_len,
                 n_ctx=n_ctx, dec_len=0, mask_quadrants=quadrants, spatial=True,
@@ -339,20 +339,38 @@ def _decode_one_row_fused(cfg: MMTConfig, consts, cache: MMTCache, seg_lens, x,
     return x
 
 
+#: the masks whose valid counts the kernel backends read (:func:`_seg_lens`)
+MASK_KEYS = ("question_mask", "pad_obj_mask", "pad_ocr_mask")
+
+
+def check_prefix_masks(masks) -> None:
+    """Raise ValueError unless every (..., n) host mask array is
+    prefix-contiguous (1s then 0s), as the kernel backends need."""
+    for m in masks:
+        arr = np.asarray(m) > 0
+        first_gap = np.where(arr, np.arange(1, arr.shape[-1] + 1), 0).max(-1)
+        if (arr.sum(-1) != first_gap).any():
+            raise ValueError("the kernel decode backends need prefix-contiguous masks")
+
+
+@functools.lru_cache(maxsize=None)
+def _device_lut(key: str, h: int, device: torch.device) -> torch.Tensor:
+    """The (13, h) float32 relation -> head LUT on ``device``, made once per
+    (context, heads, device) and never written: copying it for each call
+    from pageable memory waited for all work queued on the stream."""
+    return torch.tensor(relation_head_lut(key)[:, :h], dtype=torch.float32, device=device)
+
+
 def _seg_lens(batch, validate: bool = True) -> torch.Tensor:
     """(B, 3) int32 valid counts of the question / obj / OCR segments, which
     the kernels rebuild the encoder padding from. PRECONDITION: each mask is
-    prefix-contiguous (1s then 0s); ``validate`` checks it on the host and
-    raises ValueError otherwise."""
-    masks = [batch[k].float() for k in ("question_mask", "pad_obj_mask", "pad_ocr_mask")]
+    prefix-contiguous (1s then 0s); ``validate`` checks it on a host copy
+    of the masks (which waits for the device) and raises ValueError
+    otherwise; callers that checked their host arrays pass False."""
+    masks = [batch[k].float() for k in MASK_KEYS]
     lens = torch.stack([m.sum(-1) for m in masks], dim=1)
     if validate:
-        for m in masks:
-            arr = m.cpu().numpy() > 0
-            n = arr.shape[-1]
-            first_gap = np.where(arr, np.arange(1, n + 1)[None, :], 0).max(-1)
-            if (arr.sum(-1) != first_gap).any():
-                raise ValueError("the kernel decode backends need prefix-contiguous masks")
+        check_prefix_masks(m.cpu().numpy() for m in masks)
     return lens.to(torch.int32).contiguous()
 
 
@@ -373,14 +391,19 @@ def _greedy_steps(model, cfg, cache, tables, ptr_keys, bos_idx, dtype, step_fn):
 
 
 @torch.no_grad()
-def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto"):
+def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
+                       check_masks: bool = True):
     """Greedy decode: the encoder cache, then one decoder row per step
     against cached encoder AND decoder K/V. Same outputs as
     :func:`..models.sa_m4c.greedy_decode`. Returns (scores (B, T, V+O),
     pred ids (B, T)).
 
     ``backend``: ``plain`` | ``fused`` | ``mega`` | ``auto`` (see the module
-    docstring); ``fused`` and ``mega`` raise for configs they do not cover."""
+    docstring); ``fused`` and ``mega`` raise for configs they do not cover.
+    They need prefix-contiguous masks, which ``check_masks`` checks on a
+    host copy, waiting for the device: the engine and the evaluator check
+    their host arrays with :func:`check_prefix_masks` before the transfer
+    and pass False, so that the decode never waits for the device."""
     cfg = model.params_cfg.mmt
     device = batch["question_indices"].device
     backend = resolve_backend(backend, cfg, device)
@@ -413,7 +436,7 @@ def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto"):
 
         return _greedy_steps(model, cfg, cache, tables, ptr_keys, bos_idx, dtype, step)
 
-    seg_lens = _seg_lens(batch)
+    seg_lens = _seg_lens(batch, validate=check_masks)
     consts = _mega_step_consts(model.mmt, dtype)
     k_dec = cache.k_enc.new_zeros(n_layers, b, t_max, d)
     v_dec = cache.k_enc.new_zeros(n_layers, b, t_max, d)

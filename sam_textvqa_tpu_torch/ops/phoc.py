@@ -1,15 +1,21 @@
 """PHOC string featurizer (604-dim Pyramidal Histogram of Characters).
 
-The port's copy of the JAX package's pure-Python PHOC (bit-equal to the
-native op by that package's contract). Tokens are lowercased and filtered
-to [a-z0-9] like the reference wrapper (sam/phoc/build_phoc.py:45-50).
+Two versions with identical outputs, as in the JAX package
+(``ops/phoc.py``): the native pass ``csrc/host/phoc.cc`` (the reference's C
+extension, sam/phoc/cphoc.c:10-112, with a plain C interface), built by
+:mod:`.host_build` and bound with ctypes, and the pure-Python version, its
+plain twin (``native=False``). Tokens are lowercased and filtered to
+[a-z0-9] like the reference wrapper (sam/phoc/build_phoc.py:45-50).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import numpy as np
+
+from . import host_build
 
 PHOC_DIM = 604
 _ALPHABET = set("abcdefghijklmnopqrstuvwxyz0123456789")
@@ -41,9 +47,12 @@ def _occupies(occ0: float, occ1: float, region: int, level: int) -> bool:
     return (hi - lo) / (occ1 - occ0) >= np.float32(0.5)
 
 
-def build_phoc(token: str) -> np.ndarray:
-    """PHOC descriptor of a token. Shape (604,), float32, values in {0, 1}."""
-    word = _clean(token)
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.sam_build_phoc_batch.restype = ctypes.c_int
+    lib.sam_build_phoc_batch.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p]
+
+
+def _phoc_python(word: str) -> np.ndarray:
     out = np.zeros(PHOC_DIM, dtype=np.float32)
     n = len(word)
     if n == 0:
@@ -70,8 +79,24 @@ def build_phoc(token: str) -> np.ndarray:
     return out
 
 
-def build_phoc_batch(tokens: Sequence[str]) -> np.ndarray:
-    """PHOC descriptors for a token list, (N, 604) float32."""
-    if not tokens:
-        return np.zeros((0, PHOC_DIM), dtype=np.float32)
-    return np.stack([build_phoc(t) for t in tokens])
+def build_phoc(token: str, native: bool = True) -> np.ndarray:
+    """PHOC descriptor of a token. Shape (604,), float32, values in {0, 1}."""
+    return build_phoc_batch([token], native=native)[0]
+
+
+def build_phoc_batch(tokens: Sequence[str], native: bool = True) -> np.ndarray:
+    """PHOC descriptors for a token list, (N, 604) float32: one native call
+    for the whole list, or the Python version with ``native=False``."""
+    words = [_clean(t) for t in tokens]
+    if not native:
+        if not words:
+            return np.zeros((0, PHOC_DIM), dtype=np.float32)
+        return np.stack([_phoc_python(w) for w in words])
+    out = np.zeros((len(words), PHOC_DIM), dtype=np.float32)
+    if words:
+        lib = host_build.library("phoc", _declare)
+        buf = b"\0".join(w.encode("ascii") for w in words) + b"\0"
+        rc = lib.sam_build_phoc_batch(buf, len(words), out.ctypes.data)
+        if rc != 0:  # unreachable after _clean
+            raise ValueError(f"PHOC of {words[-rc - 1]!r}: not in [a-z0-9]")
+    return out

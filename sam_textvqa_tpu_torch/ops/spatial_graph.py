@@ -1,10 +1,13 @@
 """Vectorized 12-relation spatial graph over bounding boxes.
 
-The port's copy of the JAX package's numpy implementation (bit-equal to
-its native C++ pass by that package's contract). :func:`build_spatial_graph`
-classifies every ordered box pair into one int8 relation class;
-:func:`relation_head_lut` is the (13, 12) class -> allowed-head table that
-the spatial attention applies per context width.
+:func:`build_spatial_graph` classifies every ordered box pair into one int8
+relation class, through the native pass ``csrc/host/spatialgraph.cc``
+(built by :mod:`.host_build`, bound with ctypes; JAX package
+``ops/spatial_graph.py:51-122``) or, with ``native=False``, the vectorized
+numpy version, its plain twin: the two are bit-equal (strict IEEE doubles
+and the same libm ``asin``/``acos``). :func:`relation_head_lut` is the
+(13, 12) class -> allowed-head table that the spatial attention applies per
+context width.
 
 Relation classes (reference spatial_utils.py:131-213):
   0 none/padded | 1 covers | 2 inside | 3 overlap (IoU>=0.5) |
@@ -13,6 +16,7 @@ Relation classes (reference spatial_utils.py:131-213):
 
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
 from typing import Sequence
@@ -21,14 +25,42 @@ import numpy as np
 import torch
 
 from ..config import CONTEXT_ROTATIONS
+from . import host_build
 
 NUM_RELATIONS = 12
 _DIR_LO, _DIR_HI = 4, 11  # directional class range
 
 
-def build_spatial_graph(bbox: np.ndarray, distance_threshold: float = 0.5) -> np.ndarray:
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.sam_spatial_graph.restype = None
+    lib.sam_spatial_graph.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                      ctypes.c_double, ctypes.c_void_p, ctypes.c_int64]
+
+
+def build_spatial_graph(bbox: np.ndarray, distance_threshold: float = 0.5,
+                        native: bool = True) -> np.ndarray:
     """(..., N, 4) normalized [xmin, ymin, xmax, ymax] boxes -> (..., N, N)
-    int8 relation classes. Rows summing to zero are padding."""
+    int8 relation classes. Rows summing to zero are padding.
+
+    The native pass spreads the samples over the host's cores, at most one
+    thread per 4 samples; samples are independent, so the split changes no
+    bit."""
+    if not native:
+        return build_spatial_graph_numpy(bbox, distance_threshold)
+    bbox = np.ascontiguousarray(bbox, dtype=np.float64)
+    if bbox.ndim < 2 or bbox.shape[-1] != 4:
+        raise ValueError(f"boxes must be (..., N, 4), not {bbox.shape}")
+    n = bbox.shape[-2]
+    flat = bbox.reshape(-1, n, 4)
+    out = np.empty((flat.shape[0], n, n), dtype=np.int8)
+    host_build.library("spatialgraph", _declare).sam_spatial_graph(
+        flat.ctypes.data, flat.shape[0], n, float(distance_threshold), out.ctypes.data, 0)
+    return out.reshape(bbox.shape[:-1] + (n,))
+
+
+def build_spatial_graph_numpy(bbox: np.ndarray, distance_threshold: float = 0.5) -> np.ndarray:
+    """The vectorized numpy version of :func:`build_spatial_graph` (the JAX
+    package's oracle-tested path)."""
     bbox = np.asarray(bbox, dtype=np.float64)
     xmin, ymin, xmax, ymax = (bbox[..., k] for k in range(4))
     valid = bbox.sum(axis=-1) != 0

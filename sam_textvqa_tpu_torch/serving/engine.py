@@ -33,7 +33,8 @@ import torch
 
 from ..data.vocab import VocabDict
 from ..evaluation.metrics import decode_predictions
-from ..models.fast_decode import greedy_decode_fast, resolve_backend
+from ..models.fast_decode import (MASK_KEYS, check_prefix_masks, greedy_decode_fast,
+                                  resolve_backend)
 from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -170,8 +171,10 @@ class ServingEngine:
         }
 
     def _decode(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        # the masks were checked on the host in _validate: the decode never
+        # waits for the device
         _, pred_ids = greedy_decode_fast(self.model, batch, self.special.bos,
-                                         backend=self.decode_backend)
+                                         backend=self.decode_backend, check_masks=False)
         return pred_ids
 
     def _pick_bucket(self, n: int) -> int:
@@ -199,7 +202,8 @@ class ServingEngine:
     def _validate(self, sample: Dict) -> Dict:
         """Shape-check a request against the schema on the caller's thread
         (one malformed request raises at ``submit`` instead of failing its
-        batch) and normalize dtypes."""
+        batch), normalize dtypes and, for the kernel backends, check that
+        its masks are prefix-contiguous."""
         out = {}
         for k, (want_shape, want_dtype) in self._schema.items():
             if k not in sample:
@@ -208,6 +212,8 @@ class ServingEngine:
             if arr.shape != want_shape:
                 raise ValueError(f"request {k!r} has shape {arr.shape}, expected {want_shape}")
             out[k] = np.array(arr, dtype=want_dtype)
+        if self.decode_backend != "plain":
+            check_prefix_masks(out[k] for k in MASK_KEYS)
         if "ocr_tokens" not in sample:
             raise KeyError("request missing 'ocr_tokens'")
         n_ocr = self._schema["pad_ocr_mask"][0][0]

@@ -2,9 +2,10 @@
 JAX package's root ``train.py``; reference train.py:28-47)::
 
     python -m sam_textvqa_tpu_torch.train --config configs/train-tvqa-eval-tvqa-c3.yml \\
-        --tag run1 --synthetic 480 --num_train_epochs 2
-    python -m sam_textvqa_tpu_torch.train --config ... --tag run1 --synthetic 480 \\
+        --tag run1 --num_train_epochs 100
+    python -m sam_textvqa_tpu_torch.train --config ... --tag run1 \\
         --pretrained_eval save/run1/best_model
+    python -m sam_textvqa_tpu_torch.train --config ... --tag syn --synthetic 480
 
 Writes ``command.txt``, ``best_model``, ``last_state`` and
 ``evalai_{val,test}.json`` under ``<output_dir>/<tag>`` (``output_dir`` from
@@ -12,9 +13,17 @@ the YAML); ``--pretrained_eval CKPT`` evaluates a checkpoint of this package
 or a reference ``best_model.tar`` and writes ``evalai_{split}.json`` beside
 it. Runs on the GPU unless given ``--device cpu``.
 
-``--synthetic N`` trains on N deterministic synthetic samples (validation and
-test on N/4 each, at least one batch); the real-data input pipeline is not
-ported yet. The model starts from random weights drawn from ``--seed``.
+Without ``--synthetic`` it reads the configured files: the imdb ``.npy`` of
+each split of ``train_on`` / ``val_on`` / ``test_on`` (a missing val or test
+split is skipped), obj and OCR features from LMDB environments or npz
+directories, the fastText ``.bin`` or table (``fasttext_bin`` /
+``fasttext_table``, else hash vectors, with a warning), and the
+bert-base-uncased tokenizer when transformers has its files locally (else
+the offline fallback, with a warning). Each split is preprocessed once and
+cached beside its configured ``*_spatial_cache`` path in the port's own
+format. ``--synthetic N`` trains on N deterministic synthetic samples
+instead (validation and test on N/4 each, at least one batch). The model
+starts from random weights drawn from ``--seed``.
 JAX flags that this port does not cover yet are refused with the ROADMAP
 item that covers them.
 """
@@ -32,7 +41,9 @@ import numpy as np
 import torch
 
 from .config import load_task_config
-from .data.dataset import EpochBatcher
+from .data.dataset import ConcatDataset, EpochBatcher, build_dataset
+from .data.features import open_feature_source
+from .data.processors import FastTextProcessor, SimpleWordpieceTokenizer, load_bert_tokenizer
 from .data.synthetic import SyntheticDataset
 from .evaluation.evaluator import Evaluator
 from .serve import build_model, build_vocab
@@ -129,40 +140,84 @@ def load_eval_gt(task_cfg, split):
     return {key(q): list(a) for q, a in zip(obj["question_id"], obj["answers"])}
 
 
+def _imdb_exists(task_cfg, dset, split):
+    prefix = "textvqa" if dset == "textvqa" else "stvqa"
+    holder = getattr(task_cfg, f"{prefix}_imdb")
+    return bool(holder) and os.path.exists(holder.format("debug" if task_cfg.debug else split))
+
+
+def build_real_splits(task_cfg, vocab):
+    """{"train", "val", "test"} -> the dataset of each split from the
+    configured files (JAX ``train.py:205-248``): one ``build_dataset`` per
+    dataset of the split, joined by a ``ConcatDataset``; None for a split
+    with no imdb file."""
+    tokenizer = load_bert_tokenizer()
+    if isinstance(tokenizer, SimpleWordpieceTokenizer):
+        logger.warning(
+            "No local bert-base-uncased tokenizer (transformers and its files) - questions "
+            "are tokenized by the offline crc32 fallback, whose ids differ from BERT's; the "
+            "reference uses bert-base-uncased.")
+    fasttext = FastTextProcessor(model_path=task_cfg.fasttext_bin or None,
+                                 table_path=task_cfg.fasttext_table or None)
+    if fasttext.is_fallback:
+        logger.warning(
+            "No fastText source configured (fasttext_bin/fasttext_table in the YAML) - OCR "
+            "word vectors fall back to deterministic hash noise. Real-data accuracy WILL be "
+            "degraded; the reference uses wiki.en.bin (processors.py:191-200).")
+    splits = {}
+    for split in ("train", "val", "test"):
+        parts = []
+        for dset in getattr(task_cfg, f"{split}_on"):
+            if not _imdb_exists(task_cfg, dset, split):
+                # a missing optional split (test data not downloaded) does
+                # not block training
+                logger.warning("split %s/%s missing; skipping", dset, split)
+                continue
+            prefix = "textvqa" if dset == "textvqa" else "stvqa"
+            fmt = "trainval" if split in ("train", "val") else "test"
+            cache = getattr(task_cfg, f"{prefix}_spatial_cache")
+            parts.append(build_dataset(
+                task_cfg, dset, split, tokenizer, fasttext, vocab,
+                open_feature_source(getattr(task_cfg, f"{prefix}_obj").format(fmt)),
+                open_feature_source(getattr(task_cfg, f"{prefix}_ocr").format(fmt)),
+                cache_path=cache.format(split) if cache else None))
+        splits[split] = None if not parts else parts[0] if len(parts) == 1 else \
+            ConcatDataset(parts)
+    return splits
+
+
 def build_datasets(task_cfg, args, vocab):
-    """(train, val, test) batchers. Only ``--synthetic`` data is served: with
-    real imdb files present this raises, without them it exits with the JAX
-    CLI's message."""
+    """(train, val, test) batchers, None for a missing val or test split:
+    ``--synthetic`` data, or the configured files (exits with the JAX CLI's
+    message when the train split's imdb files are missing)."""
     batch_size = args.batch_size or task_cfg.batch_size
-
-    def imdb_exists(dset, split):
-        prefix = "textvqa" if dset == "textvqa" else "stvqa"
-        holder = getattr(task_cfg, f"{prefix}_imdb")
-        return holder and os.path.exists(holder.format("debug" if task_cfg.debug else split))
-
-    if not args.synthetic:
-        if not all(imdb_exists(d, "train") for d in task_cfg.train_on):
-            raise SystemExit(
-                "Dataset files not found. Download them per data/README or run "
-                "with --synthetic N."
-            )
-        raise NotImplementedError(
-            "real-data input pipeline not ported yet (ROADMAP queue 1, item 2)")
-
-    n = args.synthetic
-    eval_n = max(n // 4, batch_size)
-    train_ds = SyntheticDataset(task_cfg, n, seed=0, num_answers_vocab=len(vocab))
-    val_ds = SyntheticDataset(task_cfg, eval_n, seed=1, num_answers_vocab=len(vocab))
-    test_ds = SyntheticDataset(task_cfg, eval_n, seed=2, num_answers_vocab=len(vocab),
-                               with_answers=False)
+    if args.synthetic:
+        n = args.synthetic
+        eval_n = max(n // 4, batch_size)
+        splits = {
+            "train": SyntheticDataset(task_cfg, n, seed=0, num_answers_vocab=len(vocab)),
+            "val": SyntheticDataset(task_cfg, eval_n, seed=1, num_answers_vocab=len(vocab)),
+            "test": SyntheticDataset(task_cfg, eval_n, seed=2, num_answers_vocab=len(vocab),
+                                     with_answers=False),
+        }
+    elif not all(_imdb_exists(task_cfg, d, "train") for d in task_cfg.train_on):
+        raise SystemExit(
+            "Dataset files not found. Download them per data/README or run "
+            "with --synthetic N."
+        )
+    else:
+        splits = build_real_splits(task_cfg, vocab)
     workers = min(task_cfg.num_workers, os.cpu_count() or 1)
 
     def batcher(ds, training):
+        if ds is None:
+            return None
         return EpochBatcher(ds, batch_size, shuffle=training,
                             seed=task_cfg.seed if training else 0, num_workers=workers,
                             supervised=training)  # val/test decode only
 
-    return batcher(train_ds, True), batcher(val_ds, False), batcher(test_ds, False)
+    return (batcher(splits["train"], True), batcher(splits["val"], False),
+            batcher(splits["test"], False))
 
 
 def _init_text_bert(task_cfg, model):

@@ -14,7 +14,9 @@ As in the JAX package:
   counters are set to the resumed epoch, so a resumed run is bit-identical
   to an uninterrupted one;
 * on SIGTERM/SIGINT the step in flight finishes, ``last_state`` is saved
-  and the loop returns.
+  with the number of the epoch's batches consumed (``meta["batches_done"]``)
+  and the loop returns; a resume skips those batches of that epoch, where
+  the JAX package's loop trains them again.
 """
 
 from __future__ import annotations
@@ -122,7 +124,7 @@ def train(
     device = next(model.parameters()).device
     optimizer = make_optimizer(model, task_cfg)
     state = create_train_state(model, optimizer)
-    start_epoch = 0
+    start_epoch, skip = 0, 0
     best_val_score, best_val_step = -1.0, -1
 
     os.makedirs(save_dir, exist_ok=True)
@@ -132,6 +134,7 @@ def train(
         restored = restore_checkpoint(resume_path, state, map_location=device)
         state = restored["state"]
         start_epoch = restored["meta"]["epoch_id"] + 1
+        skip = restored["meta"].get("batches_done", 0)
         best_val_score = restored["meta"]["val_score"]
         # the shuffle order and the target sampling are keyed on (seed,
         # batcher.epoch), and fresh batchers count from 0: without this a
@@ -139,8 +142,8 @@ def train(
         for batcher in (train_batcher, val_batcher):
             if batcher is not None:
                 batcher.epoch = start_epoch
-        logger.info("resumed from %s at step %d epoch %d", resume_path, state.step,
-                    start_epoch)
+        logger.info("resumed from %s at step %d epoch %d batch %d", resume_path, state.step,
+                    start_epoch, skip)
 
     train_step = make_train_step(model, optimizer, grad_accum=grad_accum)
     generator = torch.Generator().manual_seed(seed)
@@ -171,10 +174,10 @@ def train(
             losses, epoch_losses, samples, samples_window, steps = [], [], 0, 0, 0
             stop = False
             batches = prefetch_to_device(
-                (host_side(b) for b in train_batcher.epoch_batches()), device, size=2,
-                feature_dtype=model.dtype)
+                (host_side(b) for b in train_batcher.epoch_batches(skip=skip)), device,
+                size=2, feature_dtype=model.dtype)
             with contextlib.closing(batches):
-                for it, batch in enumerate(batches):
+                for it, batch in enumerate(batches, start=skip):
                     state, metrics = train_step(state, _device_view(batch), generator)
                     losses.append(metrics["loss"])
                     epoch_losses.append(metrics["loss"])
@@ -190,14 +193,16 @@ def train(
                                     samples_window / (time.monotonic() - t_window))
                         losses, t_window, samples_window = [], time.monotonic(), 0
                     if interrupted.is_set():
-                        # the epoch is incomplete: a resume redoes it
+                        # the epoch is incomplete: a resume continues it at
+                        # its next batch
                         save_checkpoint(resume_path, state, epoch_id=epoch_id - 1,
-                                        val_score=best_val_score)
+                                        val_score=best_val_score, batches_done=it + 1)
                         logger.info("interrupted at step %d; last_state saved", state.step)
                         return state
                     if max_steps is not None and state.step >= max_steps:
                         stop = True
                         break
+            skip = 0
             if epoch_losses:
                 record["loss"] = _mean_loss(epoch_losses, f"the end of epoch {epoch_id}")
             train_s = time.monotonic() - t_epoch

@@ -139,20 +139,23 @@ def state_dict_from_jax(
 CHECKPOINT_FORMAT = "sam_textvqa_tpu_torch/1"
 
 
-def save_checkpoint(path: str, state, *, epoch_id: int, val_score: float) -> int:
+def save_checkpoint(path: str, state, *, epoch_id: int, val_score: float,
+                    batches_done: int = 0) -> int:
     """Write ``state`` (a ``training.step.TrainState``) to the file ``path``:
     the model's ``state_dict``, the optimizer's and the schedule's state,
-    the step and the meta. The file is written under a temporary name,
-    flushed to disk and renamed over ``path``, so an interruption during
-    the save leaves the previous checkpoint whole. Returns its size in
-    bytes."""
+    the step and the meta (``epoch_id``, the last whole epoch;
+    ``batches_done``, the batches of the next epoch already trained). The
+    file is written under a temporary name, flushed to disk and renamed over
+    ``path``, so an interruption during the save leaves the previous
+    checkpoint whole. Returns its size in bytes."""
     payload = {
         "format": CHECKPOINT_FORMAT,
         "step": int(state.step),
         "model_state_dict": state.model.state_dict(),
         "optimizer_state_dict": state.optimizer.adam.state_dict(),
         "scheduler_state_dict": state.optimizer.scheduler.state_dict(),
-        "meta": {"epoch_id": int(epoch_id), "val_score": float(val_score)},
+        "meta": {"epoch_id": int(epoch_id), "val_score": float(val_score),
+                 "batches_done": int(batches_done)},
     }
     tmp = f"{path}.tmp"
     with open(tmp, "wb") as f:

@@ -341,24 +341,18 @@ def test_eval_step_kernel_backend_launches_k1(dev):
 # ---------------------------------------------------------------- train loop pieces
 
 
-def test_prefetched_batches_equal_host_batches(dev):
-    """The prefetcher's batches on the card equal the host batches: the
-    features cast to bf16 on the host are bit-equal to the same cast on the
-    card, everything else is copied as it is; stopping early leaves no
-    producer thread behind."""
-    import threading
-
+def _assert_prefetched_equal(ds, dev, n_batches):
+    """Every prefetched batch of ``ds`` (batch 4) equals the host batch: the
+    features cast to bf16 on the host bit-equal to the same cast on the
+    card, everything else copied as it is."""
     from sam_textvqa_tpu_torch.data.dataset import EpochBatcher
     from sam_textvqa_tpu_torch.data.prefetch import FEATURE_TRANSFER_KEYS, prefetch_to_device
-    from sam_textvqa_tpu_torch.data.synthetic import SyntheticDataset
 
-    task = _train_task()
-    ds = SyntheticDataset(task, 21, num_answers_vocab=40)
     host = list(EpochBatcher(ds, 4).epoch_batches())
     got = list(prefetch_to_device(EpochBatcher(ds, 4).epoch_batches(), dev,
                                   feature_dtype=torch.bfloat16))
     torch.cuda.synchronize()
-    assert len(got) == len(host) == 6
+    assert len(got) == len(host) == n_batches
     for a, b in zip(got, host):
         for k, v in b.items():
             if k.startswith("_"):
@@ -370,6 +364,87 @@ def test_prefetched_batches_equal_host_batches(dev):
             assert a[k].device.type == "cuda" and a[k].dtype == ref.dtype, k
             assert torch.equal(a[k].view(torch.int16) if ref.dtype == torch.bfloat16 else a[k],
                                ref.view(torch.int16) if ref.dtype == torch.bfloat16 else ref), k
+
+
+def _real_format_dataset(tmp_path, task):
+    """A ``SAMDataset`` from an imdb file written here and in-memory
+    features: images with more obj and OCR rows than the config keeps and
+    with none, questions longer than ``max_seq_length``."""
+    from sam_textvqa_tpu_torch.data.dataset import build_dataset
+    from sam_textvqa_tpu_torch.data.features import DictFeatureSource
+    from sam_textvqa_tpu_torch.data.processors import (FastTextProcessor,
+                                                       SimpleWordpieceTokenizer)
+    from sam_textvqa_tpu_torch.data.vocab import synthetic_vocab
+
+    rng = np.random.RandomState(0)
+    words = ["stop", "exit", "bus", "sale", "open", "café"]
+    tables, entries = ({}, {}), [{"dataset": "textvqa"}]
+    for i, rows in enumerate([(3, 2), (11, 0), (0, 9), (8, 6), (5, 4)]):
+        for table, n in zip(tables, rows):
+            xy = rng.rand(n, 2) * 150
+            table[f"img{i}"] = dict(features=rng.randn(n, 2048).astype(np.float32),
+                                    boxes=np.concatenate([xy, xy + 20], 1), image_w=200,
+                                    image_h=200)
+    for q in range(14):
+        img = q % 5
+        toks = [words[j] for j in rng.randint(len(words), size=len(tables[1][f"img{img}"]
+                                                                   ["features"]))]
+        entries.append(dict(question=" ".join(words[j] for j in rng.randint(6, size=q)),
+                            question_id=q, image_id=f"img{img}", google_ocr_tokens_filtered=toks,
+                            answers=[(toks or ["stop"])[0]] * 10))
+    np.save(tmp_path / "imdb_train.npy", np.array(entries, dtype=object), allow_pickle=True)
+    task = dataclasses.replace(task, textvqa_imdb=str(tmp_path / "imdb_{}.npy"))
+    return build_dataset(task, "textvqa", "train", SimpleWordpieceTokenizer(),
+                         FastTextProcessor(), synthetic_vocab(40),
+                         DictFeatureSource(tables[0]), DictFeatureSource(tables[1]))
+
+
+def test_prefetched_real_format_batches_equal_host_batches(dev, tmp_path):
+    """The same for batches of the real-data ``SAMDataset``."""
+    _assert_prefetched_equal(_real_format_dataset(tmp_path, _train_task()), dev, 4)
+
+
+def test_kernel_decodes_do_not_sync(dev):
+    """With the masks checked on the host (``check_masks=False``, as the
+    engine and the evaluator decode), a warmed-up ``mega`` and ``fused``
+    decode of a batch on the card make no call that waits for the device
+    (``torch.cuda.set_sync_debug_mode("error")`` raises on one); with the
+    mask check on a device copy, the same decode raises."""
+    task = _train_task()
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, 40))
+    model = model.init_weights(torch.Generator().manual_seed(0)).to(dev)
+    batch = device_batch(make_batch(task, 8, num_answers_vocab=40), dev)
+    for backend in ("mega", "fused"):
+        greedy_decode_fast(model, batch, 1, backend=backend, check_masks=False)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            greedy_decode_fast(model, batch, 1, backend=backend, check_masks=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            greedy_decode_fast(model, batch, 1, backend="mega")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_prefetched_batches_equal_host_batches(dev):
+    """The prefetcher's batches on the card equal the host batches: the
+    features cast to bf16 on the host are bit-equal to the same cast on the
+    card, everything else is copied as it is; stopping early leaves no
+    producer thread behind."""
+    import threading
+
+    from sam_textvqa_tpu_torch.data.dataset import EpochBatcher
+    from sam_textvqa_tpu_torch.data.prefetch import prefetch_to_device
+    from sam_textvqa_tpu_torch.data.synthetic import SyntheticDataset
+
+    task = _train_task()
+    ds = SyntheticDataset(task, 21, num_answers_vocab=40)
+    _assert_prefetched_equal(ds, dev, 6)
     threads = threading.active_count()
     it = prefetch_to_device(EpochBatcher(ds, 4).epoch_batches(), dev)
     next(it)

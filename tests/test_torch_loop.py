@@ -194,14 +194,18 @@ class _Interrupting:
     def __getattr__(self, name):
         return getattr(self.inner, name)
 
-    def epoch_batches(self):
-        for i, batch in enumerate(self.inner.epoch_batches()):
+    def epoch_batches(self, skip=0):
+        for i, batch in enumerate(self.inner.epoch_batches(skip)):
             yield batch
             if i == 0:
                 os.kill(os.getpid(), signal.SIGTERM)
 
 
-def test_sigterm_saves_last_state_and_resume_continues(pair, tmp_path):
+def test_sigterm_saves_last_state_and_resume_continues(pair, port_run, tmp_path):
+    """A SIGTERM mid-epoch saves ``last_state`` with the batches of the
+    epoch already trained; the resume skips them and ends bit-identical to
+    the uninterrupted run (step and parameters)."""
+    state_a, _, _ = port_run
     tr, val = batchers(pair.task)
     handler = signal.getsignal(signal.SIGTERM)
     state, history = port_train(pair, tmp_path, batchers=(_Interrupting(tr), val))
@@ -209,9 +213,14 @@ def test_sigterm_saves_last_state_and_resume_continues(pair, tmp_path):
     assert history == []  # no epoch finished
     saved = restore_checkpoint(str(tmp_path / "last_state"))
     assert saved["step"] == state.step >= 1 and saved["meta"]["epoch_id"] == -1
-    state, history = port_train(pair, tmp_path, resume=True)  # redoes epoch 0
+    assert saved["meta"]["batches_done"] == state.step < TRAIN_N // BATCH
+    state, history = port_train(pair, tmp_path, resume=True)  # continues epoch 0
     assert [h["epoch"] for h in history] == list(range(EPOCHS))
-    assert state.step == saved["step"] + EPOCHS * (TRAIN_N // BATCH)
+    assert history[0]["steps"] == TRAIN_N // BATCH - saved["step"]
+    assert state.step == state_a.step
+    a, b = params_of(state_a.model), params_of(state.model)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_max_steps_and_non_finite_loss(pair, tmp_path):
@@ -254,7 +263,7 @@ def test_checkpoint_round_trip_is_bit_equal(pair, tmp_path):
     fresh = pair.model()
     fresh_opt = make_optimizer(fresh, pair.task)
     restored = restore_checkpoint(str(tmp_path / "ck"), create_train_state(fresh, fresh_opt))
-    assert restored["meta"] == {"epoch_id": 3, "val_score": 0.25}
+    assert restored["meta"] == {"epoch_id": 3, "val_score": 0.25, "batches_done": 0}
     state2 = restored["state"]
     assert state2.step == 2 and state2.model is fresh
     assert fresh_opt.scheduler.state_dict() == opt.scheduler.state_dict()
@@ -394,9 +403,10 @@ def test_cli_refuses_unported_flags(flags, item, capsys):
 
 def test_cli_device_and_data_checks(cli_config, monkeypatch, tmp_path):
     """cuda unless told otherwise (raises without a card); without
-    ``--synthetic`` it exits when the imdb files are missing and raises when
-    they exist (the real-data pipeline is not ported); detectron fc7
-    weights are refused."""
+    ``--synthetic`` it exits when the imdb files are missing and reads them
+    when they exist (an empty file is no imdb; the real-data path itself is
+    held in ``tests/test_torch_data.py``); detectron fc7 weights are
+    refused."""
     config, _ = cli_config
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -408,7 +418,8 @@ def test_cli_device_and_data_checks(cli_config, monkeypatch, tmp_path):
     raw.update(textvqa_imdb=str(tmp_path / "imdb_{}.npy"), output_dir=str(tmp_path))
     real = tmp_path / "real.yml"
     real.write_text(yaml.safe_dump(raw))
-    with pytest.raises(NotImplementedError, match="real-data input pipeline"):
+    monkeypatch.setitem(sys.modules, "transformers", None)  # the offline tokenizer, fast
+    with pytest.raises(ValueError, match="not an imdb file"):
         train_cli.main(["--config", str(real), "--device", "cpu"])
     # the JAX CLI installs detectron fc7 weights when the files exist; the
     # port refuses (and, like JAX, only warns when they are missing)
