@@ -89,15 +89,39 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    against their plain versions on the first real-format val batch of 96.
    Phases 5 and 6 run before phase 4, so that no timing follows the
    profiler;
+7. the server at full c3 width with the width ladders obj (50) and OCR
+   (10, 25) over buckets (1, 8, 32), weights from seed 0 drawn at std 0.1
+   (at 0.02 every answer is alike, so no comparison would bite): 256 raw
+   requests made with numpy (4 to 20 question tokens, 10 to 100 obj rows,
+   0 to 50 OCR tokens of 3 to 9 letters, most under 25) featurized by
+   ``build_sample`` and written as ``.npz``; then in f32 and in bf16 an
+   engine is warmed (one CUDA graph per bucket and cell: count, capture
+   seconds, graph pool bytes); per bucket, the same requests (cut to fit
+   the narrowest cell) through every cell's graph and eagerly (f32: the ids
+   must be identical, graph against eager and every cell against full
+   width; bf16: the agreement is printed); the 256 requests served in this
+   process from 8 threads with the launch counts zeroed before and read
+   after (K1 and K3 launched, equal to the launches recorded at capture x
+   replays); in f32 the server CLI (``python -m
+   sam_textvqa_tpu_torch.serve --port 0``, these ladders, ``--checkpoint``
+   of the phase's weights) as a subprocess, driven by 8 sockets, every
+   answer equal to the in-process engine's, ``{"stats": true}``, SIGTERM
+   and a clean exit (samples/s, latencies, occupancy by bucket and width,
+   graphs); in bf16 the graph's replay time per decode against the eager
+   ``mega`` decode's at B = 1, 8, 32, and K1 and K3 against their plain
+   versions at the (obj 50, OCR 10) cell at B = 32 (with phase 3's weights,
+   on which phase 2's bars were set). It runs before phase 4
+   too;
 4. after every timed phase, ``torch.profiler`` device time by kernel of one
    spatial-attention call (code pass and attention), of one bf16 decode
    step at batch 32 (its kernels by name with launch counts, so launches
    per step read off), of one bf16 ``mega`` decode of the batch (with
-   the card's idle share) and of one bf16 train step at batch 96; then in
+   the card's idle share), of one bf16 train step at batch 96 and of one
+   replay of phase 7's full-width B=32 bf16 graph (its idle share); then in
    f32 the three backends must give identical ids and the full forward
    with the kernel attention must match the plain one;
 then JSON lines of the training path, of the train CLI, of the real-data
-run and of the kernels, and the result line ``{"ok": true, "device":
+run, of the server and of the kernels, and the result line ``{"ok": true, "device":
 {...}}``.
 
 ``python3 chip_smoke.py --resume-check CONFIG DIR [DEVICE [MODE]]`` is that child
@@ -115,9 +139,12 @@ import json
 import os
 import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -132,8 +159,10 @@ from sam_textvqa_tpu_torch.data import dataset, fasttext_bin, features, lmdb_io,
 from sam_textvqa_tpu_torch.data.dataset import EpochBatcher
 from sam_textvqa_tpu_torch.data.synthetic import SyntheticDataset, device_batch, make_batch
 from sam_textvqa_tpu_torch.data.vocab import VocabDict
+from sam_textvqa_tpu_torch.evaluation.evaluator import needed_width
 from sam_textvqa_tpu_torch.evaluation.metrics import decode_predictions
 from sam_textvqa_tpu_torch.models.bert import split_heads
+from sam_textvqa_tpu_torch.models.sa_m4c import SAM4C, SAM4CParams
 from sam_textvqa_tpu_torch.models.fast_decode import (_mega_step_consts, _seg_lens,
                                                       build_mmt_cache, greedy_decode_fast)
 from sam_textvqa_tpu_torch.ops import cuda_build
@@ -149,7 +178,7 @@ from sam_textvqa_tpu_torch.ops.phoc import build_phoc_batch
 from sam_textvqa_tpu_torch.ops.spatial_graph import build_spatial_graph, relation_head_lut
 from sam_textvqa_tpu_torch.serve import (build_model, build_vocab, run_demo,
                                          synthetic_requests)
-from sam_textvqa_tpu_torch.serving.engine import SAMPLE_KEYS, ServingEngine
+from sam_textvqa_tpu_torch.serving.engine import SAMPLE_KEYS, ServingEngine, build_sample
 from sam_textvqa_tpu_torch.training.optimizer import make_optimizer
 from sam_textvqa_tpu_torch.training.step import (create_train_state, make_eval_step,
                                                  make_train_step)
@@ -944,8 +973,9 @@ def f32_best_model_ids(task, vocab, best_model: str, dev=torch.device("cuda")) -
 
 
 def parity_b96(task, model, batch, gen) -> dict:
-    """K1 (encoder-cache pass, L = 170) and K3 (the last decode step)
-    against their plain versions at batch 96, in f32 and bf16, within the
+    """K1 (encoder-cache pass) and K3 (the last decode step) against their
+    plain versions at the batch's shapes (phase 5 and 6: batch 96 at L =
+    170; phase 7: batch 32 at a narrow cell), in f32 and bf16, within the
     bars of phase 2 (``TOL``, ``MEAN_TOL``)."""
     mmt = task.mmt
     b, dev = batch["question_mask"].shape[0], batch["question_mask"].device
@@ -1310,6 +1340,322 @@ def real_data_path(task, vocab, model, cli, bare_step, gen, dev=torch.device("cu
     return out
 
 
+# ---------------------------------------------------------------- phase 7
+
+SERVER_REQUESTS, SERVER_CLIENTS = 256, 8
+SERVER_BUCKETS, OBJ_LADDER, OCR_LADDER = (1, 8, 32), (50,), (10, 25)
+NARROW_CELL = (50, 10)  # (obj, OCR): every request cut to it fits every cell
+# std of the phase's weights (seed 0): at 0.02 the untrained model repeats its
+# BOS token whatever the question, so no comparison of answers would bite
+SERVE_STD = 0.1
+SOCKET_TIMEOUT = 300.0
+
+
+def _boxes(rng, n):
+    xy = rng.rand(n, 2) * 0.8
+    wh = 0.02 + rng.rand(n, 2) * 0.18
+    return np.concatenate([xy, xy + wh, wh[:, :1] * wh[:, 1:]], axis=1).astype(np.float32)
+
+
+def raw_requests(task, n: int, seed: int = 0) -> list:
+    """``n`` raw requests from numpy: 4 to 20 question tokens, 10 to 100 obj
+    rows, 0 to 50 OCR tokens of 3 to 9 letters (80% of the requests under
+    25), 2048-d features and normalized boxes."""
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz0123456789"))
+    q_max = task.mmt.max_seq_length
+    out = []
+    for _ in range(n):
+        q = rng.randint(4, 21)
+        n_obj = rng.randint(10, 101)
+        n_ocr = rng.randint(0, 25) if rng.rand() < 0.8 else rng.randint(25, 51)
+        question = np.zeros(q_max, np.int64)
+        question[:q] = rng.randint(1000, 30000, q)
+        out.append(dict(
+            question_indices=question, question_mask=(np.arange(q_max) < q).astype(np.float32),
+            obj_features=rng.rand(n_obj, 2048).astype(np.float32), obj_boxes=_boxes(rng, n_obj),
+            ocr_tokens=["".join(rng.choice(letters, rng.randint(3, 10))) for _ in range(n_ocr)],
+            ocr_features=rng.rand(n_ocr, 2048).astype(np.float32), ocr_boxes=_boxes(rng, n_ocr),
+        ))
+    return out
+
+
+def cut(sample, obj_w, ocr_w):
+    """``sample`` with its real obj / OCR rows cut to the widths."""
+    out = dict(sample)
+    for key, w in (("pad_obj_mask", obj_w), ("pad_ocr_mask", ocr_w)):
+        out[key] = np.array(sample[key])
+        out[key][w:] = 0.0
+    return out
+
+
+def graph_parity(engine, samples, strict: bool, f32_ids=None):
+    """Per bucket, the same requests (cut to ``NARROW_CELL``, so that they
+    fit every cell) through every cell's graph and eagerly: replayed ids
+    against eager ids, and every cell's ids against full width's. ``strict``
+    (f32) requires both to be identical; bf16 prints the agreement, and its
+    full-width ids' agreement with ``f32_ids`` (the f32 call's full-width
+    ids by bucket), the scale of bf16's own noise. Returns (the result,
+    full-width ids by bucket)."""
+    prepared = [engine._prepare(cut(s, *NARROW_CELL)) for s in samples[:engine.buckets[-1]]]
+    out, full_ids = {}, {}
+    for b in engine.buckets:
+        ids, eq_eager, agree_eager = {}, {}, []
+        for key, cell in engine._routing.grid.items():
+            slot = engine._next_slot()
+            replayed, done = engine._launch(cell, b, *key, engine._stack(prepared[:b], b, *key,
+                                                                         slot), slot)
+            done.synchronize()
+            host = engine._stack(prepared[:b], b, *key)
+            eager = engine._decode(cell.model, {k: v.to(engine.device)
+                                                for k, v in host.items()}).cpu()
+            ids[key] = replayed
+            eq_eager[str(key)] = torch.equal(replayed, eager)
+            agree_eager.append((replayed == eager).float().mean().item())
+        full = ids[(None, None)]
+        agree_full = {str(k): (v == full).float().mean().item() for k, v in ids.items()}
+        out[b] = dict(graph_equals_eager=eq_eager, token_agreement_graph_vs_eager=min(agree_eager),
+                      token_agreement_cell_vs_full=agree_full,
+                      distinct_answers=len({tuple(r) for r in full.tolist()}))
+        full_ids[b] = full
+        if f32_ids is not None:
+            out[b]["token_agreement_full_vs_f32"] = (full == f32_ids[b]).float().mean().item()
+        if strict and not (all(eq_eager.values()) and min(agree_full.values()) == 1.0):
+            raise AssertionError(f"f32 graph ids differ at bucket {b}: {out[b]}")
+    if out[engine.buckets[-1]]["distinct_answers"] < 2:
+        raise AssertionError("every request got the same answer: the comparisons cannot bite")
+    return out, full_ids
+
+
+def in_process_serving(engine, samples) -> dict:
+    """``SERVER_CLIENTS`` threads submit every request (closed-loop flood)
+    and wait; the launch counts are zeroed before and read after, and must
+    equal the launches recorded in the replayed graphs."""
+    before = engine.graph_counts()["launches"]
+    cuda_build.reset_launch_counts()
+    futs = [None] * len(samples)
+
+    def client(c):
+        for i in range(c, len(samples), SERVER_CLIENTS):
+            futs[i] = engine.submit(samples[i])
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVER_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SOCKET_TIMEOUT)
+    answers = [f.result(timeout=SOCKET_TIMEOUT)["answer"] for f in futs]
+    wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    launches, by_dtype = cuda_build.launch_counts(), cuda_build.launch_counts_by_dtype()
+    after = engine.graph_counts()["launches"]
+    replayed = {k: after.get(k, 0) - before.get(k, 0) for k in launches}
+    require_launched(launches, ("spatial_attention", "decode_step"), "served-graph")
+    if launches != replayed:
+        raise AssertionError(f"launch counts {launches} != recorded x replays {replayed}")
+    stats = engine.stats.summary()
+    return dict(answers=answers, samples_per_s=len(samples) / wall, wall_s=wall,
+                launches=launches, launches_by_dtype=by_dtype,
+                **{k: stats.get(k) for k in ("latency_ms_p50", "latency_ms_p95", "latency_ms_p99",
+                                             "occupancy", "obj_width_occupancy",
+                                             "ocr_width_occupancy", "batches", "padded_rows",
+                                             "service_ms_per_batch_p50")})
+
+
+def tcp_serving(tmp: Path, paths, want, weights: Path, dtype: str, config=CONFIG,
+                extra=()) -> dict:
+    """The server CLI as a subprocess on port 0 with the phase's ladders:
+    ``SERVER_CLIENTS`` sockets send every request (one outstanding each),
+    every answer must equal the in-process engine's (``want``); then
+    ``{"stats": true}``, SIGTERM, and a clean exit."""
+    err = open(tmp / "server.err", "w")
+    cmd = [sys.executable, "-m", "sam_textvqa_tpu_torch.serve", "--config", str(config),
+           "--port", "0", "--buckets", ",".join(map(str, SERVER_BUCKETS)),
+           "--obj_bucket", ",".join(map(str, OBJ_LADDER)),
+           "--ocr_bucket", ",".join(map(str, OCR_LADDER)), "--dtype", dtype,
+           "--checkpoint", str(weights), *extra]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        first = {}
+        reader = threading.Thread(target=lambda: first.update(line=proc.stdout.readline()),
+                                  daemon=True)
+        reader.start()
+        reader.join(SOCKET_TIMEOUT)
+        if not first.get("line"):
+            raise AssertionError(f"the server announced no port (exit {proc.poll()}): "
+                                 f"{(tmp / 'server.err').read_text()[-3000:]}")
+        host, port = json.loads(first["line"])["listening"]
+        startup_s = time.monotonic() - t0
+        got, latency = [None] * len(paths), [None] * len(paths)
+        errors = []
+
+        def client(c):
+            try:
+                with socket.create_connection((host, port), timeout=SOCKET_TIMEOUT) as s:
+                    f = s.makefile("rw")
+                    for i in range(c, len(paths), SERVER_CLIENTS):
+                        t = time.monotonic()
+                        f.write(json.dumps({"id": i, "npz": str(paths[i])}) + "\n")
+                        f.flush()
+                        res = json.loads(f.readline())
+                        latency[i] = (time.monotonic() - t) * 1e3
+                        got[res["id"]] = res.get("answer", res.get("error"))
+            except Exception as e:  # reported below
+                errors.append(repr(e))
+
+        t1 = time.monotonic()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVER_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SOCKET_TIMEOUT)
+        wall = time.monotonic() - t1
+        with socket.create_connection((host, port), timeout=SOCKET_TIMEOUT) as s:
+            f = s.makefile("rw")
+            f.write(json.dumps({"id": "stats", "stats": True}) + "\n")
+            f.flush()
+            stats = json.loads(f.readline())
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(SOCKET_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(SOCKET_TIMEOUT)
+        err.close()
+    mismatched = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    log(f"  server: exit {rc}, {len(paths) - len(mismatched)}/{len(paths)} answers equal to "
+        f"the in-process engine's, errors {errors[:3]}")
+    if errors or mismatched or rc != 0 or stats["requests"] != len(paths):
+        raise AssertionError(f"TCP serving: rc {rc}, errors {errors[:3]}, mismatched "
+                             f"{mismatched[:10]}, requests {stats['requests']}")
+    lat = np.asarray(latency)
+    keys = ("latency_ms_p50", "latency_ms_p95", "latency_ms_p99", "occupancy",
+            "obj_width_occupancy", "ocr_width_occupancy", "batches", "padded_rows",
+            "service_ms_per_batch_p50", "graphs", "bucket_plan")
+    return dict(dtype=dtype, exit_code=rc, startup_s=startup_s, wall_s=wall,
+                samples_per_s=len(paths) / wall, answers_equal=len(paths),
+                client_latency_ms={q: float(np.percentile(lat, q)) for q in (50, 95, 99)},
+                **{k: stats.get(k) for k in keys},
+                ladder_plan={a: p["ladders"] for a, p in stats["ladder_plan"].items()})
+
+
+def graph_vs_eager(engine, model, samples, bos: int) -> dict:
+    """Per bucket at full width: the graph's replay time per decode (CUDA
+    events, back to back), the eager ``mega`` decode's (weights stacked in
+    the call, as the evaluator decodes) and the eager decode's with the
+    engine's stacked weights."""
+    prepared = [engine._prepare(s) for s in samples[:engine.buckets[-1]]]
+    out = {}
+    for b in engine.buckets:
+        g = engine._routing.grid[(None, None)].graphs[b]
+        batch = {k: v.to("cuda") for k, v in engine._stack(prepared[:b], b).items()}
+        with torch.no_grad():
+            out[b] = dict(
+                graph_replay_ms=cuda_ms(g.graph.replay, iters=20, warmup=3),
+                eager_mega_ms=cuda_ms(lambda: greedy_decode_fast(
+                    model, batch, bos, backend="mega", check_masks=False), iters=5, warmup=1),
+                eager_mega_engine_consts_ms=cuda_ms(lambda: greedy_decode_fast(
+                    model, batch, bos, backend="mega", check_masks=False,
+                    consts=engine._consts), iters=5, warmup=1),
+            )
+        log(f"  B={b}: graph replay {out[b]['graph_replay_ms']:.3f} ms, eager mega "
+            f"{out[b]['eager_mega_ms']:.3f} ms (engine's stacked weights "
+            f"{out[b]['eager_mega_engine_consts_ms']:.3f})")
+    return out
+
+
+def host_costs(engine, samples) -> dict:
+    """The engine's host work outside the graphs: validating and casting
+    one request at ``submit`` (ms per request, one thread), and stacking
+    B=32 into a pinned staging slot at full width (ms per batch)."""
+    t0 = time.perf_counter()
+    prepared = [engine._prepare(s) for s in samples]
+    prepare_ms = (time.perf_counter() - t0) * 1e3 / len(samples)
+    slot = engine._next_slot()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        engine._stack(prepared[:BATCH], BATCH, None, None, slot)
+    return dict(prepare_ms_per_request=prepare_ms,
+                stack_b32_ms=(time.perf_counter() - t0) * 1e3 / 5)
+
+
+def server_path(task, vocab, kernel_model, gen, dev=torch.device("cuda")):
+    """Phase 7 (see the module docstring). K1 and K3 are held at the narrow
+    cell with the weights of ``kernel_model`` (phase 3's, the inputs phase
+    2's bars were set on). Returns the phase's result and the bf16 engine
+    (closed), whose full-width B=32 graph phase 4 profiles."""
+    bos = vocab.special_ids().bos
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_server_") as tmp:
+        tmp = Path(tmp)
+        raws = raw_requests(task, SERVER_REQUESTS)
+        ft = processors.FastTextProcessor()
+        t0 = time.monotonic()
+        samples = [build_sample(task, **r, fasttext=ft) for r in raws]
+        out["featurize_ms_per_request"] = (time.monotonic() - t0) * 1e3 / len(samples)
+        paths = []
+        for i, s in enumerate(samples):
+            paths.append(tmp / f"request{i}.npz")
+            np.savez(paths[-1], **{k: s[k] for k in SAMPLE_KEYS},
+                     ocr_tokens=np.asarray(s["ocr_tokens"]))
+        out["needed_widths"] = {
+            "obj_max": max(needed_width(s["pad_obj_mask"]) for s in samples),
+            "ocr_under_25": sum(needed_width(s["pad_ocr_mask"]) < 25 for s in samples)}
+
+        model = SAM4C(SAM4CParams(task.mmt, task.text_bert, len(vocab)))
+        model.init_weights(torch.Generator().manual_seed(0), std=SERVE_STD)
+        model = model.to(dev).eval()
+        weights = tmp / "serve_weights"
+        torch.save({"model_state_dict": model.state_dict()}, weights)
+        ladders = dict(buckets=SERVER_BUCKETS, obj_buckets=OBJ_LADDER, ocr_buckets=OCR_LADDER,
+                       device=dev)
+        f32_ids = None
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            model.dtype = dtype
+            engine = ServingEngine(model, vocab, **ladders)
+            t0 = time.monotonic()
+            engine.warmup()
+            res = dict(warmup_s=time.monotonic() - t0, **engine.graph_counts())
+            log(f"  {name}: {res['graphs']} graphs warmed in {res['warmup_s']:.1f} s (capture "
+                f"{res['capture_s']:.2f} s), graph pool {res['pool_bytes']} bytes")
+            res["parity"], full_ids = graph_parity(engine, samples, dtype == torch.float32,
+                                                   f32_ids)
+            f32_ids = f32_ids or full_ids
+            agree = {b: (min(p["token_agreement_cell_vs_full"].values()),
+                         p.get("token_agreement_full_vs_f32")) for b, p in res["parity"].items()}
+            log(f"  {name} token agreement by bucket (narrow cells with full width, full "
+                f"width with f32): {agree}")
+            res["in_process"] = in_process_serving(engine, samples)
+            log(f"  {name} in-process serving: {res['in_process']['samples_per_s']:.1f} "
+                f"samples/s, launches {res['in_process']['launches']}")
+            if dtype == torch.float32:
+                engine.close()
+                res["tcp"] = tcp_serving(tmp, paths, res["in_process"]["answers"], weights, "f32")
+                del engine
+            else:
+                res["graph_vs_eager"] = graph_vs_eager(engine, model, samples, bos)
+                narrow = dataclasses.replace(task, mmt=dataclasses.replace(
+                    task.mmt, max_obj_num=NARROW_CELL[0], max_ocr_num=NARROW_CELL[1]))
+                prepared = [engine._prepare(cut(s, *NARROW_CELL)) for s in samples[:BATCH]]
+                batch = {k: v.to(dev) for k, v in engine._stack(prepared, BATCH,
+                                                                 *NARROW_CELL).items()}
+                res["narrow_cell_kernels"] = parity_b96(narrow, kernel_model, batch, gen)
+                res["host"] = host_costs(engine, samples)
+                log(f"  host: {json.dumps(res['host'])}")
+                # phase 4 replays a graph of this engine, which holds all the
+                # graph reads and writes (weights, stacked weights, static
+                # tensors): it outlives this function
+                served = engine
+                engine.close()
+            res["in_process"].pop("answers")
+            out[name] = res
+        torch.cuda.synchronize()
+    return out, served
+
+
 def sync_free_decodes(model, batch, bos: int) -> dict:
     """A warmed-up ``mega`` and ``fused`` decode of a batch already on the
     card, with the masks checked on the host beforehand (``check_masks=
@@ -1392,6 +1738,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     print(gpu, flush=True)
+    driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                            capture_output=True, text=True, check=True).stdout.strip()
+    log(f"torch {torch.__version__}, CUDA runtime {torch.version.cuda}, driver {driver}")
 
     task = load_task_config(str(CONFIG))
     vocab = build_vocab(task)
@@ -1434,6 +1783,9 @@ def main() -> int:
     cli = train_cli_path(task, vocab, model, training["train"], gen)
     log("== phase 6: the train CLI on real-format files (c3, bf16, batch 96, 1 epoch)")
     real = real_data_path(task, vocab, model, cli, training["train"], gen)
+    log("== phase 7: the server (c3, obj ladder 50, OCR ladder 10,25, one CUDA graph per cell; "
+        "in-process f32 and bf16, TCP f32)")
+    server, served = server_path(task, vocab, model, gen)
     # profiles come after every timed phase, so that no timing runs after
     # the profiler has been started in this process
     log("== phase 4: device profiles (K1 call, K3 step at B=32, B=32 bf16 mega decode, "
@@ -1464,6 +1816,10 @@ def main() -> int:
         lambda: greedy_decode_fast(model, main["batch"], vocab.special_ids().bos,
                                    backend="mega"))
     training["profile_train_step"] = device_profile(train_call)
+    server["bfloat16"]["profile_graph_replay_b32"] = device_profile(
+        served._routing.grid[(None, None)].graphs[BATCH].graph.replay)
+    log(f"  B=32 bf16 graph replay: idle share "
+        f"{server['bfloat16']['profile_graph_replay_b32'].get('idle_share')}")
     log(json.dumps({k: v for k, v in main.items() if k not in ("batch", "ids_mega_bf16")}))
     checks = f32_checks(task, vocab, model, main["batch"], main["ids_mega_bf16"])
     log(json.dumps(checks))
@@ -1481,11 +1837,14 @@ def main() -> int:
             "train_cli_val_launches": cli["train"]["epochs"][-1]["val_launches"][name],
             "real_data_val_launches": real["train"]["epoch"]["val_launches"][name],
             "kernel_eval_step_launches": training["eval"]["kernel_launches"][name],
+            "server_graph_launches": {dt: server[dt]["in_process"]["launches"][name]
+                                      for dt in ("float32", "bfloat16")},
             "parity": "ok", **res,
         })
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"train_cli": cli}), flush=True)
     print(json.dumps({"real_data": real}), flush=True)
+    print(json.dumps({"server": server}), flush=True)
     log(f"total seconds: {time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

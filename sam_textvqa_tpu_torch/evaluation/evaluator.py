@@ -8,7 +8,8 @@ on the host, keyed by batch position. Each batch decodes through
 :func:`..models.fast_decode.greedy_decode_fast` with the evaluator's backend
 (``auto`` is ``mega`` on the card: the spatial-attention kernel in the
 encoder-cache pass, the decode-step kernel per step). Beam search and the
-obj/OCR width ladders are not ported yet (ROADMAP queue 1, items 5 and 7).
+evaluator's obj/OCR width ladders are not ported yet (ROADMAP queue 1,
+items 5 and 7); the width helpers the serving engine routes with are here.
 """
 
 from __future__ import annotations
@@ -58,6 +59,54 @@ def _batch_qids(batch, host_only):
     if raw is not None:
         return [int(q) if isinstance(q, (int, np.integer)) else str(q) for q in raw]
     return [int(q) for q in np.asarray(batch["question_id"])]
+
+
+def needed_width(pad_mask) -> int:
+    """Narrowest slot width that holds every real token: the last nonzero
+    mask column + 1 (0 when fully padded), of a (B, N) batch mask or one
+    (N,) sample mask (numpy, or a CPU tensor). The routing primitive of the
+    serving engine's obj and OCR width ladders."""
+    m = np.asarray(pad_mask)
+    m = m.reshape(-1, m.shape[-1])
+    used = np.flatnonzero(m.any(axis=0))
+    return int(used[-1]) + 1 if used.size else 0
+
+
+def _take(x, keep):
+    """``x[:, keep][:, :, keep]`` as a contiguous array of x's kind."""
+    out = x[:, keep][:, :, keep]
+    return np.ascontiguousarray(out) if isinstance(out, np.ndarray) else out.contiguous()
+
+
+def shrink_ocr_batch(batch: Dict, n_obj: int, n_small: int) -> Dict:
+    """Slice every OCR-width array (and the OCR tail of the visual spatial
+    matrix, whose obj rows come first) down to ``n_small`` slots, for a host
+    batch of numpy arrays or CPU tensors. Exact for batches whose rows all
+    have <= n_small real OCR tokens: the dropped slots carry the -10000
+    additive bias, whose softmax weight is exactly 0.0 in f32, so the greedy
+    ids are identical (tests/test_torch_serving_front.py)."""
+    out = dict(batch)
+    for k in ("pad_ocr_features", "pad_ocr_mask", "pad_ocr_bboxes",
+              "ocr_fasttext", "ocr_phoc"):
+        out[k] = batch[k][:, :n_small]
+    vis = n_obj + n_small
+    out["spatial_classes"] = batch["spatial_classes"][:, :vis, :vis]
+    return out
+
+
+def shrink_obj_batch(batch: Dict, n_obj: int, n_small: int) -> Dict:
+    """Slice every obj-width array (and the obj rows and columns of the
+    visual spatial matrix) down to ``n_small`` slots. Exact as
+    :func:`shrink_ocr_batch` is: obj tokens are never indexed by position
+    in any output (only the OCR block feeds the pointer net), and the
+    spatial classes are pairwise. ``batch`` may already be OCR-shrunk: the
+    OCR block is whatever follows the first ``n_obj`` rows."""
+    out = dict(batch)
+    for k in ("pad_obj_features", "pad_obj_mask", "pad_obj_bboxes"):
+        out[k] = batch[k][:, :n_small]
+    sc = batch["spatial_classes"]
+    out["spatial_classes"] = _take(sc, np.r_[0:n_small, n_obj:sc.shape[-1]])
+    return out
 
 
 def _pipelined(batches, dispatch, consume):

@@ -119,7 +119,7 @@ def build_mmt_cache(mmt, text_bert_emb, obj_mmt_in, ocr_mmt_in, question_mask,
             )
         else:
             if key not in spatial_bias:
-                allowed = build_spatial_allowed(spatial_classes, relation_head_lut(key),
+                allowed = build_spatial_allowed(spatial_classes, _device_lut(key, h, x.device),
                                                 q_len, 0, quadrants, h)
                 spatial_bias[key] = torch.minimum(
                     torch.where(allowed, 0.0, MASK_BIAS), col_bias)
@@ -392,7 +392,7 @@ def _greedy_steps(model, cfg, cache, tables, ptr_keys, bos_idx, dtype, step_fn):
 
 @torch.no_grad()
 def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
-                       check_masks: bool = True):
+                       check_masks: bool = True, consts=None):
     """Greedy decode: the encoder cache, then one decoder row per step
     against cached encoder AND decoder K/V. Same outputs as
     :func:`..models.sa_m4c.greedy_decode`. Returns (scores (B, T, V+O),
@@ -403,7 +403,12 @@ def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
     They need prefix-contiguous masks, which ``check_masks`` checks on a
     host copy, waiting for the device: the engine and the evaluator check
     their host arrays with :func:`check_prefix_masks` before the transfer
-    and pass False, so that the decode never waits for the device."""
+    and pass False, so that the decode never waits for the device.
+
+    ``consts``: the kernel backends' stacked weights,
+    ``_mega_step_consts(model.mmt, model.dtype)``, made once by a caller
+    whose weights do not change (the serving engine); by default they are
+    made anew in each call, from the weights as they are then."""
     cfg = model.params_cfg.mmt
     device = batch["question_indices"].device
     backend = resolve_backend(backend, cfg, device)
@@ -437,7 +442,8 @@ def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
         return _greedy_steps(model, cfg, cache, tables, ptr_keys, bos_idx, dtype, step)
 
     seg_lens = _seg_lens(batch, validate=check_masks)
-    consts = _mega_step_consts(model.mmt, dtype)
+    if consts is None:
+        consts = _mega_step_consts(model.mmt, dtype)
     k_dec = cache.k_enc.new_zeros(n_layers, b, t_max, d)
     v_dec = cache.k_enc.new_zeros(n_layers, b, t_max, d)
     steps = torch.arange(t_max, dtype=torch.int32, device=device)

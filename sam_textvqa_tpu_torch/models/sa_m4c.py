@@ -14,6 +14,8 @@ freshly built module in training mode still runs the deterministic forward.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -84,13 +86,15 @@ class SAM4C(nn.Module):
         self.classifier = Dense(hidden, params_cfg.num_answers)
 
     @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> "SAM4C":
+    def init_weights(self, generator: torch.Generator, std: float = 0.02) -> "SAM4C":
         """Random init from an explicit generator (on the parameters'
-        device): every Linear and Embedding weight ~ normal(0, 0.02), biases
-        zero, LayerNorms at identity."""
+        device): every Linear and Embedding weight ~ normal(0, std), biases
+        zero, LayerNorms at identity. (At the default 0.02 the untrained small
+        test models repeat their BOS token whatever the question; a larger
+        std gives answers that depend on the inputs.)"""
         for module in self.modules():
             if isinstance(module, (nn.Linear, nn.Embedding)):
-                module.weight.normal_(0.0, 0.02, generator=generator)
+                module.weight.normal_(0.0, std, generator=generator)
                 if isinstance(module, nn.Linear) and module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, LayerNormTF):
@@ -172,6 +176,36 @@ class SAM4C(nn.Module):
         in a fixed order."""
         return self.decode_step(self.encode(batch, deterministic, generator), batch,
                                 batch["train_prev_inds"], deterministic, generator)
+
+
+def with_widths(model: SAM4C, n_obj: Optional[int] = None,
+                n_ocr: Optional[int] = None) -> SAM4C:
+    """The SAME parameters at narrower obj/OCR slot counts (None keeps the
+    full width; JAX ``sa_m4c.py:with_widths``): no parameter depends on
+    either count, so inputs whose rows all fit the narrow widths
+    (``evaluation.evaluator.shrink_obj_batch`` / ``shrink_ocr_batch``) run a
+    shorter joint sequence with identical greedy ids.
+
+    The widths are read from ``model.params_cfg.mmt`` and from
+    ``model.mmt.config``. A ``copy.copy`` of a module shares its
+    ``_modules`` dict, so the copy gets its own ``_modules`` (and its own
+    shallow ``mmt`` with the narrowed config) before ``mmt`` is replaced:
+    the original keeps its config, every ``Parameter`` is shared, and
+    nothing new is registered."""
+    repl = {}
+    if n_obj is not None:
+        repl["max_obj_num"] = int(n_obj)
+    if n_ocr is not None:
+        repl["max_ocr_num"] = int(n_ocr)
+    if not repl:
+        return model
+    cfg = dataclasses.replace(model.params_cfg.mmt, **repl)
+    mmt = copy.copy(model.mmt)
+    mmt.config = cfg
+    small = copy.copy(model)
+    small.__dict__["_modules"] = dict(model._modules, mmt=mmt)
+    small.params_cfg = model.params_cfg._replace(mmt=cfg)
+    return small
 
 
 @torch.no_grad()

@@ -8,11 +8,15 @@ first use; :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Every kernel wrapper adds one to its launch count (:func:`count_launch`)
 where it launches its kernel and nowhere else, and one to the count of the
-element type it launched with (:func:`launch_counts_by_dtype`).
+element type it launched with (:func:`launch_counts_by_dtype`). While a
+CUDA graph is captured (:func:`recording_launches`) the kernels are only
+recorded, so the counts go to the graph's record, which its owner adds to
+the process counts on every replay (:func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -45,10 +49,40 @@ _launches: Counter = Counter()
 _dtype_launches: Counter = Counter()
 
 
+_capture = threading.local()
+
+
 def count_launch(name: str, dtype: torch.dtype) -> None:
+    key = f"{name}:{str(dtype).replace('torch.', '')}"
+    record = getattr(_capture, "record", None)
+    if record is not None:  # captured into a CUDA graph: nothing ran yet
+        record[name] += 1
+        record[key] += 1
+        return
     with _count_lock:
         _launches[name] += 1
-        _dtype_launches[f"{name}:{str(dtype).replace('torch.', '')}"] += 1
+        _dtype_launches[key] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """For a CUDA graph captured on this thread inside the block: yields a
+    Counter that takes this thread's launch counts (kernel names and
+    ``"<kernel>:<dtype>"`` keys) instead of the process counts, since a
+    captured kernel runs only when the graph is replayed."""
+    record: Counter = Counter()
+    _capture.record = record
+    try:
+        yield record
+    finally:
+        _capture.record = None
+
+
+def add_launches(record: Counter) -> None:
+    """Add one replay of a graph's recorded launches to the counts."""
+    with _count_lock:
+        for key, n in record.items():
+            (_dtype_launches if ":" in key else _launches)[key] += n
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,23 +1,40 @@
-"""Online serving CLI for SA-M4C greedy decoding (PyTorch port).
+"""Online serving CLI for SA-M4C greedy decoding (PyTorch port; JAX
+``serve.py``).
 
-Synthetic load test: builds the model from the task YAML, with the weights
-of ``--checkpoint`` (a ``best_model`` or ``last_state`` of
-``sam_textvqa_tpu_torch.train``, or a reference ``best_model.tar``) or else
-random ones from ``--seed``, submits N synthetic requests from C client
-threads and prints one JSON line of latency/throughput stats::
+Builds the model from the task YAML with the weights of ``--checkpoint`` (a
+``best_model`` or ``last_state`` of ``sam_textvqa_tpu_torch.train``, or a
+reference ``best_model.tar``) or else random ones from ``--seed``, warms
+the engine (one CUDA graph per bucket and width cell on the card), then:
 
+  # synthetic load test: N requests from C client threads, one JSON line
   python -m sam_textvqa_tpu_torch.serve \\
-      --config configs/train-tvqa-eval-tvqa-c3.yml --demo 64 [--checkpoint save/run1/best_model]
+      --config configs/train-tvqa-eval-tvqa-c3.yml --demo 256 [--rate QPS]
 
-Runs on the GPU; ``--device cpu`` runs the kernels' plain versions instead.
+  # JSON-lines TCP server, the JAX server's protocol: one request per line
+  #   {"id": 1, "npz": "/path/sample.npz"}  -> {"id": 1, "answer": "...", ...}
+  #   {"id": 2, "stats": true}              -> the engine's summary, plans
+  python -m sam_textvqa_tpu_torch.serve --config ... --port 8765 \\
+      [--obj_bucket 50 --ocr_bucket 10,25 --auto_tune 64]
+
+The ``.npz`` holds the ``SAMPLE_KEYS`` arrays plus an ``ocr_tokens`` string
+array: ``serving.engine.build_sample`` (of either package) + ``np.savez``.
+With ``--port 0`` the bound port is announced on stdout as
+``{"listening": [host, port]}``. SIGTERM or SIGINT stops accepting, drains
+the queued requests and exits.
+
+Runs on the GPU; ``--device cpu`` runs the kernels' plain versions,
+eagerly, instead.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
+import signal
+import socketserver
 import threading
 import time
 
@@ -34,23 +51,73 @@ from .utils.device import resolve_device
 
 logger = logging.getLogger("serve")
 
+#: JAX flags not ported yet: (flag, its default, the ROADMAP queue 1 item)
+UNPORTED = (
+    ("beam_size", 1, "item 5, beam search"),
+    ("model_parallel", 1, "item 9, multi-GPU"),
+    ("data_parallel", 0, "item 9, multi-GPU"),
+    ("artifact", None, "item 10, AOT artifacts"),
+    ("compile_cache", None, "item 11, the compile cache"),
+)
+UNPORTED_DECODE_BACKENDS = {"policy": "item 4, the early-exit policy backend",
+                            "xla_early": "item 4, early-exit greedy decode",
+                            "xla_flat": "item 4, the xla_flat decode"}
+
+
+def _ladder(s: str):
+    return [int(x) for x in s.split(",") if x]
+
 
 def get_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--config", required=True, help="task YAML (configs/*.yml)")
-    p.add_argument("--demo", type=int, required=True,
-                   help="submit N synthetic requests and print stats")
-    p.add_argument("--concurrency", type=int, default=8, help="client threads")
-    p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
-    p.add_argument("--buckets", default="1,8,32", help="batch sizes, comma-separated")
-    p.add_argument("--max_wait_ms", type=float, default=2.0)
-    p.add_argument("--decode_backend", choices=["auto", "plain", "fused", "mega"],
-                   default="auto")
-    p.add_argument("--device", default=None, help="default: cuda")
-    p.add_argument("--seed", type=int, default=0, help="weights and requests")
+    p.add_argument("--config", default=None, help="task YAML (configs/*.yml)")
     p.add_argument("--checkpoint", default="",
                    help="weights to serve (default: random ones from --seed)")
-    return p.parse_args(argv)
+    p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
+    p.add_argument("--buckets", default="1,8,32", help="batch sizes, comma-separated")
+    p.add_argument("--ocr_bucket", type=_ladder, default=None, metavar="N[,N...]",
+                   help="OCR-width ladder: batches whose requests all fit a rung run a "
+                        "narrower cell (identical answers)")
+    p.add_argument("--obj_bucket", type=_ladder, default=None, metavar="N[,N...]",
+                   help="obj-width ladder; with --ocr_bucket a routing grid")
+    p.add_argument("--auto_tune", type=int, default=0, metavar="N",
+                   help="re-plan the width ladders from live traffic every N served "
+                        "batches and adopt cost-model wins >= 5%% (0: off)")
+    p.add_argument("--max_wait_ms", type=float, default=2.0)
+    p.add_argument("--decode_backend",
+                   choices=["auto", "plain", "fused", "mega", *UNPORTED_DECODE_BACKENDS],
+                   default="auto")
+    p.add_argument("--demo", type=int, default=0,
+                   help="submit N synthetic requests and print stats")
+    p.add_argument("--demo_ocr", type=int, default=None,
+                   help="demo: cap each synthetic request to this many real OCR tokens")
+    p.add_argument("--concurrency", type=int, default=8, help="demo client threads")
+    p.add_argument("--rate", type=float, default=0.0,
+                   help="demo: open-loop request rate in requests/s (0: closed loop)")
+    p.add_argument("--port", type=int, default=None,
+                   help="serve JSON lines over TCP on this port (0: any free port)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--device", default=None, help="default: cuda")
+    p.add_argument("--seed", type=int, default=0, help="weights and demo requests")
+    # JAX flags refused unless left at their defaults (UNPORTED)
+    p.add_argument("--beam_size", type=int, default=1)
+    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--data_parallel", type=int, default=0)
+    p.add_argument("--artifact", default=None, metavar="DIR")
+    p.add_argument("--compile_cache", default=None, metavar="DIR")
+    args = p.parse_args(argv)
+    for flag, default, item in UNPORTED:
+        value = getattr(args, flag)
+        if value != default and not (flag == "data_parallel" and value == 1):
+            p.error(f"--{flag} is not ported yet (ROADMAP queue 1, {item})")
+    if args.decode_backend in UNPORTED_DECODE_BACKENDS:
+        p.error(f"--decode_backend {args.decode_backend} is not ported yet "
+                f"(ROADMAP queue 1, {UNPORTED_DECODE_BACKENDS[args.decode_backend]})")
+    if not args.config:
+        p.error("--config is required")
+    if not args.demo and args.port is None:
+        p.error("pick a mode: --demo N or --port P")
+    return args
 
 
 def build_vocab(task_cfg: TaskConfig) -> VocabDict:
@@ -72,31 +139,44 @@ def build_model(task_cfg: TaskConfig, num_answers: int, dtype: torch.dtype,
     return model.to(device).eval()
 
 
-def synthetic_requests(task_cfg: TaskConfig, n: int, num_answers: int, seed: int):
-    """``n`` requests in the engine's sample schema, from ``make_batch``."""
+def synthetic_requests(task_cfg: TaskConfig, n: int, num_answers: int, seed: int,
+                       demo_ocr=None):
+    """``n`` requests in the engine's sample schema, from ``make_batch``;
+    ``demo_ocr`` caps each request's real OCR tokens (so that an OCR ladder
+    routes)."""
     batch = make_batch(task_cfg, n, seed=seed, num_answers_vocab=num_answers)
     out = []
     for i in range(n):
         sample = {k: batch[k][i] for k in SAMPLE_KEYS}
         sample["ocr_tokens"] = batch["_ocr_tokens"][i]
+        if demo_ocr is not None:
+            sample["pad_ocr_mask"] = np.array(sample["pad_ocr_mask"])
+            sample["pad_ocr_mask"][demo_ocr:] = 0.0
         out.append(sample)
     return out
 
 
-def run_demo(engine: ServingEngine, samples, n: int, concurrency: int) -> dict:
-    """Closed-loop load: ``concurrency`` clients submit ``n`` requests in all
-    (cycling through ``samples``) and wait for every answer."""
+def run_demo(engine: ServingEngine, samples, n: int, concurrency: int,
+             rate: float = 0.0) -> dict:
+    """Load from ``concurrency`` clients: ``n`` requests in all (cycling
+    through ``samples``), each client waiting for its answers. ``rate`` 0
+    floods (closed loop: latencies measure queueing); ``rate`` > 0 paces
+    the submissions open-loop at that many requests/s."""
     errors = []
+    t0 = time.monotonic()
 
     def client(cid):
         try:
-            futs = [engine.submit(samples[i % len(samples)]) for i in range(cid, n, concurrency)]
+            futs = []
+            for i in range(cid, n, concurrency):
+                if rate > 0:  # each client owns every concurrency-th arrival slot
+                    time.sleep(max(0.0, t0 + i / rate - time.monotonic()))
+                futs.append(engine.submit(samples[i % len(samples)]))
             for f in futs:
                 f.result(timeout=600)
         except Exception as e:  # reported in the stats line
             errors.append(repr(e))
 
-    t0 = time.monotonic()
     threads = [threading.Thread(target=client, args=(c,)) for c in range(concurrency)]
     for t in threads:
         t.start()
@@ -104,9 +184,107 @@ def run_demo(engine: ServingEngine, samples, n: int, concurrency: int) -> dict:
         t.join()
     wall = time.monotonic() - t0
     stats = engine.stats.summary()
-    stats.update(demo_requests=n, concurrency=concurrency, wall_s=wall,
+    stats.update(demo_requests=n, concurrency=concurrency, rate=rate, wall_s=wall,
                  samples_per_s=n / wall, errors=errors)
     return stats
+
+
+def stats_response(engine: ServingEngine, req_id=None) -> dict:
+    """The TCP ``{"stats": true}`` answer: the engine's summary, the ladder
+    and bucket plans of live traffic, and its CUDA graphs."""
+    return {"id": req_id, **engine.stats.summary(), "ladder_plan": engine.ladder_plan(),
+            "bucket_plan": engine.bucket_plan(), "graphs": engine.graph_counts()}
+
+
+def load_request(req: dict) -> dict:
+    """The sample of a ``{"npz": path}`` request: the ``SAMPLE_KEYS`` arrays
+    and the ``ocr_tokens`` of the file (or of the request)."""
+    with np.load(req["npz"], allow_pickle=False) as z:
+        sample = {k: z[k] for k in SAMPLE_KEYS}
+        tokens = ([str(t) for t in z["ocr_tokens"]] if "ocr_tokens" in z
+                  else req.get("ocr_tokens", []))
+    sample["ocr_tokens"] = list(tokens)
+    return sample
+
+
+class _LineHandler(socketserver.StreamRequestHandler):
+    """One JSON request per line; the engine coalesces across connections.
+    An error line keeps the request's id."""
+
+    def handle(self):
+        engine = self.server.engine  # type: ignore[attr-defined]
+        for raw in self.rfile:
+            raw = raw.strip()
+            if not raw:
+                continue
+            with self.server.busy():  # type: ignore[attr-defined]
+                try:
+                    req = json.loads(raw)
+                    if req.get("stats"):
+                        out = stats_response(engine, req.get("id"))
+                    else:
+                        res = engine.submit(load_request(req)).result(timeout=600)
+                        out = {"id": req.get("id"), **res}
+                except Exception as e:
+                    out = {"id": None, "error": repr(e)}
+                    try:
+                        out["id"] = json.loads(raw).get("id")
+                    except Exception:
+                        pass
+                self.wfile.write((json.dumps(out) + "\n").encode())
+                self.wfile.flush()
+
+
+class LineServer(socketserver.ThreadingTCPServer):
+    """The JSON-lines server over ``engine``; counts the lines being
+    answered, so that a drain can wait for their answers to be written."""
+
+    allow_reuse_address = True
+    daemon_threads = True
+
+    def __init__(self, address, engine: ServingEngine):
+        super().__init__(address, _LineHandler)
+        self.engine = engine
+        self._busy = 0
+        self._idle = threading.Condition()
+
+    @contextlib.contextmanager
+    def busy(self):
+        with self._idle:
+            self._busy += 1
+        try:
+            yield
+        finally:
+            with self._idle:
+                self._busy -= 1
+                self._idle.notify_all()
+
+    def wait_idle(self, timeout: float) -> bool:
+        """Wait until no line is being answered; False on timeout."""
+        with self._idle:
+            return self._idle.wait_for(lambda: self._busy == 0, timeout)
+
+
+def run_server(engine: ServingEngine, host: str, port: int, drain_s: float = 60.0):
+    """Serve until SIGTERM or SIGINT; then stop accepting, answer what the
+    engine holds (``close(flush=True)``) and wait for those answers to be
+    written."""
+    with LineServer((host, port), engine) as server:
+        bound = server.server_address
+        logger.info("serving on %s:%d", bound[0], bound[1])
+        print(json.dumps({"listening": [bound[0], bound[1]]}), flush=True)
+
+        def on_signal(signum, frame):
+            logger.warning("caught signal %d; draining and exiting", signum)
+            threading.Thread(target=server.shutdown, daemon=True).start()
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, on_signal)
+        server.serve_forever()
+        logger.info("server stopped; draining the engine")
+        engine.close(flush=True, timeout=drain_s)
+        if not server.wait_idle(drain_s):
+            logger.warning("answers still unwritten after %.0f s", drain_s)
 
 
 def main(argv=None):
@@ -125,20 +303,28 @@ def main(argv=None):
     else:
         logger.warning("no --checkpoint: serving RANDOM weights (seed %d)", args.seed)
     engine = ServingEngine(
-        model, vocab, buckets=[int(b) for b in args.buckets.split(",") if b],
-        max_wait_ms=args.max_wait_ms, decode_backend=args.decode_backend, device=device,
+        model, vocab, buckets=_ladder(args.buckets), max_wait_ms=args.max_wait_ms,
+        decode_backend=args.decode_backend, device=device, ocr_buckets=args.ocr_bucket,
+        obj_buckets=args.obj_bucket, auto_tune_every=args.auto_tune,
     )
     t0 = time.monotonic()
     engine.warmup()
-    logger.info("warmed %d buckets in %.1fs", len(engine.buckets), time.monotonic() - t0)
-    samples = synthetic_requests(task_cfg, min(args.demo, 256), len(vocab), args.seed)
+    logger.info("warmed %d cells in %.1fs: %s", engine.num_executables,
+                time.monotonic() - t0, json.dumps(engine.graph_counts()))
+    stats = None
     try:
-        stats = run_demo(engine, samples, args.demo, args.concurrency)
+        if args.demo:
+            samples = synthetic_requests(task_cfg, min(args.demo, 256), len(vocab), args.seed,
+                                         args.demo_ocr)
+            stats = run_demo(engine, samples, args.demo, args.concurrency, args.rate)
+            stats["decode_backend"] = engine.decode_backend
+            stats["device"] = (str(device) if device.type != "cuda"
+                               else torch.cuda.get_device_name(device))
+            print(json.dumps(stats), flush=True)
+        if args.port is not None:
+            run_server(engine, args.host, args.port)
     finally:
-        engine.close()
-    stats["decode_backend"] = engine.decode_backend
-    stats["device"] = str(device) if device.type != "cuda" else torch.cuda.get_device_name(device)
-    print(json.dumps(stats))
+        engine.close(flush=True)
     return stats
 
 

@@ -1,41 +1,71 @@
-"""Dynamic-batching serving engine for SA-M4C greedy decoding.
+"""Dynamic-batching serving engine for SA-M4C greedy decoding (JAX package
+``serving/engine.py``).
 
 * **Fixed batch buckets.** Each coalesced group of requests is padded up to
-  the nearest bucket size (default 1/8/32), so the decode only ever sees a
-  few batch shapes; :meth:`ServingEngine.warmup` runs each once. Pad rows
-  replicate row 0 (a zero row would be a degenerate sample) and are never
-  answered.
+  the nearest bucket size (default 1/8/32). Pad rows replicate row 0 (a
+  zero row would be a degenerate sample) and are never answered.
+* **Width grid.** With ``obj_buckets`` / ``ocr_buckets`` a batch whose
+  requests all fit a rung runs at the narrowest (obj width, OCR width) cell
+  that holds every real token, with the same parameters
+  (``models.sa_m4c.with_widths``) and identical answers. A live auto-tuner
+  (``auto_tune_every``) re-plans the ladders from the traffic it serves
+  (``serving/ladder.py``) and swaps the routing once the new cells are warm.
+* **One CUDA graph per (bucket, obj width, OCR width) cell**, the
+  counterpart of the JAX engine's one compiled executable per cell. On a
+  CUDA device :meth:`ServingEngine.warmup` runs each cell's decode once
+  eagerly (kernel builds, the K1 LUT, the cuBLAS workspace of the capturing
+  stream), then captures it into one graph memory pool shared by all cells.
+  A batch is stacked on the host into a pinned staging buffer at its cell's
+  widths (one per pipeline slot, reused only after its copy is done), copied
+  into the cell's static inputs and replayed on one stream, so replays never
+  overlap; its ids are copied out of the static output right after the
+  replay, before the next batch can overwrite it. A capture that fails
+  raises: no cell is ever served eagerly on the card. On the CPU every
+  batch is decoded eagerly.
 * **Coalescing.** One batcher thread blocks on the request queue, then takes
   whatever else arrives within ``max_wait_ms`` (or until the largest bucket
   fills).
 * **Pipelining.** The batcher queues the decode on the device and hands the
-  un-fetched ids to a consumer thread, which copies them to the host and
-  turns them into answers (``decode_predictions``) while the device works on
-  the next batch.
+  ids, still in flight, to a consumer thread, which waits for them and
+  turns them into answers (``decode_predictions``) while the device works
+  on the next batch.
+* **Isolated retries.** When a batch fails after validation, each of its
+  requests is queued again alone; a request whose solo retry fails again
+  is failed by itself, so one poisonous request cannot fail the requests
+  coalesced with it.
+* **Transfer diet.** Feature arrays are cast to the model's compute dtype
+  at ``submit``, on the caller's thread (``data/prefetch.py``).
 
 The reference has no serving layer (offline batch eval only, reference
-evaluator.py:52-63); this mirrors the JAX package's ``serving/engine.py``.
+evaluator.py:52-63); :func:`build_sample` mirrors its dataset-time
+featurization (reference textvqa_dataset.py:285-334,
+processors.py:96-102,407-441).
 """
 
 from __future__ import annotations
 
+import gc
 import logging
 import threading
 import time
-from collections import deque
+from collections import Counter, deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from queue import Empty, Queue
-from typing import Dict, List, Optional, Sequence
+from queue import Empty, Full, Queue
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..data.prefetch import cast_features_for_transfer
 from ..data.vocab import VocabDict
 from ..evaluation.metrics import decode_predictions
-from ..models.fast_decode import (MASK_KEYS, check_prefix_masks, greedy_decode_fast,
-                                  resolve_backend)
+from ..models.fast_decode import (MASK_KEYS, _mega_step_consts, check_prefix_masks,
+                                  greedy_decode_fast, resolve_backend)
+from ..models.sa_m4c import with_widths
+from ..ops import cuda_build
 from ..utils.device import resolve_device
+from .ladder import normalize_ladder, plan_axis, plan_buckets
 
 logger = logging.getLogger(__name__)
 
@@ -49,8 +79,61 @@ SAMPLE_KEYS = (
 
 #: requests that may wait in the queue before ``submit`` blocks
 MAX_QUEUE = 4096
-#: decoded batches whose ids are not yet fetched to the host
+#: decoded batches whose ids are not yet fetched to the host; also the
+#: number of pinned staging buffers on the card
 PIPELINE_DEPTH = 2
+
+
+def build_sample(task_cfg, question_indices: np.ndarray, question_mask: np.ndarray,
+                 obj_features: np.ndarray, obj_boxes: np.ndarray, ocr_tokens: Sequence[str],
+                 ocr_features: np.ndarray, ocr_boxes: np.ndarray, fasttext=None) -> Dict:
+    """Featurize one raw request into the fixed-shape sample schema: pad or
+    truncate the regions (reference textvqa_dataset.py:285-305), PHOC and
+    fastText OCR features (reference processors.py:407-441,96-102), and the
+    spatial relation graph over the padded obj+OCR boxes (reference
+    textvqa_dataset.py:228-266). Bit-equal to the JAX package's.
+
+    Args:
+      question_indices/question_mask: (Q,) tokenized question.
+      obj_features/ocr_features: (n, 2048) Faster R-CNN fc7 rows.
+      obj_boxes/ocr_boxes: (n, 5) normalized [x1, y1, x2, y2, area].
+      ocr_tokens: raw OCR strings (cleaned and truncated here).
+      fasttext: a ``data.processors.FastTextProcessor``; its hash fallback
+        when None.
+    """
+    from ..data.features import pad_features
+    from ..data.processors import FastTextProcessor, word_cleaner
+    from ..ops.phoc import build_phoc_batch
+    from ..ops.spatial_graph import build_spatial_graph
+
+    mmt = task_cfg.mmt
+    of, om, ob = pad_features(np.asarray(obj_features, np.float32),
+                              np.asarray(obj_boxes, np.float32), mmt.max_obj_num)
+    cf, cm, cb = pad_features(np.asarray(ocr_features, np.float32),
+                              np.asarray(ocr_boxes, np.float32), mmt.max_ocr_num)
+    cleaned = [word_cleaner(w) for w in ocr_tokens][: mmt.max_ocr_num]
+    phoc = np.zeros((mmt.max_ocr_num, 604), np.float32)
+    ft = np.zeros((mmt.max_ocr_num, 300), np.float32)
+    if cleaned:
+        phoc[: len(cleaned)] = build_phoc_batch(cleaned)
+        ft_proc = fasttext or FastTextProcessor()
+        ft[: len(cleaned)] = ft_proc(cleaned, mmt.max_ocr_num)[: len(cleaned)]
+    classes = build_spatial_graph(np.concatenate([ob[:, :4], cb[:, :4]], axis=0),
+                                  task_cfg.distance_threshold)
+    return {
+        "question_indices": np.asarray(question_indices, np.int32),
+        "question_mask": np.asarray(question_mask, np.float32),
+        "pad_obj_features": of,
+        "pad_obj_mask": om,
+        "pad_obj_bboxes": ob,
+        "pad_ocr_features": cf,
+        "pad_ocr_mask": cm,
+        "pad_ocr_bboxes": cb,
+        "ocr_fasttext": ft,
+        "ocr_phoc": phoc,
+        "spatial_classes": classes.astype(np.int8),
+        "ocr_tokens": list(cleaned) + ["<pad>"] * (mmt.max_ocr_num - len(cleaned)),
+    }
 
 
 @dataclass
@@ -61,25 +144,48 @@ class ServingStats:
     batches: int = 0
     padded_rows: int = 0
     occupancy: Dict[int, int] = field(default_factory=dict)  # bucket -> batches
+    #: OCR / obj width rung -> batches routed there (with a ladder only)
+    ocr_width_occupancy: Dict[int, int] = field(default_factory=dict)
+    obj_width_occupancy: Dict[int, int] = field(default_factory=dict)
+    #: per-sample needed-width histograms, which ladder_plan() reads
+    ocr_needed: Dict[int, int] = field(default_factory=dict)
+    obj_needed: Dict[int, int] = field(default_factory=dict)
+    #: coalesced group size (before bucket padding) -> batches; bucket_plan()
+    group_sizes: Dict[int, int] = field(default_factory=dict)
     latencies_ms: deque = field(default_factory=lambda: deque(maxlen=4096))
+    #: bucket -> end-to-end latencies of the requests that rode it
+    latencies_ms_by_bucket: Dict[int, deque] = field(default_factory=dict)
     #: dispatch -> answered per batch, free of queueing
     service_ms: deque = field(default_factory=lambda: deque(maxlen=4096))
+    #: the same by bucket: the t(B) samples bucket_plan() fits its line to
+    service_ms_by_bucket: Dict[int, deque] = field(default_factory=dict)
+    #: one entry per routing swap of the live auto-tuner
+    autotune: List[Dict] = field(default_factory=list)
     started: Optional[float] = None  # first submit, so warmup is not counted
-    lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
 
     def summary(self) -> Dict:
         with self.lock:
             lat = np.asarray(self.latencies_ms, np.float64)
+            by_bucket = {b: np.asarray(d, np.float64)
+                         for b, d in sorted(self.latencies_ms_by_bucket.items())}
             svc = np.asarray(self.service_ms, np.float64)
+            requests = self.requests
             out = {
-                "requests": self.requests,
+                "requests": requests,
                 "batches": self.batches,
                 "padded_rows": self.padded_rows,
                 "occupancy": dict(sorted(self.occupancy.items())),
             }
+            if self.ocr_width_occupancy:
+                out["ocr_width_occupancy"] = dict(sorted(self.ocr_width_occupancy.items()))
+            if self.obj_width_occupancy:
+                out["obj_width_occupancy"] = dict(sorted(self.obj_width_occupancy.items()))
+            if self.autotune:
+                out["autotune"] = [dict(e) for e in self.autotune]
             started = self.started
-        elapsed = time.monotonic() - started if started is not None else None
-        out["throughput_qps"] = out["requests"] / max(elapsed, 1e-9) if elapsed else 0.0
+        elapsed = max(time.monotonic() - started, 1e-9) if started is not None else None
+        out["throughput_qps"] = requests / elapsed if elapsed is not None else 0.0
         if lat.size:
             out.update(
                 latency_ms_p50=float(np.percentile(lat, 50)),
@@ -87,9 +193,49 @@ class ServingStats:
                 latency_ms_p99=float(np.percentile(lat, 99)),
                 latency_ms_mean=float(lat.mean()),
             )
+        if by_bucket:
+            out["latency_ms_by_bucket"] = {
+                int(b): {"n": int(v.size), "p50": float(np.percentile(v, 50)),
+                         "p95": float(np.percentile(v, 95)),
+                         "p99": float(np.percentile(v, 99))}
+                for b, v in by_bucket.items()
+            }
         if svc.size:
-            out["service_ms_per_batch_p50"] = float(np.percentile(svc, 50))
+            out.update(service_ms_per_batch_p50=float(np.percentile(svc, 50)),
+                       service_ms_per_batch_mean=float(svc.mean()))
         return out
+
+
+class _Graph(NamedTuple):
+    """One cell's decode captured at one bucket: its static inputs and
+    output, the kernel launches recorded at capture, and a one-item list
+    counting its replays."""
+
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Dict[str, torch.Tensor]
+    pred_ids: torch.Tensor
+    launches: Counter
+    replays: List[int]
+
+
+class _Cell:
+    """One (obj width, OCR width) cell of the routing grid: the model at
+    those widths (the full model's parameters) and, on the card, its graph
+    per bucket."""
+
+    def __init__(self, model):
+        self.model = model
+        self.graphs: Dict[int, _Graph] = {}
+
+
+class _Routing(NamedTuple):
+    """Immutable width-routing snapshot: the batcher reads it once per
+    batch, the auto-tuner swaps the whole tuple."""
+
+    obj_ladder: Tuple[int, ...]
+    ocr_ladder: Tuple[int, ...]
+    #: (obj width | None, OCR width | None) -> _Cell; (None, None) is full width
+    grid: Dict
 
 
 class _Pending(Future):
@@ -99,13 +245,18 @@ class _Pending(Future):
         super().__init__()
         self.sample = sample
         self.t_submit = time.monotonic()
+        #: set when a batch it rode failed and it was queued again for an
+        #: isolated retry: a second failure is then its own
+        self.solo = False
 
 
 class ServingEngine:
-    """Queue -> coalesce -> bucket-pad -> decode -> answer strings.
+    """Queue -> coalesce -> bucket-pad -> route -> decode -> answer strings.
 
     Args:
-      model: a ``SAM4C``; it is moved to ``device``.
+      model: a ``SAM4C``; it is moved to ``device``. Its weights must not
+        change while the engine serves (the kernel backends' stacked
+        weights and the graphs are made once).
       answer_vocab: the fixed answer VocabDict (BOS/EOS and word decode).
       buckets: allowed batch sizes.
       max_wait_ms: coalescing window after the first queued request.
@@ -113,22 +264,44 @@ class ServingEngine:
         (models/fast_decode.py); ``auto`` is resolved once, here.
       device: where the model runs; default ``cuda``, and with no GPU the
         engine raises unless ``device="cpu"`` is passed.
+      ocr_buckets / obj_buckets: optional width ladders (rungs below the
+        full width); every batch runs at the narrowest (obj, OCR) cell that
+        holds all its real tokens, with identical answers.
+      auto_tune_every: > 0 re-plans both ladders from the engine's own
+        needed-width histograms every N served batches and adopts a plan
+        whose cost-model speedup clears ``auto_tune_min_speedup``: the new
+        cells are warmed (captured, on the card) on a tuner thread, then the
+        routing swaps. Adoptions are logged to ``stats.autotune``.
+      max_executables: the tuner's budget on len(buckets) x (1 + obj rungs)
+        x (1 + OCR rungs) (explicit ladders are not held to it).
     """
+
+    #: lifetime cap on routing swaps: a planner flapping between near-equal
+    #: ladders must not capture graphs forever
+    _MAX_ADOPTIONS = 8
 
     def __init__(self, model, answer_vocab: VocabDict,
                  buckets: Sequence[int] = (1, 8, 32), max_wait_ms: float = 2.0,
-                 decode_backend: str = "auto", device=None):
+                 decode_backend: str = "auto", device=None,
+                 ocr_buckets: Optional[Sequence[int]] = None,
+                 obj_buckets: Optional[Sequence[int]] = None,
+                 auto_tune_every: int = 0, auto_tune_min_speedup: float = 1.05,
+                 max_executables: int = 48):
         if not buckets or any(int(b) <= 0 for b in buckets):
             raise ValueError(f"buckets must be positive ints, got {buckets}")
+        if auto_tune_every < 0:
+            raise ValueError(f"auto_tune_every must be >= 0, got {auto_tune_every}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.answer_vocab = answer_vocab
         self.special = answer_vocab.special_ids()
         self.buckets = sorted({int(b) for b in buckets})
         self.max_wait_s = max_wait_ms / 1000.0
-        self.decode_backend = resolve_backend(
-            decode_backend, model.params_cfg.mmt, self.device
-        )
+        mmt = model.params_cfg.mmt
+        self.decode_backend = resolve_backend(decode_backend, mmt, self.device)
+        # the kernel backends' stacked weights, made once (frozen weights)
+        self._consts = (None if self.decode_backend == "plain"
+                        else _mega_step_consts(self.model.mmt, self.model.dtype))
         self.stats = ServingStats()
         self._queue: "Queue[_Pending]" = Queue(maxsize=MAX_QUEUE)
         self._results: "Queue" = Queue(maxsize=PIPELINE_DEPTH)
@@ -136,6 +309,25 @@ class ServingEngine:
         self._inflight = 0  # popped but unanswered requests (under stats.lock)
         self._schema = {k: (v.shape, v.dtype) for k, v in self._zero_sample().items()
                         if k in SAMPLE_KEYS}
+        self._graphs_on = self.device.type == "cuda"
+        self._capture_lock = threading.Lock()
+        self.capture_s = 0.0  # seconds spent capturing graphs (warmup and tuner)
+        self.pool_bytes = 0   # rise of memory_reserved over all captures
+        if self._graphs_on:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._replay_stream = torch.cuda.Stream(self.device)
+            self._staging: List[Dict[str, torch.Tensor]] = [{} for _ in range(PIPELINE_DEPTH)]
+            self._staged: List[Optional[torch.cuda.Event]] = [None] * PIPELINE_DEPTH
+            self._slot = 0
+        obj_ladder = normalize_ladder(obj_buckets, mmt.max_obj_num, "obj")
+        ocr_ladder = normalize_ladder(ocr_buckets, mmt.max_ocr_num, "ocr")
+        self._routing = _Routing(obj_ladder, ocr_ladder, self._build_grid(obj_ladder, ocr_ladder))
+        self._auto_tune_every = int(auto_tune_every)
+        self._auto_min_speedup = float(auto_tune_min_speedup)
+        self._max_executables = int(max_executables)
+        self._tuner: Optional[threading.Thread] = None
+        self._last_tune_batch = 0
         self._batcher = threading.Thread(target=self._batch_loop,
                                          name="serving-batcher", daemon=True)
         self._consumer = threading.Thread(target=self._consume_loop,
@@ -162,20 +354,139 @@ class ServingEngine:
             "ocr_tokens": ["<pad>"] * c,
         }
 
-    def _stack(self, samples: List[Dict], bucket: int) -> Dict[str, torch.Tensor]:
-        """(bucket, ...) device batch; pad rows replicate row 0."""
-        idx = list(range(len(samples))) + [0] * (bucket - len(samples))
-        return {
-            k: torch.from_numpy(np.stack([samples[i][k] for i in idx])).to(self.device)
-            for k in SAMPLE_KEYS
-        }
+    def _build_grid(self, obj_ladder, ocr_ladder, reuse=None) -> Dict:
+        """Cells of the (obj, OCR) width cross product plus full width,
+        reusing the cells of ``reuse`` (an old grid), graphs and all."""
+        reuse = reuse or {}
+        grid = {}
+        for ow in (*obj_ladder, None):
+            for cw in (*ocr_ladder, None):
+                grid[(ow, cw)] = reuse.get((ow, cw)) or _Cell(
+                    with_widths(self.model, n_obj=ow, n_ocr=cw))
+        return grid
 
-    def _decode(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _shrink(self, host_batch: Dict, obj_w, ocr_w) -> Dict:
+        """Slice a host batch down to an (obj, OCR) cell (None = full width
+        on that axis): OCR first, then obj, which takes an OCR-shrunk
+        spatial matrix (JAX ``_shrink``)."""
+        if (obj_w, ocr_w) == (None, None):
+            return host_batch
+        from ..evaluation.evaluator import shrink_obj_batch, shrink_ocr_batch
+
+        n_obj = self.model.params_cfg.mmt.max_obj_num
+        if ocr_w is not None:
+            host_batch = shrink_ocr_batch(host_batch, n_obj, ocr_w)
+        if obj_w is not None:
+            host_batch = shrink_obj_batch(host_batch, n_obj, obj_w)
+        return host_batch
+
+    def _staging_view(self, slot: int, key: str, shape, dtype) -> torch.Tensor:
+        """A contiguous ``shape`` view of pipeline slot ``slot``'s pinned
+        staging buffer for ``key``, sized for the largest bucket at full
+        width."""
+        buf = self._staging[slot].get(key)
+        if buf is None or buf.dtype != dtype:
+            full = self._schema[key][0]
+            buf = torch.empty(self.buckets[-1] * int(np.prod(full)), dtype=dtype,
+                              pin_memory=True)
+            self._staging[slot][key] = buf
+        return buf[:int(np.prod(shape))].view(shape)
+
+    def _stack(self, samples: List[Dict], bucket: int, obj_w=None, ocr_w=None,
+               slot: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """(bucket, ...) host batch at the (obj_w, ocr_w) cell; pad rows
+        replicate row 0. Each sample is shrunk as a batch of one, so the
+        rows land contiguous at the cell's widths, in pipeline slot
+        ``slot``'s pinned staging buffer when one is given."""
+        rows = [self._shrink({k: torch.as_tensor(s[k])[None] for k in SAMPLE_KEYS},
+                             obj_w, ocr_w) for s in samples]
+        rows += [rows[0]] * (bucket - len(rows))
+        out = {}
+        for k in SAMPLE_KEYS:
+            parts = [r[k] for r in rows]
+            if slot is None:
+                out[k] = torch.cat(parts)
+            else:
+                shape = (bucket, *parts[0].shape[1:])
+                out[k] = torch.cat(parts, out=self._staging_view(slot, k, shape, parts[0].dtype))
+        return out
+
+    def _decode(self, model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         # the masks were checked on the host in _validate: the decode never
         # waits for the device
-        _, pred_ids = greedy_decode_fast(self.model, batch, self.special.bos,
-                                         backend=self.decode_backend, check_masks=False)
+        _, pred_ids = greedy_decode_fast(model, batch, self.special.bos,
+                                         backend=self.decode_backend, check_masks=False,
+                                         consts=self._consts)
         return pred_ids
+
+    def _capture(self, model, host: Dict[str, torch.Tensor]) -> _Graph:
+        """Run the decode once eagerly on the capturing stream, then capture
+        it into the shared pool. A failed capture raises."""
+        with self._capture_lock:
+            stream = self._capture_stream
+            with torch.cuda.stream(stream):
+                inputs = {k: v.to(self.device) for k, v in host.items()}
+                self._decode(model, inputs)
+            # the capture empties the allocator's cache first: do it here, so
+            # that the rise of memory_reserved is the graph pool's growth
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            graph = torch.cuda.CUDAGraph()
+            reserved = torch.cuda.memory_reserved(self.device)
+            t0 = time.monotonic()
+            # no garbage collection inside the capture: collecting an old
+            # CUDA graph (an engine and its threads form a cycle) destroys it
+            # in this thread, which a capture does not permit
+            # (cudaErrorStreamCaptureInvalidated); torch.cuda.graph collects
+            # once before it begins
+            gc_on = gc.isenabled()
+            gc.disable()
+            try:
+                with cuda_build.recording_launches() as launches:
+                    with torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                                          capture_error_mode="thread_local"):
+                        pred_ids = self._decode(model, inputs)
+            finally:
+                if gc_on:
+                    gc.enable()
+            self.capture_s += time.monotonic() - t0
+            self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
+        return _Graph(graph, inputs, pred_ids, launches, [0])
+
+    def _warm(self, cell: _Cell, bucket: int, obj_w, ocr_w, zero: Dict) -> None:
+        """Decode the zero sample at ``cell`` and ``bucket``: on the card,
+        capture the cell's graph for the bucket (once)."""
+        if bucket in cell.graphs:
+            return
+        host = self._stack([zero], bucket, obj_w, ocr_w)
+        if self._graphs_on:
+            cell.graphs[bucket] = self._capture(cell.model, host)
+        else:
+            self._decode(cell.model, host)
+
+    def _launch(self, cell: _Cell, bucket: int, obj_w, ocr_w, host: Dict, slot):
+        """Queue the decode of a staged host batch. Returns (pred ids, the
+        event after which they are on the host, or None on the CPU)."""
+        if not self._graphs_on:
+            return self._decode(cell.model, host), None
+        if bucket not in cell.graphs:  # not warmed: capture on first use
+            self._warm(cell, bucket, obj_w, ocr_w, self._prepare(self._zero_sample()))
+        g = cell.graphs[bucket]
+        with torch.cuda.stream(self._replay_stream):
+            for k, v in host.items():
+                g.inputs[k].copy_(v, non_blocking=True)
+            staged = torch.cuda.Event()
+            staged.record()
+            self._staged[slot] = staged
+            g.graph.replay()
+            # copy the ids out before a later replay of this cell overwrites them
+            ids = torch.empty(g.pred_ids.shape, dtype=g.pred_ids.dtype, pin_memory=True)
+            ids.copy_(g.pred_ids, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        g.replays[0] += 1
+        cuda_build.add_launches(g.launches)
+        return ids, done
 
     def _pick_bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -183,12 +494,166 @@ class ServingEngine:
                 return b
         return self.buckets[-1]
 
+    @property
+    def ladder_widths(self) -> List[int]:
+        """Ascending OCR-width rungs (empty without ``ocr_buckets``)."""
+        return list(self._routing.ocr_ladder)
+
+    @property
+    def obj_ladder_widths(self) -> List[int]:
+        """Ascending obj-width rungs (empty without ``obj_buckets``)."""
+        return list(self._routing.obj_ladder)
+
+    @property
+    def num_executables(self) -> int:
+        """Cells ``warmup`` runs: every bucket at every grid cell plus full
+        width (one CUDA graph each on the card)."""
+        r = self._routing
+        return len(self.buckets) * (1 + len(r.obj_ladder)) * (1 + len(r.ocr_ladder))
+
+    def graph_counts(self) -> Dict:
+        """The captured graphs of the current grid: their number, replays,
+        and the kernel launches those replays ran (recorded launches x
+        replays, by kernel)."""
+        graphs = [g for cell in self._routing.grid.values() for g in list(cell.graphs.values())]
+        launches: Counter = Counter()
+        for g in graphs:
+            for k, n in g.launches.items():
+                if ":" not in k:
+                    launches[k] += n * g.replays[0]
+        return {"graphs": len(graphs), "replays": sum(g.replays[0] for g in graphs),
+                "launches": dict(launches), "capture_s": self.capture_s,
+                "pool_bytes": self.pool_bytes}
+
+    def _route_widths(self, samples: List[Dict]):
+        """The narrowest (obj, OCR) cell holding every real token of the
+        group, as (cell, obj width | None, OCR width | None); records the
+        per-sample needed-width histograms ladder_plan() reads."""
+        from ..evaluation.evaluator import needed_width
+
+        obj_needs = [needed_width(s["pad_obj_mask"]) for s in samples]
+        ocr_needs = [needed_width(s["pad_ocr_mask"]) for s in samples]
+        with self.stats.lock:
+            for n in obj_needs:
+                self.stats.obj_needed[n] = self.stats.obj_needed.get(n, 0) + 1
+            for n in ocr_needs:
+                self.stats.ocr_needed[n] = self.stats.ocr_needed.get(n, 0) + 1
+
+        def pick(ladder, needs):
+            need = max(needs)
+            return next((w for w in ladder if need <= w), None)
+
+        r = self._routing  # one snapshot per batch (the tuner swaps it)
+        ow = pick(r.obj_ladder, obj_needs)
+        cw = pick(r.ocr_ladder, ocr_needs)
+        return r.grid[(ow, cw)], ow, cw
+
+    def ladder_plan(self, max_rungs: int = 2) -> Dict:
+        """Suggested ``ocr_buckets`` / ``obj_buckets`` from the needed-width
+        histograms of live traffic (planning estimates: serving/ladder.py)."""
+        with self.stats.lock:
+            snap = {"ocr": dict(self.stats.ocr_needed), "obj": dict(self.stats.obj_needed)}
+        mmt = self.model.params_cfg.mmt
+        out = {}
+        for axis, counts in snap.items():
+            plan = plan_axis(counts, axis, mmt, max_rungs)
+            if plan:
+                out[axis] = plan
+        return out
+
+    def bucket_plan(self, max_buckets: int = 3) -> Optional[Dict]:
+        """Suggested ``buckets`` from the coalesced-group-size histogram,
+        costed under a ``t(B) = a + b*B`` line fit to this engine's own
+        service times (serving/ladder.py ``plan_buckets``). None until a
+        batch was served; a ``reason`` until two buckets were."""
+        with self.stats.lock:
+            groups = dict(self.stats.group_sizes)
+            svc = {b: list(d) for b, d in self.stats.service_ms_by_bucket.items()}
+        return plan_buckets(groups, svc, max_buckets)
+
     def warmup(self):
-        """Run every bucket size once (kernel builds, allocator growth), so
-        no live request pays for them."""
-        zero = self._validate(self._zero_sample())
+        """Run every (bucket, cell) of the grid once, capturing its graph on
+        the card, so that no live request pays for kernel builds, allocator
+        growth or a capture."""
+        zero = self._prepare(self._zero_sample())
         for b in self.buckets:
-            self._decode(self._stack([zero], b)).cpu()
+            for (ow, cw), cell in self._routing.grid.items():
+                self._warm(cell, b, ow, cw, zero)
+
+    # ---- live auto-tuning -------------------------------------------------
+
+    def _maybe_autotune(self, batches: int):
+        """Batcher-thread hook: start a re-plan every ``auto_tune_every``
+        served batches, never two tuners at a time."""
+        with self.stats.lock:
+            adoptions = len(self.stats.autotune)
+        if (batches - self._last_tune_batch < self._auto_tune_every
+                or adoptions >= self._MAX_ADOPTIONS or self._stop.is_set()
+                or (self._tuner is not None and self._tuner.is_alive())):
+            return
+        self._last_tune_batch = batches
+        self._tuner = threading.Thread(target=self._autotune_once, args=(batches,),
+                                       name="serving-tuner", daemon=True)
+        self._tuner.start()
+
+    def _pick_plan_ladders(self):
+        """(obj ladder, OCR ladder, {axis: expected speedup}) from
+        ``ladder_plan`` under the executable budget; an axis keeps its rungs
+        when no planned ladder clears ``auto_tune_min_speedup``. obj first,
+        as in the JAX engine."""
+        plan = self.ladder_plan(max_rungs=2)
+        r = self._routing
+        chosen = {"obj": r.obj_ladder, "ocr": r.ocr_ladder}
+        expected = {}
+        n_buckets = len(self.buckets)
+        for axis, other in (("obj", "ocr"), ("ocr", "obj")):
+            best = None
+            for e in (plan.get(axis) or {}).get("ladders", []):
+                if e["expected_speedup"] < self._auto_min_speedup:
+                    continue
+                if n_buckets * (1 + len(e["rungs"])) * (1 + len(chosen[other])) \
+                        > self._max_executables:
+                    continue
+                if best is None or e["expected_speedup"] > best["expected_speedup"]:
+                    best = e
+            if best is not None:
+                chosen[axis] = tuple(best["rungs"])
+                expected[axis] = best["expected_speedup"]
+        return chosen["obj"], chosen["ocr"], expected
+
+    def _autotune_once(self, at_batch: int):
+        """Tuner-thread body: re-plan, warm every new cell at every bucket
+        (captured on the card) while live batches keep the old grid, then
+        swap the routing and log the adoption. Routing never changes
+        answers. A failure is logged and leaves the routing as it was."""
+        try:
+            obj_l, ocr_l, expected = self._pick_plan_ladders()
+            r = self._routing
+            if (obj_l, ocr_l) == (r.obj_ladder, r.ocr_ladder):
+                return
+            t0 = time.monotonic()
+            grid = self._build_grid(obj_l, ocr_l, reuse=r.grid)
+            new_cells = [c for c in grid if c not in r.grid]
+            zero = self._prepare(self._zero_sample())
+            with torch.no_grad():
+                for b in self.buckets:
+                    for ow, cw in new_cells:
+                        if self._stop.is_set():
+                            return
+                        self._warm(grid[(ow, cw)], b, ow, cw, zero)
+            if self._stop.is_set():
+                return
+            self._routing = _Routing(obj_l, ocr_l, grid)
+            event = {
+                "at_batch": at_batch, "obj_ladder": list(obj_l), "ocr_ladder": list(ocr_l),
+                "expected_speedup": {k: round(float(v), 3) for k, v in expected.items()},
+                "new_cells": len(new_cells), "warmup_s": round(time.monotonic() - t0, 2),
+            }
+            with self.stats.lock:
+                self.stats.autotune.append(event)
+            logger.info("auto-tune adopted %s", event)
+        except Exception:  # the tuner must never take serving down
+            logger.exception("serving auto-tune failed; routing unchanged")
 
     # ---- public API -----------------------------------------------------
 
@@ -220,13 +685,18 @@ class ServingEngine:
         out["ocr_tokens"] = ([str(t) for t in sample["ocr_tokens"]] + ["<pad>"] * n_ocr)[:n_ocr]
         return out
 
+    def _prepare(self, sample: Dict) -> Dict:
+        """A validated request with its features cast to the compute dtype
+        (CPU tensors; the OCR tokens kept)."""
+        return cast_features_for_transfer(self._validate(sample), self.model.dtype)
+
     def submit(self, sample: Dict) -> Future:
         """Enqueue one request; resolves to ``{"answer", "belongs_to",
         "latency_ms"}``. ``sample`` holds the SAMPLE_KEYS arrays plus an
-        ``ocr_tokens`` string list."""
+        ``ocr_tokens`` string list (see :func:`build_sample`)."""
         if self._stop.is_set():
             raise RuntimeError("engine is closed")
-        fut = _Pending(self._validate(sample))
+        fut = _Pending(self._prepare(sample))
         self.start()
         with self.stats.lock:
             if self.stats.started is None:
@@ -251,6 +721,8 @@ class ServingEngine:
         if self._threads_started:
             self._batcher.join(timeout=timeout)
             self._consumer.join(timeout=timeout)
+        if self._tuner is not None:
+            self._tuner.join(timeout=timeout)
         while True:  # fail anything still queued so no caller hangs
             try:
                 self._queue.get_nowait().set_exception(RuntimeError("engine closed"))
@@ -265,42 +737,90 @@ class ServingEngine:
 
     # ---- worker threads -------------------------------------------------
 
-    def _fail(self, group: List[_Pending], exc: BaseException):
+    def _resolve_group(self, group: List[_Pending], exc: BaseException):
+        """Fail a group's futures, or, for a group of several, queue each
+        request again for an isolated retry (a solo retry that fails is
+        failed alone). In-flight accounting stays with the caller."""
         for g in group:
-            if not g.done():
-                g.set_exception(exc)
+            if g.done():
+                continue
+            if len(group) > 1 and not g.solo and not self._stop.is_set():
+                g.solo = True
+                try:
+                    self._queue.put_nowait(g)
+                    continue
+                except Full:
+                    pass
+            g.set_exception(exc)
+
+    def _next_slot(self) -> Optional[int]:
+        """The next pinned staging slot, once its last copy has finished."""
+        if not self._graphs_on:
+            return None
+        slot = self._slot
+        self._slot = (slot + 1) % PIPELINE_DEPTH
+        if self._staged[slot] is not None:
+            self._staged[slot].synchronize()
+        return slot
 
     def _batch_loop(self):
         max_bucket = self.buckets[-1]
+        carry = None  # a solo retry popped while coalescing: batched next
         with torch.no_grad():  # grad mode is per thread
-            while not self._stop.is_set():
-                try:
-                    first = self._queue.get(timeout=0.05)
-                except Empty:
-                    continue
+            while True:
+                if carry is not None:
+                    # already popped: batch it even if stop was requested
+                    first, carry = carry, None
+                elif self._stop.is_set():
+                    break
+                else:
+                    try:
+                        first = self._queue.get(timeout=0.05)
+                    except Empty:
+                        continue
                 group = [first]
                 deadline = time.monotonic() + self.max_wait_s
-                while len(group) < max_bucket:
+                # a solo retry never shares a batch: a solo first coalesces
+                # nothing, and a solo popped while coalescing rides next
+                while not first.solo and len(group) < max_bucket:
                     remaining = deadline - time.monotonic()
                     if remaining <= 0 and self._queue.empty():
                         break
                     try:
-                        group.append(self._queue.get(timeout=max(remaining, 0)))
+                        nxt = self._queue.get(timeout=max(remaining, 0))
                     except Empty:
                         break
+                    if nxt.solo:
+                        carry = nxt
+                        break
+                    group.append(nxt)
                 with self.stats.lock:
                     self._inflight += len(group)
                 try:
                     bucket = self._pick_bucket(len(group))
-                    pred_ids = self._decode(self._stack([g.sample for g in group], bucket))
+                    samples = [g.sample for g in group]
+                    cell, obj_w, ocr_w = self._route_widths(samples)
+                    slot = self._next_slot()
+                    host = self._stack(samples, bucket, obj_w, ocr_w, slot)
+                    pred_ids, done = self._launch(cell, bucket, obj_w, ocr_w, host, slot)
                     with self.stats.lock:
-                        self.stats.batches += 1
-                        self.stats.padded_rows += bucket - len(group)
-                        self.stats.occupancy[bucket] = self.stats.occupancy.get(bucket, 0) + 1
-                    self._results.put((group, pred_ids, time.monotonic()))
-                except Exception as e:  # a bad batch fails its requests, serving goes on
+                        s = self.stats
+                        s.batches += 1
+                        s.padded_rows += bucket - len(group)
+                        s.occupancy[bucket] = s.occupancy.get(bucket, 0) + 1
+                        s.group_sizes[len(group)] = s.group_sizes.get(len(group), 0) + 1
+                        if ocr_w is not None:
+                            s.ocr_width_occupancy[ocr_w] = s.ocr_width_occupancy.get(ocr_w, 0) + 1
+                        if obj_w is not None:
+                            s.obj_width_occupancy[obj_w] = s.obj_width_occupancy.get(obj_w, 0) + 1
+                        n_batches = s.batches
+                    self._results.put((group, pred_ids, done, time.monotonic()))
+                    if self._auto_tune_every:
+                        self._maybe_autotune(n_batches)
+                except Exception as e:  # a bad batch: isolate or fail, serving goes on
                     logger.exception("decode failed for a batch of %d", len(group))
-                    self._fail(group, e)
+                    self._resolve_group(group, e)
+                    # resolved or queued again: no longer in flight
                     with self.stats.lock:
                         self._inflight -= len(group)
 
@@ -309,21 +829,31 @@ class ServingEngine:
         while not (self._stop.is_set() and not self._batcher.is_alive()
                    and self._results.empty()):
             try:
-                group, pred_ids, t_dispatch = self._results.get(timeout=0.05)
+                group, pred_ids, done, t_dispatch = self._results.get(timeout=0.05)
             except Empty:
                 continue
             try:
-                ids = pred_ids.cpu().numpy()  # waits for the device
+                if done is not None:
+                    done.synchronize()
+                ids = pred_ids.numpy()
                 decoded = decode_predictions(
                     ids[: len(group)], [g.sample["ocr_tokens"] for g in group],
                     self.answer_vocab.word_list, self.special.eos,
                 )
                 now = time.monotonic()
+                bucket = int(ids.shape[0])
                 with self.stats.lock:
                     self.stats.requests += len(group)
-                    self.stats.service_ms.append((now - t_dispatch) * 1000.0)
+                    svc = (now - t_dispatch) * 1000.0
+                    self.stats.service_ms.append(svc)
+                    self.stats.service_ms_by_bucket.setdefault(
+                        bucket, deque(maxlen=1024)).append(svc)
+                    per_bucket = self.stats.latencies_ms_by_bucket.setdefault(
+                        bucket, deque(maxlen=4096))
                     for g in group:
-                        self.stats.latencies_ms.append((now - g.t_submit) * 1000.0)
+                        ms = (now - g.t_submit) * 1000.0
+                        self.stats.latencies_ms.append(ms)
+                        per_bucket.append(ms)
                 for g, d in zip(group, decoded):
                     g.set_result({
                         "answer": d["pred_answer"],
@@ -332,7 +862,9 @@ class ServingEngine:
                     })
             except Exception as e:
                 logger.exception("answer decode failed for a batch of %d", len(group))
-                self._fail(group, e)
+                self._resolve_group(group, e)
             finally:
+                # every popped group leaves flight once (a solo retry counts
+                # again when the batcher pops it)
                 with self.stats.lock:
                     self._inflight -= len(group)

@@ -22,6 +22,7 @@ import torch
 
 from sam_textvqa_tpu_torch.config import task_config_from_dict
 from sam_textvqa_tpu_torch.data.synthetic import device_batch, make_batch
+from sam_textvqa_tpu_torch.evaluation.metrics import decode_predictions
 from sam_textvqa_tpu_torch.models.bert import split_heads
 from sam_textvqa_tpu_torch.models.fast_decode import greedy_decode_fast
 from sam_textvqa_tpu_torch.models.sa_m4c import SAM4C, SAM4CParams
@@ -506,3 +507,130 @@ def test_checkpoint_saved_on_card_restores_on_cpu(dev, tmp_path):
     state, metrics = make_train_step(cpu, cpu_opt)(restored["state"], cpu_batch,
                                                    torch.Generator().manual_seed(1))
     assert state.step == 2 and torch.isfinite(metrics["loss"]).item()
+
+
+# ---------------------------------------------------------------- serving graphs
+
+
+def _graph_engine(dev, backend="mega", **kw):
+    """A serving engine on the card over a 2-bucket x 2 x 2 grid (buckets 1
+    and 4, obj widths 4 and 8, OCR widths 3 and 6), weights drawn at std
+    0.1 so that the answers depend on the inputs."""
+    from sam_textvqa_tpu_torch.data.vocab import synthetic_vocab
+    from sam_textvqa_tpu_torch.serving.engine import ServingEngine
+
+    task = _train_task()
+    vocab = synthetic_vocab(40)
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, len(vocab)))
+    model.init_weights(torch.Generator().manual_seed(0), std=0.1)
+    engine = ServingEngine(model, vocab, buckets=(1, 4), decode_backend=backend, device=dev,
+                           obj_buckets=(4,), ocr_buckets=(3,), **kw)
+    return task, engine
+
+
+def _narrow_requests(engine, task, n, seed, obj=4, ocr=3):
+    """``n`` prepared requests with at most ``obj`` / ``ocr`` real rows."""
+    from sam_textvqa_tpu_torch.serve import synthetic_requests
+
+    out = []
+    for s in synthetic_requests(task, n, 40, seed):
+        for key, w in (("pad_obj_mask", obj), ("pad_ocr_mask", ocr)):
+            s[key] = np.array(s[key])
+            s[key][w:] = 0.0
+        out.append(engine._prepare(s))
+    return out
+
+
+def _replayed_and_eager(engine, key, bucket, samples, slot=0):
+    """(ids of the cell's graph replay, ids of the same batch decoded
+    eagerly) at grid cell ``key`` and ``bucket``."""
+    cell = engine._routing.grid[key]
+    ids, done = engine._launch(cell, bucket, *key, engine._stack(samples, bucket, *key, slot),
+                               slot)
+    done.synchronize()
+    host = engine._stack(samples, bucket, *key)
+    with torch.no_grad():
+        eager = engine._decode(cell.model, {k: v.to(engine.device) for k, v in host.items()})
+    return ids, eager.cpu()
+
+
+@pytest.mark.parametrize("backend", ["mega", "fused", "plain"])
+def test_graph_replay_ids_equal_eager_every_cell(dev, backend):
+    """f32: at every (bucket, obj width, OCR width) cell the graph's ids
+    equal the eager decode's, and every narrow cell's equal full width's."""
+    task, engine = _graph_engine(dev, backend)
+    engine.warmup()
+    counts = engine.graph_counts()
+    assert counts["graphs"] == engine.num_executables == 8 and counts["pool_bytes"] > 0
+    samples = _narrow_requests(engine, task, 4, seed=1)
+    for bucket in (1, 4):
+        by_cell = {}
+        for key in engine._routing.grid:
+            by_cell[key], eager = _replayed_and_eager(engine, key, bucket, samples[:bucket])
+            assert torch.equal(by_cell[key], eager), (key, bucket)
+        assert all(torch.equal(v, by_cell[(None, None)]) for v in by_cell.values()), bucket
+    assert len({tuple(r) for r in by_cell[(None, None)].tolist()}) > 1  # not one answer
+
+
+def test_graph_back_to_back_batches_keep_their_answers(dev):
+    """Two different batches replayed back to back on one cell (and a third
+    reusing the first staging slot) each get their own ids: the ids leave
+    the static output before the next replay overwrites it. The same
+    through submit()."""
+    task, engine = _graph_engine(dev, max_wait_ms=50.0)
+    engine.warmup()
+    batches = [_narrow_requests(engine, task, 4, seed=s) for s in (1, 2, 3)]
+    want = [_replayed_and_eager(engine, (4, 3), 4, b)[1] for b in batches]
+    assert not torch.equal(want[0], want[1])
+    cell = engine._routing.grid[(4, 3)]
+    launched = []
+    for b in batches:
+        slot = engine._next_slot()
+        launched.append(engine._launch(cell, 4, 4, 3, engine._stack(b, 4, 4, 3, slot), slot))
+    for (ids, done), w in zip(launched, want):
+        done.synchronize()
+        assert torch.equal(ids, w)
+    with engine:
+        futs = engine.submit_many([s for b in batches[:2] for s in b])
+        got = [f.result(timeout=60)["answer"] for f in futs]
+    words = engine.answer_vocab.word_list
+    ref = [d["pred_answer"] for w, b in zip(want[:2], batches[:2]) for d in decode_predictions(
+        w.numpy(), [s["ocr_tokens"] for s in b], words, engine.special.eos)]
+    assert got == ref
+
+
+def test_graph_replays_count_their_launches(dev):
+    """Replays add the launches recorded at capture: K1 and K3 counts after
+    serving equal recorded launches x replays, and are not zero."""
+    task, engine = _graph_engine(dev)
+    engine.warmup()
+    before = engine.graph_counts()["launches"]
+    cuda_build.reset_launch_counts()
+    with engine:
+        for f in engine.submit_many(_narrow_requests(engine, task, 9, seed=4)):
+            f.result(timeout=60)
+    launches = cuda_build.launch_counts()
+    after = engine.graph_counts()["launches"]
+    for name in ("spatial_attention", "decode_step"):
+        assert launches[name] == after[name] - before.get(name, 0) > 0, name
+    steps = task.mmt.num_decoding_steps
+    n_spatial = task.mmt.layer_type_list.count("s")
+    assert launches["decode_step"] * n_spatial == launches["spatial_attention"] * steps
+
+
+def test_failed_capture_raises(dev):
+    """A decode that cannot be captured (it reads the device from the host)
+    makes warmup raise; no cell is served eagerly instead."""
+    task, engine = _graph_engine(dev)
+    decode = engine._decode
+
+    def reads_the_device(model, batch):
+        ids = decode(model, batch)
+        ids.sum().item()
+        return ids
+
+    engine._decode = reads_the_device
+    with pytest.raises(RuntimeError):
+        engine.warmup()
+    assert engine.graph_counts()["graphs"] == 0
+    torch.cuda.synchronize()
