@@ -112,6 +112,30 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    versions at the (obj 50, OCR 10) cell at B = 32 (with phase 3's weights,
    on which phase 2's bars were set). It runs before phase 4
    too;
+8. data parallelism, before phase 4 too. 8a, two ranks sharing the card as
+   child processes (``--ddp-child``), calling the library: first an NCCL
+   group of the two on cuda:0 (NCCL refuses two ranks on one device; its
+   message is printed); then, over gloo on CUDA tensors, 3 f32 DDP steps of
+   c3 at dropout 0 (TF32 off) on 48 rows each, with ``grad_accum`` 1 and 2,
+   against 3 steps of this process on the whole batch of 96 from the same
+   weights, the batch's halves carrying different masked counts (loss rtol
+   1e-5, gradient norm rtol 1e-4, parameters within the reach of the Adam
+   steps taken, the ranks' parameters bit-identical after every step); the
+   time of one gloo all-reduce of the gradient's size (host-staged, not
+   NCCL's); one bf16 epoch of ``training.loop.train`` at batch 96 on
+   synthetic data with validation (K1 and K3 required in each rank's
+   validation, none in the train steps, equal validation accuracies, no
+   file of the run written by rank 1). 8b, the train CLI under ``python -m
+   torch.distributed.run --standalone --nproc_per_node 1`` with
+   ``--multihost`` over NCCL, in one process (``--torchrun-child``): first
+   phase 3b's bf16 train step at batch 96 without and with DDP, in turns
+   (the step ms DDP adds at world 1); then the CLI's ``main``, c3, bf16,
+   batch 96, ``--synthetic 480``, 2 epochs: the
+   loop's samples/s and peak memory beside phase 5's (what DDP costs at
+   world 1), K1 and K3 in validation and none in the train steps,
+   ``best_model`` restored ``strict=True`` into a plain ``SAM4C``, and 1
+   epoch plus a ``--resume``-d second under torchrun against the
+   uninterrupted run (largest parameter difference, no bar);
 4. after every timed phase, ``torch.profiler`` device time by kernel of one
    spatial-attention call (code pass and attention), of one bf16 decode
    step at batch 32 (its kernels by name with launch counts, so launches
@@ -121,13 +145,16 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    f32 the three backends must give identical ids and the full forward
    with the kernel attention must match the plain one;
 then JSON lines of the training path, of the train CLI, of the real-data
-run, of the server and of the kernels, and the result line ``{"ok": true, "device":
-{...}}``.
+run, of the server, of data parallelism and of the kernels, and the result
+line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --resume-check CONFIG DIR [DEVICE [MODE]]`` is that child
 (``MODE`` ``deterministic``, the default, or ``default``): it prints one JSON
 line. The parent sets the cuBLAS workspace variable for the deterministic
 child only, so the phases it times run as they ran before phase 5 existed.
+
+``--ddp-child SPEC`` and ``--torchrun-child OUT CONFIG [DEVICE]`` are
+phase 8's ranks.
 
 It imports nothing of JAX, and exits nonzero without a CUDA device.
 """
@@ -135,6 +162,8 @@ It imports nothing of JAX, and exits nonzero without a CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import hashlib
 import json
 import os
 import re
@@ -151,6 +180,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from sam_textvqa_tpu_torch import train as train_cli
@@ -166,6 +196,7 @@ from sam_textvqa_tpu_torch.models.sa_m4c import SAM4C, SAM4CParams
 from sam_textvqa_tpu_torch.models.fast_decode import (_mega_step_consts, _seg_lens,
                                                       build_mmt_cache, greedy_decode_fast)
 from sam_textvqa_tpu_torch.ops import cuda_build
+from sam_textvqa_tpu_torch.ops.batcher import cast_bf16
 from sam_textvqa_tpu_torch.ops.decode_attention import (decode_attention,
                                                         decode_attention_plain,
                                                         encoder_valid)
@@ -176,10 +207,12 @@ from sam_textvqa_tpu_torch.ops.fused_attention import (combined_permission,
                                                        spatial_attention_plain)
 from sam_textvqa_tpu_torch.ops.phoc import build_phoc_batch
 from sam_textvqa_tpu_torch.ops.spatial_graph import build_spatial_graph, relation_head_lut
+from sam_textvqa_tpu_torch.parallel.mesh import init_distributed, wrap_model
 from sam_textvqa_tpu_torch.serve import (build_model, build_vocab, run_demo,
                                          synthetic_requests)
 from sam_textvqa_tpu_torch.serving.engine import SAMPLE_KEYS, ServingEngine, build_sample
-from sam_textvqa_tpu_torch.training.optimizer import make_optimizer
+from sam_textvqa_tpu_torch.training.loop import train
+from sam_textvqa_tpu_torch.training.optimizer import lr_factor_schedule, make_optimizer
 from sam_textvqa_tpu_torch.training.step import (create_train_state, make_eval_step,
                                                  make_train_step)
 from sam_textvqa_tpu_torch.utils.checkpoint import restore_checkpoint
@@ -1721,6 +1754,438 @@ def f32_checks(task, vocab, model, batch, prev_ids) -> dict:
                 f32_forward_argmax_agreement=fwd_agree)
 
 
+# ---------------------------------------------------------------- phase 8
+
+DDP_WORLD = 2  # ranks sharing the one card over gloo (8a)
+DDP_STEPS = 3
+# the DDP step against one process on the whole batch, f32, TF32 off: the
+# loss and the gradient norm differ only by f32 summation order (phase 3b's
+# TRAIN_PARITY); parameters are held to the reach of the Adam steps taken
+DDP_PARITY = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-4}
+
+
+def params_digest(model) -> str:
+    h = hashlib.sha256()
+    for _, v in sorted(model.state_dict().items()):
+        h.update(v.detach().cpu().contiguous().numpy().data)
+    return h.hexdigest()
+
+
+def _audit_writes(writes: list) -> None:
+    """Record every file path this process opens for writing (outside
+    /dev, /proc and /sys) and every directory, rename or removal it
+    makes."""
+    def hook(event, args):
+        if event == "open":
+            path, mode, flags = args
+            writing = (mode is not None and any(c in mode for c in "wax+")) or (
+                mode is None and isinstance(flags, int)
+                and flags & (os.O_WRONLY | os.O_RDWR | os.O_CREAT))
+            if writing and not str(path).startswith(("/dev/", "/proc/", "/sys/")):
+                writes.append(str(path))
+        elif event in ("os.mkdir", "os.rename", "os.remove", "os.rmdir"):
+            writes.append(f"{event} {args[0]}")
+
+    sys.addaudithook(hook)
+
+
+def _ddp_batch(task, num_answers: int) -> dict:
+    """The global f32 parity batch (96 rows): the second half's rows keep
+    only their first two decoding steps, so the ranks' masked counts
+    differ."""
+    batch = make_batch(task, TRAIN_BATCH, seed=5, num_answers_vocab=num_answers)
+    batch["train_loss_mask"][TRAIN_BATCH // DDP_WORLD:, 2:] = 0
+    return batch
+
+
+def ddp_child(spec_path: str) -> int:
+    """``chip_smoke.py --ddp-child SPEC``: one rank of phase 8a, which
+    writes ``<dir>/<kind>_<rank>.json``. ``nccl``: join an NCCL group on
+    cuda:0 and all-reduce once (two ranks on one device: NCCL's answer is
+    the result). ``ddp``: over gloo on cuda:0, DDP_STEPS f32 DDP steps of c3
+    with ``grad_accum`` 1 and 2 on this rank's half of the parity batch,
+    the time of one gloo all-reduce of the model's gradient size, then one
+    bf16 epoch of ``training.loop.train`` with validation; rank 1 audits its
+    own writes."""
+    spec = json.loads(Path(spec_path).read_text())
+    out_dir, kind, rank = Path(spec["dir"]), spec["kind"], int(os.environ["RANK"])
+    result = out_dir / f"{kind}_{rank}.json"
+    if kind == "nccl":
+        try:
+            ctx = init_distributed(spec["device"], backend="nccl", timeout_s=60)
+            t = torch.ones(1, device=ctx.device)
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            out = {"refused": False, "sum": t.item()}
+        except (RuntimeError, ValueError) as e:  # NCCL's answer is what this child reports
+            out = {"refused": True, "error": type(e).__name__, "message": str(e)[-1500:]}
+        result.write_text(json.dumps(out))
+        os._exit(0)  # a refused communicator is not torn down cleanly
+    writes = []
+    if rank != 0:
+        _audit_writes(writes)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = init_distributed(spec["device"], backend="gloo", timeout_s=600)
+    task = load_task_config(spec["config"])
+    vocab = build_vocab(task)
+    num_answers = len(vocab)
+    task0 = without_dropout(task)
+    per = TRAIN_BATCH // ctx.world
+    batch = device_batch(_ddp_batch(task0, num_answers), ctx.device)
+    local = {k: v[ctx.rank * per:(ctx.rank + 1) * per] for k, v in batch.items()}
+    out = {"rank": ctx.rank, "world": ctx.world, "count": local["train_loss_mask"].sum().item()}
+    reference = (torch.load(out_dir / "reference.pt", map_location=ctx.device, weights_only=True)
+                 if ctx.is_main else None)
+    for accum in (1, 2):
+        model = build_model(task0, num_answers, torch.float32, seed=0, device=ctx.device)
+        optimizer = make_optimizer(model, task0)
+        step = make_train_step(wrap_model(model, ctx), optimizer, grad_accum=accum, ctx=ctx)
+        state = create_train_state(model, optimizer)
+        gen = torch.Generator(device=ctx.device).manual_seed(0)
+        run = {"losses": [], "norms": [], "digests": [], "step_ms": []}
+        for _ in range(DDP_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, local, gen)
+            run["losses"].append(metrics["loss"].item())
+            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["norms"].append(metrics["grad_norm"].item())
+            run["digests"].append(params_digest(model))
+        if reference is not None:
+            run["param_max_abs_err"] = max(max_err(v, reference[k])
+                                           for k, v in model.state_dict().items())
+        out[f"accum{accum}"] = run
+        numel = sum(p.numel() for p in model.parameters())
+        del model, optimizer, step, state
+    del reference
+    torch.cuda.empty_cache()
+
+    flat = torch.ones(numel, dtype=torch.float32, device=ctx.device)
+    dist.all_reduce(flat)
+    _sync(ctx.device)
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        _sync(ctx.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["gloo_all_reduce"] = dict(
+        bytes=numel * 4, ms=ms, median_ms=float(np.median(ms)),
+        what="one gloo all-reduce of the model's f32 gradient size between the two ranks: "
+             "host-staged (device to host, TCP on this host, host to device), not NCCL's")
+    del flat
+
+    model = build_model(task, num_answers, torch.bfloat16, seed=0, device=ctx.device)
+    workers = min(task.num_workers, os.cpu_count() or 1)
+    train_b = EpochBatcher(SyntheticDataset(task, CLI_SYNTHETIC, seed=0,
+                                            num_answers_vocab=num_answers), TRAIN_BATCH,
+                           seed=task.seed, num_workers=workers, process_index=ctx.rank,
+                           process_count=ctx.world)
+    val_b = EpochBatcher(SyntheticDataset(task, CLI_SYNTHETIC // 4, seed=1,
+                                          num_answers_vocab=num_answers), TRAIN_BATCH,
+                         shuffle=False, num_workers=workers, supervised=False)
+    history = []
+    t0 = time.monotonic()
+    train(task, model, train_b, val_b, vocab, save_dir=spec["save_dir"], num_epochs=1,
+          history=history, ctx=ctx)
+    out["loop"] = dict(history=history, wall_s=time.monotonic() - t0,
+                       peak_memory_bytes=_peak_memory(ctx.device))
+    out["writes"] = list(writes)
+    dist.destroy_process_group()
+    result.write_text(json.dumps(out))
+    return 0
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _peak_memory(device: torch.device):
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+
+
+def torchrun_child(out_path: str, config: str, device: str = None) -> int:
+    """``chip_smoke.py --torchrun-child OUT CONFIG [DEVICE]``, started by
+    ``torch.distributed.run --nproc_per_node 1`` (phase 8b), in this one
+    process: :func:`_step_cost`, then the train CLI's ``main --multihost``
+    (``CONFIG``'s ``output_dir``) for CLI_EPOCHS epochs, for 1 epoch, and
+    for CLI_EPOCHS with ``--resume``. Each joins and leaves its own process
+    group over torchrun's store; at world 1 no rank reads another's keys
+    there. Writes every result to OUT."""
+    out = {"step_cost": _step_cost(config, device)}
+
+    def run(tag, *extra):
+        gc.collect()  # the previous run's DDP module is in reference cycles
+        torch.cuda.empty_cache()
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        argv = ["--config", config, "--tag", tag, "--synthetic", str(CLI_SYNTHETIC),
+                "--batch_size", str(TRAIN_BATCH), "--dtype", "bf16", "--multihost", *extra]
+        if device is not None:  # the card is the default: cuda:<LOCAL_RANK>
+            argv += ["--device", device]
+        t0 = time.monotonic()
+        result = train_cli.main(argv)
+        dev = next(result["state"].model.parameters()).device
+        return dict(wall_s=time.monotonic() - t0, peak_memory_bytes=_peak_memory(dev),
+                    step=result["state"].step, history=result["history"],
+                    eval={s: r["accuracy"] for s, r in result["eval"].items()})
+
+    out["uninterrupted"] = run("world1", "--num_train_epochs", str(CLI_EPOCHS))
+    out["one_epoch"] = run("resumed", "--num_train_epochs", "1")
+    out["resumed"] = run("resumed", "--num_train_epochs", str(CLI_EPOCHS), "--resume")
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def _step_cost(config: str, device: str = None) -> dict:
+    """In a world-1 process group (NCCL on the card): phase 3b's bf16 train
+    step at batch 96 without DDP and under DDP, each on its own copy of the
+    weights, in turns (plain, DDP, DDP, plain) after TRAIN_WARMUP of each;
+    CUDA events per step on the card, as phase 3b times it."""
+    ctx = init_distributed(device)
+    task = load_task_config(config)
+    num_answers = len(build_vocab(task))
+    batch = device_batch(make_batch(task, TRAIN_BATCH, seed=3, num_answers_vocab=num_answers),
+                         ctx.device)
+    gen = torch.Generator(device=ctx.device).manual_seed(0)
+    runs = {}
+    for name in ("plain", "ddp"):
+        model = build_model(task, num_answers, torch.bfloat16, seed=0, device=ctx.device)
+        optimizer = make_optimizer(model, task)
+        net, step_ctx = (wrap_model(model, ctx), ctx) if name == "ddp" else (model, None)
+        runs[name] = {"step": make_train_step(net, optimizer, ctx=step_ctx),
+                      "state": create_train_state(model, optimizer), "ms": []}
+
+    def once(name):
+        run = runs[name]
+        if ctx.device.type != "cuda":  # a rehearsal on the CPU
+            t0 = time.perf_counter()
+            run["state"], _ = run["step"](run["state"], batch, gen)
+            run["ms"].append((time.perf_counter() - t0) * 1e3)
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run["state"], _ = run["step"](run["state"], batch, gen)
+        end.record()
+        end.synchronize()
+        run["ms"].append(start.elapsed_time(end))
+
+    for _ in range(TRAIN_WARMUP):
+        once("plain")
+        once("ddp")
+    for run in runs.values():
+        run["ms"].clear()
+    for _ in range(TRAIN_TIMED // 2):
+        for name in ("plain", "ddp", "ddp", "plain"):
+            once(name)
+    out = {name: dict(step_ms=run["ms"], median_ms=float(np.median(run["ms"])))
+           for name, run in runs.items()}
+    out["ddp_minus_plain_median_ms"] = out["ddp"]["median_ms"] - out["plain"]["median_ms"]
+    dist.destroy_process_group()
+    return out
+
+
+def run_group(cmd: list, timeout: float, log_path: Path) -> int:
+    """Run ``cmd`` in a session of its own, its output into ``log_path``;
+    on a timeout kill the whole session (children included) and raise."""
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            return proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+            raise AssertionError(f"{cmd[:6]} did not end within {timeout} s: "
+                                 f"{log_path.read_text()[-3000:]}")
+
+
+def _ranks(kind: str, tmp: Path, timeout: float, spec: dict) -> list:
+    """Start DDP_WORLD ranks of ``ddp_child`` with torchrun's environment
+    (both on ``spec["device"]``, cuda:0 on the card) and return their
+    results."""
+    spec_path = tmp / f"{kind}.json"
+    spec_path.write_text(json.dumps(dict(spec, kind=kind, dir=str(tmp))))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE=str(DDP_WORLD), LOCAL_RANK="0")
+    procs, logs = [], []
+    for r in range(DDP_WORLD):
+        logs.append(open(tmp / f"{kind}_{r}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--ddp-child", str(spec_path)],
+            env=dict(env, RANK=str(r)), stdout=logs[-1], stderr=subprocess.STDOUT,
+            start_new_session=True))
+    deadline = time.monotonic() + timeout
+    try:
+        codes = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=30)
+        for f in logs:
+            f.close()
+    tails = [(tmp / f"{kind}_{r}.log").read_text()[-3000:] for r in range(DDP_WORLD)]
+    if codes is None:
+        return [{"hung": True, "log": t} for t in tails]
+    if any(codes):
+        raise AssertionError(f"phase 8a {kind}: the ranks exited {codes}: {tails}")
+    return [json.loads((tmp / f"{kind}_{r}.json").read_text()) for r in range(DDP_WORLD)]
+
+
+def ddp_path(task, vocab, cli, dev=torch.device("cuda"), config_path=CONFIG) -> dict:
+    """Phase 8 (see the module docstring). ``cli`` is phase 5's result, the
+    same CLI run without DDP; ``config_path`` is ``task``'s file."""
+    import yaml
+
+    num_answers = len(vocab)
+    child = {"device": "cuda:0" if dev.type == "cuda" else "cpu", "config": str(config_path)}
+    cast_bf16(np.zeros(8, np.float32))  # the native host pass is built here, by no rank
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
+        tmp = Path(tmp)
+        # 8a: NCCL with two ranks on the one card
+        nccl = _ranks("nccl", tmp, 120, child)
+        out["nccl_two_ranks_one_card"] = nccl[0]
+        log(f"  NCCL, two ranks on cuda:0: {json.dumps(nccl[0])[:1200]}")
+
+        # 8a: the single-process reference, then the DDP ranks over gloo
+        task0 = without_dropout(task)
+        batch = device_batch(_ddp_batch(task0, num_answers), dev)
+        model = build_model(task0, num_answers, torch.float32, seed=0, device=dev)
+        optimizer = make_optimizer(model, task0)
+        step, state = make_train_step(model, optimizer), create_train_state(model, optimizer)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ref = {"losses": [], "norms": [], "step_ms": []}
+        for _ in range(DDP_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, gen)
+            ref["losses"].append(metrics["loss"].item())
+            ref["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            ref["norms"].append(metrics["grad_norm"].item())
+        torch.save(model.state_dict(), tmp / "reference.pt")
+        factor = lr_factor_schedule(task0)
+        reach = 2 * sum(task0.lr * factor(i) for i in range(DDP_STEPS))
+        del model, optimizer, step, state, batch
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        ranks = _ranks("ddp", tmp, 900, dict(child, save_dir=str(tmp / "loop")))
+        if any(r.get("hung") for r in ranks):
+            raise AssertionError(f"phase 8a: the gloo ranks hung: {ranks}")
+        parity = dict(batch=TRAIN_BATCH, per_rank=TRAIN_BATCH // DDP_WORLD, steps=DDP_STEPS,
+                      masked_counts=[r["count"] for r in ranks], single_process=ref,
+                      param_bar=reach, bars=DDP_PARITY, seconds=time.monotonic() - t0)
+        for accum in (1, 2):
+            r0, r1 = (r[f"accum{accum}"] for r in ranks)
+            row = dict(losses=r0["losses"], norms=r0["norms"], step_ms=[r0["step_ms"],
+                                                                       r1["step_ms"]],
+                       loss_rel_err=max(abs(a / b - 1) for a, b in zip(r0["losses"],
+                                                                        ref["losses"])),
+                       grad_norm_rel_err=max(abs(a / b - 1) for a, b in zip(r0["norms"],
+                                                                             ref["norms"])),
+                       param_max_abs_err=r0["param_max_abs_err"],
+                       ranks_bit_identical_every_step=r0["digests"] == r1["digests"])
+            parity[f"grad_accum_{accum}"] = row
+            if not (row["ranks_bit_identical_every_step"] and r0["losses"] == r1["losses"]
+                    and row["loss_rel_err"] <= DDP_PARITY["loss_rtol"]
+                    and row["grad_norm_rel_err"] <= DDP_PARITY["grad_norm_rtol"]
+                    and row["param_max_abs_err"] <= reach):
+                raise AssertionError(f"phase 8a: DDP (grad_accum {accum}) differs from one "
+                                     f"process on the whole batch: {row}")
+        if parity["masked_counts"][0] == parity["masked_counts"][1]:
+            raise AssertionError(f"the ranks' masked counts are equal: {parity['masked_counts']}")
+        out["ddp_f32_parity"] = parity
+        out["gloo_all_reduce"] = ranks[0]["gloo_all_reduce"]
+        log(f"  DDP f32 parity, 2 gloo ranks on one card: {json.dumps(parity)}")
+        log(f"  gloo all-reduce (host-staged, not NCCL): {json.dumps(out['gloo_all_reduce'])}")
+
+        loops = [r["loop"] for r in ranks]
+        for r, lp in enumerate(loops):
+            h = lp["history"][0]
+            require_launched(h["val_launches"], ("spatial_attention", "decode_step"),
+                             f"phase 8a rank {r} validation")
+            if any(h["train_launches"].values()):
+                raise AssertionError(f"rank {r}'s train steps launched kernels: "
+                                     f"{h['train_launches']}")
+        if loops[0]["history"][0]["val_accuracy"] != loops[1]["history"][0]["val_accuracy"]:
+            raise AssertionError(f"the ranks' validation accuracies differ: {loops}")
+        # rank 1 may not write where the run keeps its files (this phase's
+        # directory, the checkout); what torch itself creates elsewhere (its
+        # cache directories) is listed
+        ours = [w for w in ranks[1]["writes"] if str(tmp) in w or str(ROOT) in w]
+        if ours:
+            raise AssertionError(f"rank 1 wrote: {ours}")
+        saved = sorted(p.name for p in (tmp / "loop").iterdir())
+        if saved != ["best_model", "last_state"]:
+            raise AssertionError(f"the loop's directory holds {saved}")
+        out["ddp_bf16_loop"] = dict(ranks=loops, saved=saved, rank1_writes_of_the_run=ours,
+                                    rank1_writes_elsewhere=ranks[1]["writes"])
+        h = loops[0]["history"][0]
+        log(f"  DDP bf16 loop, 1 epoch ({h['steps']} steps of {TRAIN_BATCH}, "
+            f"{TRAIN_BATCH // DDP_WORLD} per rank): {h['samples_per_s']:.1f} samples/s "
+            f"(global); validation accuracy per rank "
+            f"{[lp['history'][0]['val_accuracy'] for lp in loops]}, launches "
+            f"{[lp['history'][0]['val_launches'] for lp in loops]}; rank 1 wrote nothing")
+
+        # 8b: under torchrun at world 1, over NCCL, in one process
+        raw = yaml.safe_load(Path(config_path).read_text())
+        raw["output_dir"] = str(tmp / "cli")
+        config = tmp / "c3.yml"
+        config.write_text(yaml.safe_dump(raw))
+        res = tmp / "torchrun.json"
+        code = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node", "1", str(Path(__file__).resolve()),
+                          "--torchrun-child", str(res), str(config)]
+                         + ([] if dev.type == "cuda" else [dev.type]), 900, tmp / "torchrun.log")
+        if code != 0:
+            raise AssertionError(f"the torchrun child exited {code}: "
+                                 f"{(tmp / 'torchrun.log').read_text()[-3000:]}")
+        child_out = json.loads(res.read_text())
+        out["ddp_step_cost_world1"] = sc = child_out["step_cost"]
+        log(f"  c3 bf16 train step at B={TRAIN_BATCH}, world 1 over NCCL, in turns: plain "
+            f"{sc['plain']['median_ms']:.2f} ms, DDP {sc['ddp']['median_ms']:.2f} ms (medians "
+            f"of {len(sc['plain']['step_ms'])})")
+        full, resumed = child_out["uninterrupted"], child_out["resumed"]
+        for h in full["history"]:
+            require_launched(h["val_launches"], ("spatial_attention", "decode_step"),
+                             f"torchrun CLI validation, epoch {h['epoch']}")
+            if any(h["train_launches"].values()) or h["world"] != 1:
+                raise AssertionError(f"torchrun CLI epoch: {h}")
+        plain = build_model(task, num_answers, torch.bfloat16, seed=0, device=dev)
+        plain.load_state_dict(restore_checkpoint(str(tmp / "cli" / "world1" / "best_model"),
+                                                 map_location=dev)["model_state_dict"],
+                              strict=True)
+        del plain
+        a = restore_checkpoint(str(tmp / "cli" / "world1" / "last_state"))["model_state_dict"]
+        b = restore_checkpoint(str(tmp / "cli" / "resumed" / "last_state"))["model_state_dict"]
+        out["torchrun_world1"] = dict(
+            epochs=full["history"], steps=full["step"], wall_s=full["wall_s"],
+            peak_memory_bytes=full["peak_memory_bytes"],
+            loop_samples_per_s=[h["samples_per_s"] for h in full["history"]],
+            phase5_loop_samples_per_s=cli["train"]["loop_samples_per_s"],
+            phase5_peak_memory_bytes=cli["train"]["peak_memory_bytes"],
+            final_eval=full["eval"], best_model_restores_strict_into_plain_sam4c=True,
+            resume=dict(step=resumed["step"], uninterrupted_step=full["step"],
+                        resumed_epochs=[h["epoch"] for h in resumed["history"]],
+                        max_abs_diff=max(max_err(a[k], b[k]) for k in a),
+                        bit_identical=all(torch.equal(a[k], b[k]) for k in a)))
+        if resumed["step"] != full["step"]:
+            raise AssertionError(f"the resumed torchrun run took other steps: {out}")
+        t1 = out["torchrun_world1"]
+        log(f"  torchrun CLI, world 1: loop {[round(x, 1) for x in t1['loop_samples_per_s']]}"
+            f" samples/s against phase 5's {[round(x, 1) for x in t1['phase5_loop_samples_per_s']]}"
+            f"; peak memory {t1['peak_memory_bytes']} B against "
+            f"{t1['phase5_peak_memory_bytes']}; resume {json.dumps(t1['resume'])}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1786,6 +2251,9 @@ def main() -> int:
     log("== phase 7: the server (c3, obj ladder 50, OCR ladder 10,25, one CUDA graph per cell; "
         "in-process f32 and bf16, TCP f32)")
     server, served = server_path(task, vocab, model, gen)
+    log("== phase 8: data parallelism (8a: NCCL on one card; 2 gloo ranks on one card, f32 "
+        "parity and a bf16 loop epoch; 8b: the train CLI under torchrun, world 1, NCCL)")
+    parallel = ddp_path(task, vocab, cli)
     # profiles come after every timed phase, so that no timing runs after
     # the profiler has been started in this process
     log("== phase 4: device profiles (K1 call, K3 step at B=32, B=32 bf16 mega decode, "
@@ -1839,12 +2307,17 @@ def main() -> int:
             "kernel_eval_step_launches": training["eval"]["kernel_launches"][name],
             "server_graph_launches": {dt: server[dt]["in_process"]["launches"][name]
                                       for dt in ("float32", "bfloat16")},
+            "ddp_rank_val_launches": [r["history"][0]["val_launches"][name]
+                                      for r in parallel["ddp_bf16_loop"]["ranks"]],
+            "torchrun_cli_val_launches": parallel["torchrun_world1"]["epochs"][-1][
+                "val_launches"][name],
             "parity": "ok", **res,
         })
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"train_cli": cli}), flush=True)
     print(json.dumps({"real_data": real}), flush=True)
     print(json.dumps({"server": server}), flush=True)
+    print(json.dumps({"parallel": parallel}), flush=True)
     log(f"total seconds: {time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1856,4 +2329,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-check"]:
         sys.exit(resume_child(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--ddp-child"]:
+        sys.exit(ddp_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--torchrun-child"]:
+        sys.exit(torchrun_child(*sys.argv[2:5]))
     sys.exit(main())

@@ -16,10 +16,11 @@ JAX package:
 
 The packed arrays use compact dtypes (PHOC bit-packed, fastText float16,
 spatial classes int8); region features come from a :class:`FeatureSource`
-at batch time, kept in memory after their first read (the reference's
-``in_memory=True``). :class:`EpochBatcher` serves epochs of any dataset
-with ``get_batch`` (also :class:`~.synthetic.SyntheticDataset`), bit-equal
-to the JAX package's batches.
+at batch time, kept in memory after their first read up to a bound (the
+reference's ``in_memory=True`` has none). :class:`EpochBatcher` serves
+epochs of any dataset with ``get_batch`` (also
+:class:`~.synthetic.SyntheticDataset`), process-sliced for data
+parallelism, bit-equal to the JAX package's batches.
 """
 
 from __future__ import annotations
@@ -28,15 +29,19 @@ import json
 import logging
 import os
 import secrets
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from ..config import TaskConfig
 from ..ops.batcher import gather_rows
 from ..ops.phoc import PHOC_DIM, build_phoc_batch
 from ..ops.spatial_graph import build_spatial_graph
+from ..parallel.mesh import barrier, is_distributed
 from .features import FeatureSource, pad_features
 from .processors import (AnswerMatch, BertQuestionProcessor, FastTextProcessor,
                          M4CAnswerProcessor, word_cleaner)
@@ -103,37 +108,62 @@ class PackedEntries:
         return self.question_indices.shape[0]
 
 
+#: the default bound of :class:`SAMDataset`'s feature cache, per process:
+#: about 3,400 c3 images, so TextVQA's whole val split (3,166) stays cached
+FEATURE_CACHE_BYTES = 4 << 30
+
+
 class SAMDataset:
     """One split of TextVQA or ST-VQA, preprocessed and served in batches.
 
-    With ``in_memory_features`` (the default, as in the JAX package and the
-    reference) each image's padded features stay in memory after their first
-    read, without a bound: about 1.2 MB per image at c3."""
+    Each image's padded features stay in memory after their first read (as
+    in the JAX package and the reference's ``in_memory=True``), in a
+    least-recently-used cache of at most ``feature_cache_bytes`` (about
+    1.23 MB per image at c3; 0 keeps nothing). The bound holds per process:
+    under data parallelism each rank keeps its own cache."""
 
     def __init__(self, task_cfg: TaskConfig, packed: PackedEntries,
                  obj_source: FeatureSource, ocr_source: FeatureSource,
-                 answer_processor: M4CAnswerProcessor, in_memory_features: bool = True):
+                 answer_processor: M4CAnswerProcessor,
+                 feature_cache_bytes: int = FEATURE_CACHE_BYTES):
         self.cfg = task_cfg
         self.packed = packed
         self.obj_source = obj_source
         self.ocr_source = ocr_source
         self.answer_processor = answer_processor
-        self._feat_cache: Optional[Dict[Tuple[str, str], Tuple[np.ndarray, ...]]] = (
-            {} if in_memory_features else None)
+        self.feature_cache_bytes = feature_cache_bytes
+        self._feat_cache: "OrderedDict[Tuple[str, str], Tuple[np.ndarray, ...]]" = OrderedDict()
+        self._feat_cache_nbytes = 0
+        # EpochBatcher's worker threads read features concurrently
+        self._feat_lock = threading.Lock()
 
     def __len__(self) -> int:
         return len(self.packed)
 
+    @property
+    def cached_feature_bytes(self) -> int:
+        return self._feat_cache_nbytes
+
     def _features(self, kind: str, image_id: str):
         key = (kind, image_id)
-        if self._feat_cache is not None and key in self._feat_cache:
-            return self._feat_cache[key]
+        with self._feat_lock:
+            out = self._feat_cache.get(key)
+            if out is not None:
+                self._feat_cache.move_to_end(key)
+                return out
         source = self.obj_source if kind == "obj" else self.ocr_source
         max_num = self.cfg.mmt.max_obj_num if kind == "obj" else self.cfg.mmt.max_ocr_num
         feats, boxes = source.get(image_id)
         out = pad_features(feats, boxes, max_num)
-        if self._feat_cache is not None:
-            self._feat_cache[key] = out
+        nbytes = sum(a.nbytes for a in out)
+        if nbytes <= self.feature_cache_bytes:
+            with self._feat_lock:
+                if key not in self._feat_cache:
+                    self._feat_cache[key] = out
+                    self._feat_cache_nbytes += nbytes
+                    while self._feat_cache_nbytes > self.feature_cache_bytes:
+                        _, old = self._feat_cache.popitem(last=False)
+                        self._feat_cache_nbytes -= sum(a.nbytes for a in old)
         return out
 
     def get_batch(self, indices: Sequence[int],
@@ -268,19 +298,37 @@ def preprocess_split(task_cfg: TaskConfig, entries: List[Dict], tokenizer,
     spatial graphs, with the native PHOC and spatial-graph passes (their
     Python versions with ``native=False``). With ``cache_path`` (and not
     ``debug``), the result is cached in the port's format beside it
-    (:func:`cache_files`) and reused by later runs.
+    (:func:`cache_files`) and reused by later runs. In a process group of
+    several ranks, rank 0 loads or builds and writes the cache while the
+    others wait at a barrier, then load what it wrote.
 
     The spatial graphs need the padded obj+OCR boxes: each entry carries
     ``_pad_joint_boxes`` (N_joint, 4), put there by :func:`build_dataset`."""
-    n = len(entries)
-    key = _cache_key(task_cfg, n, fasttext.dim)
-    use_cache = bool(cache_path) and not task_cfg.debug
-    if use_cache:
-        cached = load_packed(cache_path, key)
-        if cached is not None:
-            logger.info("loaded preprocessed cache %s", cache_files(cache_path)[0])
-            return cached
+    key = _cache_key(task_cfg, len(entries), fasttext.dim)
+    if not cache_path or task_cfg.debug:
+        return _build_packed(task_cfg, entries, tokenizer, fasttext, answer_processor, native)
+    ranks = is_distributed() and dist.get_world_size() > 1
+    if ranks and dist.get_rank() != 0:
+        barrier()  # rank 0 writes the cache first
+        packed = load_packed(cache_path, key)
+        if packed is None:
+            raise RuntimeError(f"rank 0 left no preprocess cache at {cache_files(cache_path)[0]}")
+        return packed
+    packed = load_packed(cache_path, key)
+    if packed is not None:
+        logger.info("loaded preprocessed cache %s", cache_files(cache_path)[0])
+    else:
+        packed = _build_packed(task_cfg, entries, tokenizer, fasttext, answer_processor, native)
+        save_packed(cache_path, packed, key)
+    if ranks:
+        barrier()  # the cache is whole: release the other ranks
+    return packed
 
+
+def _build_packed(task_cfg: TaskConfig, entries: List[Dict], tokenizer,
+                  fasttext: FastTextProcessor, answer_processor: M4CAnswerProcessor,
+                  native: bool) -> PackedEntries:
+    n = len(entries)
     q_proc = BertQuestionProcessor(tokenizer, task_cfg.mmt.max_seq_length)
     n_ocr = task_cfg.mmt.max_ocr_num
     n_joint = task_cfg.mmt.max_obj_num + n_ocr
@@ -332,8 +380,6 @@ def preprocess_split(task_cfg: TaskConfig, entries: List[Dict], tokenizer,
             packed.spatial_classes[s:s + chunk] = build_spatial_graph(
                 joint_boxes[s:s + chunk], task_cfg.distance_threshold, native=native)
 
-    if use_cache:
-        save_packed(cache_path, packed, key)
     return packed
 
 
@@ -431,9 +477,16 @@ class EpochBatcher:
     ``num_workers > 0`` assembles batches in a thread pool (numpy copies
     release the GIL), order preserved, at most ``num_workers + 2`` batches
     ahead. Each row draws its targets from its own RNG stream seeded by
-    (seed, epoch, batch index, row), so batches are the same at any worker
-    count. ``supervised=False`` builds no training targets (decode-only
-    eval). ``epoch`` counts the epochs served; a resumed run sets it.
+    (seed, epoch, batch index, global row position), so batches are the
+    same at any worker count and any process slicing. ``supervised=False``
+    builds no training targets (decode-only eval). ``epoch`` counts the
+    epochs served; a resumed run sets it.
+
+    ``process_index`` / ``process_count`` slice the input per process (JAX
+    ``data/dataset.py:412-500``): every process computes the same global
+    epoch order but assembles only its contiguous ``batch_size /
+    process_count`` rows of each batch, with ``_real_count`` clipped to its
+    slice; the slices of one batch concatenate to the unsliced batch.
     """
 
     def __init__(
@@ -445,7 +498,14 @@ class EpochBatcher:
         pad_final: bool = True,
         num_workers: int = 0,
         supervised: bool = True,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} is not in [0, {process_count})")
+        if process_count > 1 and (batch_size % process_count or not pad_final):
+            raise ValueError(f"process slicing needs fixed batches that split evenly: batch "
+                             f"{batch_size}, {process_count} processes, pad_final {pad_final}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -453,6 +513,8 @@ class EpochBatcher:
         self.pad_final = pad_final
         self.num_workers = num_workers
         self.supervised = supervised
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -479,12 +541,19 @@ class EpochBatcher:
 
     def _assemble(self, epoch: int, spec):
         bi, idx, real = spec
+        lo = 0
+        if self.process_count > 1:
+            per = len(idx) // self.process_count
+            lo = self.process_index * per
+            idx = idx[lo:lo + per]
+            real = int(np.clip(real - lo, 0, per))
         rng = None
         if self.supervised:
             base = (self.seed * 1_000_003 + epoch * 9_973 + bi) % (2**31 - 1)
+            # one stream per global row position: slicing-invariant targets
             rng = [
                 np.random.RandomState((base + 7_919 * pos) % (2**31 - 1))
-                for pos in range(len(idx))
+                for pos in range(lo, lo + len(idx))
             ]
         batch = self.dataset.get_batch(idx.tolist(), rng)
         batch["_real_count"] = real

@@ -1,0 +1,161 @@
+"""Process group and data parallelism (JAX package ``parallel/mesh.py``).
+
+The reference trains on several GPUs with single-process
+``nn.DataParallel`` (reference train.py:111-112); the JAX package shards
+the batch over a mesh's ``data`` axis and lets XLA all-reduce the
+gradients. Here it is one process per GPU, launched by ``torchrun``: each
+process assembles only its own rows of every global batch
+(``EpochBatcher(process_index=, process_count=)``) and
+``DistributedDataParallel`` all-reduces the gradients, so each update is
+the one a single process computes on the whole global batch
+(``training/step.py``).
+
+One device per process: the kernels keep their raised shared-memory limit
+in a process-wide ``static`` and ``cudaFuncSetAttribute`` acts on the
+current device, so :func:`init_distributed` calls ``torch.cuda.set_device``
+before any CUDA work and :func:`wrap_model` refuses a model on another
+device. Tensor parallelism (the JAX package's ``_TP_RULES``) is ROADMAP
+queue 1, item 9b.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from datetime import timedelta
+from typing import Optional, Sequence, Union
+
+import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
+
+#: what ``torchrun`` sets in each process it starts
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+@dataclass(frozen=True)
+class DistContext:
+    """This process's place in the process group."""
+
+    rank: int
+    world: int
+    local_rank: int
+    device: torch.device
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0, the only process that writes files."""
+        return self.rank == 0
+
+
+def missing_torchrun_env() -> list:
+    """The variables of :data:`TORCHRUN_ENV` that are not set."""
+    return [k for k in TORCHRUN_ENV if k not in os.environ]
+
+
+def env_world_size() -> int:
+    """``WORLD_SIZE`` as torchrun set it (1 without torchrun)."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def is_distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def init_distributed(device: Optional[Union[str, torch.device]] = None,
+                     backend: Optional[str] = None,
+                     timeout_s: float = 1800.0) -> DistContext:
+    """Join the process group that ``torchrun`` describes in the
+    environment (:data:`TORCHRUN_ENV`). The device defaults to
+    ``cuda:<LOCAL_RANK>`` (a bare ``cuda`` gets that index too) and becomes
+    the current device before anything else touches CUDA; the backend is
+    ``nccl`` for a CUDA device and ``gloo`` for the CPU unless named.
+    ``timeout_s`` bounds every collective: one that times out raises, and
+    so does one whose peer died."""
+    missing = missing_torchrun_env()
+    if missing:
+        raise RuntimeError(f"no torchrun environment ({', '.join(missing)} unset): launch "
+                           "with torchrun --nproc_per_node N ...")
+    rank, world, local = (int(os.environ[k]) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"))
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on "
+                               "the CPU")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    bind = {"device_id": device} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world,
+                            timeout=timedelta(seconds=timeout_s), **bind)
+    return DistContext(rank=rank, world=world, local_rank=local, device=device)
+
+
+def wrap_model(model: torch.nn.Module, ctx: DistContext) -> DistributedDataParallel:
+    """``model`` under DDP, at every world size (1 included, so that a
+    world-1 run takes the same path). Every parameter must get a gradient
+    in each step: DDP runs without ``find_unused_parameters``."""
+    device = next(model.parameters()).device
+    if device != ctx.device:
+        raise ValueError(f"the model is on {device}, this process on {ctx.device}")
+    if device.type == "cuda" and device.index != torch.cuda.current_device():
+        raise ValueError(f"the model is on {device} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}: one device per process, "
+                         "made current by init_distributed")
+    return DistributedDataParallel(model, device_ids=[device.index] if device.type == "cuda"
+                                   else None)
+
+
+def barrier() -> None:
+    """Wait until every rank of the process group gets here (nothing to
+    wait for without one)."""
+    if not is_distributed():
+        return
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+def all_reduce_scalars(values: Sequence, device, async_op: bool = False):
+    """Sum a few scalars (numbers or 0-d tensors) over the ranks as one f32
+    tensor on ``device``, one collective for all of them. Returns the
+    tensor; with ``async_op``, ``(tensor, work)``, and ``work.wait()`` must
+    come before the tensor is read."""
+    if all(isinstance(v, (int, float, bool)) for v in values):
+        t = torch.tensor([float(v) for v in values], dtype=torch.float32)
+        # a copy from pageable memory would wait for the device's queue
+        t = (t.pin_memory().to(device, non_blocking=True) if torch.device(device).type == "cuda"
+             else t.to(device))
+    else:
+        t = torch.stack([torch.as_tensor(v, device=device).float() for v in values])
+    work = dist.all_reduce(t, op=dist.ReduceOp.SUM, async_op=async_op)
+    return (t, work) if async_op else t
+
+
+def broadcast_scalar(value: float, ctx: DistContext, src: int = 0) -> float:
+    """Rank ``src``'s ``value`` on every rank (float64, so it arrives
+    exactly)."""
+    t = torch.tensor([value], dtype=torch.float64, device=ctx.device)
+    dist.broadcast(t, src=src)
+    return t.item()
+
+
+def check_batch(batch_size: int, world: int, grad_accum: int) -> None:
+    """Raise ``ValueError`` unless the global batch splits evenly over the
+    ``world`` processes and each process's rows into ``grad_accum``
+    microbatches (the JAX package's ``training/step.py:56`` checks only
+    the second, and its train CLI falls back to assembling the whole batch
+    in every process, which under DDP would train on ``world`` copies)."""
+    if world < 1 or grad_accum < 1:
+        raise ValueError(f"world {world} and grad_accum {grad_accum} must be at least 1")
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} does not split over {world} processes: "
+                         f"pick a multiple of {world}")
+    if (batch_size // world) % grad_accum:
+        raise ValueError(f"each process's {batch_size // world} rows do not split into "
+                         f"{grad_accum} microbatches: pick a batch_size that is a multiple "
+                         f"of {world * grad_accum}")

@@ -54,8 +54,8 @@ logger = logging.getLogger("serve")
 #: JAX flags not ported yet: (flag, its default, the ROADMAP queue 1 item)
 UNPORTED = (
     ("beam_size", 1, "item 5, beam search"),
-    ("model_parallel", 1, "item 9, multi-GPU"),
-    ("data_parallel", 0, "item 9, multi-GPU"),
+    ("model_parallel", 1, "item 9b, tensor parallelism"),
+    ("data_parallel", 0, "item 9b, multi-device serving"),
     ("artifact", None, "item 10, AOT artifacts"),
     ("compile_cache", None, "item 11, the compile cache"),
 )

@@ -6,6 +6,8 @@ JAX package's root ``train.py``; reference train.py:28-47)::
     python -m sam_textvqa_tpu_torch.train --config ... --tag run1 \\
         --pretrained_eval save/run1/best_model
     python -m sam_textvqa_tpu_torch.train --config ... --tag syn --synthetic 480
+    torchrun --standalone --nproc_per_node 8 -m sam_textvqa_tpu_torch.train \\
+        --config ... --tag dp8 --multihost
 
 Writes ``command.txt``, ``best_model``, ``last_state`` and
 ``evalai_{val,test}.json`` under ``<output_dir>/<tag>`` (``output_dir`` from
@@ -24,6 +26,13 @@ cached beside its configured ``*_spatial_cache`` path in the port's own
 format. ``--synthetic N`` trains on N deterministic synthetic samples
 instead (validation and test on N/4 each, at least one batch). The model
 starts from random weights drawn from ``--seed``.
+
+``--multihost`` trains data-parallel in every process that ``torchrun``
+starts (one per GPU, ``cuda:<LOCAL_RANK>``; ``--device cpu`` runs the ranks
+on the CPU over gloo): each process assembles its ``batch_size / world``
+rows of every global batch and DDP all-reduces the gradients, so an update
+is the global batch's. Every rank validates; rank 0 alone writes
+``command.txt``, the checkpoints and the evaluation files.
 JAX flags that this port does not cover yet are refused with the ROADMAP
 item that covers them.
 """
@@ -39,6 +48,7 @@ import random
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import load_task_config
 from .data.dataset import ConcatDataset, EpochBatcher, build_dataset
@@ -46,6 +56,8 @@ from .data.features import open_feature_source
 from .data.processors import FastTextProcessor, SimpleWordpieceTokenizer, load_bert_tokenizer
 from .data.synthetic import SyntheticDataset
 from .evaluation.evaluator import Evaluator
+from .parallel.mesh import (barrier, check_batch, env_world_size, init_distributed,
+                            missing_torchrun_env)
 from .serve import build_model, build_vocab
 from .training.loop import train
 from .utils.checkpoint import init_text_bert_from_bert_base, restore_checkpoint
@@ -58,8 +70,7 @@ UNPORTED = (
     ("beam_size", 1, "item 5, beam search"),
     ("ocr_bucket", None, "item 7, the evaluator's width ladders"),
     ("obj_bucket", None, "item 7, the evaluator's width ladders"),
-    ("model_parallel", 1, "item 9, multi-GPU"),
-    ("multihost", False, "item 9, multi-GPU"),
+    ("model_parallel", 1, "item 9b, tensor parallelism"),
     ("dropout_reuse", False, "item 1, dropout_mask_reuse"),
     ("compile_cache", None, "item 11, the compile cache"),
 )
@@ -94,13 +105,15 @@ def _parser() -> argparse.ArgumentParser:
                    help="spatial attention of deterministic full forwards (the train "
                         "steps run the plain one with dropout, and the greedy decode "
                         "follows --decode_backend)")
-    p.add_argument("--device", default=None, help="default: cuda")
+    p.add_argument("--device", default=None,
+                   help="default: cuda (cuda:<LOCAL_RANK> with --multihost)")
+    p.add_argument("--multihost", action="store_true",
+                   help="data-parallel training in each process torchrun starts")
     # JAX flags refused unless left at their defaults (UNPORTED)
     p.add_argument("--beam_size", type=int, default=1)
     p.add_argument("--ocr_bucket", type=_ladder, default=None, metavar="N[,N...]")
     p.add_argument("--obj_bucket", type=_ladder, default=None, metavar="N[,N...]")
     p.add_argument("--model_parallel", type=int, default=1)
-    p.add_argument("--multihost", action="store_true")
     p.add_argument("--dropout_reuse", action="store_true")
     p.add_argument("--compile_cache", default=None, metavar="DIR")
     return p
@@ -115,6 +128,13 @@ def get_args(argv=None):
     if args.decode_backend in UNPORTED_DECODE_BACKENDS:
         parser.error(f"--decode_backend {args.decode_backend} is not ported yet "
                      f"(ROADMAP queue 1, {UNPORTED_DECODE_BACKENDS[args.decode_backend]})")
+    if args.multihost and missing_torchrun_env():
+        parser.error(f"--multihost needs torchrun's environment "
+                     f"({', '.join(missing_torchrun_env())} unset): launch with torchrun "
+                     "--nproc_per_node N -m sam_textvqa_tpu_torch.train ... --multihost")
+    if not args.multihost and env_world_size() > 1:
+        parser.error(f"WORLD_SIZE is {env_world_size()}: pass --multihost, or each process "
+                     "would train alone and write the same output directory")
     return args
 
 
@@ -186,10 +206,12 @@ def build_real_splits(task_cfg, vocab):
     return splits
 
 
-def build_datasets(task_cfg, args, vocab):
+def build_datasets(task_cfg, args, vocab, ctx=None):
     """(train, val, test) batchers, None for a missing val or test split:
     ``--synthetic`` data, or the configured files (exits with the JAX CLI's
-    message when the train split's imdb files are missing)."""
+    message when the train split's imdb files are missing). Under a process
+    group (``ctx``) the train batcher serves this rank's slice of each
+    batch; validation and test are not sliced."""
     batch_size = args.batch_size or task_cfg.batch_size
     if args.synthetic:
         n = args.synthetic
@@ -212,9 +234,11 @@ def build_datasets(task_cfg, args, vocab):
     def batcher(ds, training):
         if ds is None:
             return None
+        sliced = {} if ctx is None or not training else dict(process_index=ctx.rank,
+                                                                 process_count=ctx.world)
         return EpochBatcher(ds, batch_size, shuffle=training,
                             seed=task_cfg.seed if training else 0, num_workers=workers,
-                            supervised=training)  # val/test decode only
+                            supervised=training, **sliced)  # val/test decode only
 
     return (batcher(splits["train"], True), batcher(splits["val"], False),
             batcher(splits["test"], False))
@@ -252,12 +276,27 @@ def _evaluate(evaluator, batchers, task_cfg, out_dir):
 def main(argv=None) -> dict:
     """Run the CLI; returns ``{"eval": {split: run_split result}}`` and, when
     it trained, ``"state"`` (the final ``TrainState``) and ``"history"``
-    (one dict per epoch, ``training.loop.train``)."""
-    logging.basicConfig(format="%(asctime)s - %(levelname)s - %(name)s - %(message)s",
-                        level=logging.INFO)
+    (one dict per epoch, ``training.loop.train``). With ``--multihost``,
+    ranks other than 0 return no evaluation."""
     args = get_args(argv)
-    device = resolve_device(args.device)
     task_cfg = load_task_config(args.config)
+    world = env_world_size() if args.multihost else 1
+    check_batch(args.batch_size or task_cfg.batch_size, world, args.grad_accum)
+    ctx = init_distributed(args.device) if args.multihost else None
+    logging.basicConfig(format="%(asctime)s - %(levelname)s - %(name)s - %(message)s",
+                        level=logging.INFO if ctx is None or ctx.is_main else logging.WARNING)
+    try:
+        result = _run(args, task_cfg, ctx)
+        barrier()  # the ranks leave together, after rank 0's evaluation
+        return result
+    finally:
+        if ctx is not None:
+            dist.destroy_process_group()
+
+
+def _run(args, task_cfg, ctx) -> dict:
+    device = resolve_device(args.device) if ctx is None else ctx.device
+    main_rank = ctx is None or ctx.is_main
     seed = args.seed if args.seed is not None else task_cfg.seed
     if seed != task_cfg.seed:
         task_cfg = dataclasses.replace(task_cfg, seed=seed)
@@ -265,18 +304,19 @@ def main(argv=None) -> dict:
     np.random.seed(seed)
 
     save_path = os.path.join(task_cfg.output_dir, args.tag)
-    os.makedirs(save_path, exist_ok=True)
-    with open(os.path.join(save_path, "command.txt"), "w") as f:
-        print(f"Command Line:\n{vars(args)}\n", file=f)
-        print(f"Config File:\n{task_cfg}\n", file=f)
+    if main_rank:
+        os.makedirs(save_path, exist_ok=True)
+        with open(os.path.join(save_path, "command.txt"), "w") as f:
+            print(f"Command Line:\n{vars(args)}\n", file=f)
+            print(f"Config File:\n{task_cfg}\n", file=f)
 
     vocab = build_vocab(task_cfg)
-    train_batcher, val_batcher, test_batcher = build_datasets(task_cfg, args, vocab)
+    train_batcher, val_batcher, test_batcher = build_datasets(task_cfg, args, vocab, ctx)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     model = build_model(task_cfg, len(vocab), dtype, seed, device)
     model.mmt.attention_backend = args.attention_backend
-    logger.info("device %s, training parameters: %d", device,
-                sum(p.numel() for p in model.parameters()))
+    logger.info("device %s, world %d, training parameters: %d", device,
+                1 if ctx is None else ctx.world, sum(p.numel() for p in model.parameters()))
 
     if task_cfg.mmt.frcn_encoder_type == "finetune_faster_rcnn_fpn_fc7":
         wf, bf = task_cfg.mmt.detectron_weights_file, task_cfg.mmt.detectron_bias_file
@@ -298,6 +338,8 @@ def main(argv=None) -> dict:
                           decode_backend=args.decode_backend)
     eval_batchers = [(s, b) for s, b in (("test", test_batcher), ("val", val_batcher)) if b]
     if args.pretrained_eval:
+        if not main_rank:
+            return {"eval": {}}
         restored = restore_checkpoint(args.pretrained_eval, map_location=device)
         model.load_state_dict(restored["model_state_dict"], strict=True)
         out_dir = os.path.dirname(args.pretrained_eval.rstrip("/"))
@@ -308,11 +350,12 @@ def main(argv=None) -> dict:
         task_cfg, model, train_batcher, val_batcher, vocab, save_dir=save_path,
         num_epochs=args.num_train_epochs, seed=seed, resume=args.resume,
         max_steps=args.max_steps, grad_accum=args.grad_accum,
-        decode_backend=args.decode_backend, history=history,
+        decode_backend=args.decode_backend, history=history, ctx=ctx,
     )
     # final eval with the trained weights (reference train.py:215-225)
     return {"state": state, "history": history,
-            "eval": _evaluate(evaluator, eval_batchers, task_cfg, save_path)}
+            "eval": _evaluate(evaluator, eval_batchers, task_cfg, save_path) if main_rank
+            else {}}
 
 
 if __name__ == "__main__":

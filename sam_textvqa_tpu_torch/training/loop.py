@@ -17,6 +17,11 @@ As in the JAX package:
   with the number of the epoch's batches consumed (``meta["batches_done"]``)
   and the loop returns; a resume skips those batches of that epoch, where
   the JAX package's loop trains them again.
+
+With a process group (``ctx``, the counterpart of the JAX loop's mesh
+branch, its ``training/loop.py:111-150, 203-230``) every rank runs this
+loop on its slice of each global batch under DDP; only rank 0 writes, and
+every rank takes the same decisions (checkpoints, best model, stop).
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ from ..data.prefetch import prefetch_to_device
 from ..evaluation.evaluator import Evaluator
 from ..evaluation.metrics import decode_predictions
 from ..ops import cuda_build
+from ..parallel.mesh import (DistContext, all_reduce_scalars, barrier, broadcast_scalar,
+                             wrap_model)
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from .optimizer import make_optimizer
 from .step import TrainState, create_train_state, make_train_step
@@ -87,10 +94,48 @@ def _launch_delta(before: Dict[str, int]) -> Dict[str, int]:
     return {k: now[k] - before.get(k, 0) for k in now}
 
 
-def _timed_save(path: str, state: TrainState, epoch_id: int, val_score: float):
-    t0 = time.monotonic()
-    nbytes = save_checkpoint(path, state, epoch_id=epoch_id, val_score=val_score)
-    return nbytes, time.monotonic() - t0
+def _timed_save(path: str, state: TrainState, ctx: Optional[DistContext], **meta):
+    """Rank 0 writes the checkpoint; then every rank waits at a barrier, so
+    that none runs ahead of a half-written file. Returns (bytes, seconds)
+    on rank 0, (None, None) on the others."""
+    out = None, None
+    if ctx is None or ctx.is_main:
+        t0 = time.monotonic()
+        nbytes = save_checkpoint(path, state, **meta)
+        out = nbytes, time.monotonic() - t0
+    barrier()
+    return out
+
+
+class _StopVote:
+    """Whether any rank caught SIGTERM/SIGINT, and how many real samples the
+    step trained over all ranks, agreed by every rank one step late: each
+    step's vote is an asynchronous all-reduce of (this rank's flag, its real
+    rows), read at the next step, so the host never waits for the step it
+    has just queued, and every rank stops after the same step. Without a
+    process group a vote is read at once."""
+
+    def __init__(self, ctx: Optional[DistContext], device):
+        self.ctx, self.device, self.pending = ctx, device, None
+
+    def cast(self, flag: bool, samples: int):
+        """Vote for this step. Returns (stop, samples) of the step before
+        (of this one without a process group)."""
+        if self.ctx is None:
+            return flag, samples
+        previous = self.result()
+        self.pending = all_reduce_scalars([flag, samples], self.device, async_op=True)
+        return previous
+
+    def result(self):
+        """(stop, samples) of the outstanding vote, waited for; (False, 0)
+        when none is."""
+        if self.pending is None:
+            return False, 0
+        (votes, work), self.pending = self.pending, None
+        work.wait()
+        stop, samples = votes.tolist()
+        return stop > 0, int(samples)
 
 
 def train(
@@ -108,6 +153,7 @@ def train(
     grad_accum: int = 1,
     decode_backend: str = "auto",
     history: Optional[List[Dict]] = None,
+    ctx: Optional[DistContext] = None,
 ) -> TrainState:
     """Train ``model`` (on its parameters' device) for ``num_epochs`` epochs,
     validating after each through the :class:`Evaluator` (``decode_backend``)
@@ -120,14 +166,31 @@ def train(
     seconds of the training part (from the first batch to the epoch's
     loss fetch) and its samples/s, the validation accuracy, seconds and
     samples/s, the kernel launches of each part, and the bytes and seconds
-    of each checkpoint saved."""
+    of each checkpoint saved.
+
+    With ``ctx`` (``parallel.mesh.init_distributed``) ``model`` trains under
+    DDP on ``ctx.device``: ``train_batcher`` must be sliced for this rank
+    (``process_index``, ``process_count``), each update is the global
+    batch's, every rank validates the unwrapped model over the whole split
+    (as JAX does) and takes rank 0's score for the best-model decision, only
+    rank 0 saves (a barrier follows each save), and a SIGTERM/SIGINT to any
+    rank stops every rank after the same step. ``history`` then counts the
+    samples of all ranks and records the world size; its
+    ``val_accuracy`` is this rank's own."""
     device = next(model.parameters()).device
+    if ctx is not None:
+        sliced = (getattr(train_batcher, "process_index", 0),
+                  getattr(train_batcher, "process_count", 1))
+        if sliced != (ctx.rank, ctx.world):
+            raise ValueError(f"rank {ctx.rank} of {ctx.world} needs a train batcher sliced "
+                             f"for it (process_index, process_count), not {sliced}")
     optimizer = make_optimizer(model, task_cfg)
     state = create_train_state(model, optimizer)
     start_epoch, skip = 0, 0
     best_val_score, best_val_step = -1.0, -1
 
-    os.makedirs(save_dir, exist_ok=True)
+    if ctx is None or ctx.is_main:
+        os.makedirs(save_dir, exist_ok=True)
     ckpt_path = os.path.join(save_dir, "best_model")
     resume_path = os.path.join(save_dir, "last_state")
     if resume and os.path.exists(resume_path):
@@ -145,7 +208,8 @@ def train(
         logger.info("resumed from %s at step %d epoch %d batch %d", resume_path, state.step,
                     start_epoch, skip)
 
-    train_step = make_train_step(model, optimizer, grad_accum=grad_accum)
+    net = model if ctx is None else wrap_model(model, ctx)
+    train_step = make_train_step(net, optimizer, grad_accum=grad_accum, ctx=ctx)
     generator = torch.Generator().manual_seed(seed)
     evaluator = Evaluator(model, answer_vocab, metric=task_cfg.metric,
                           decode_backend=decode_backend)
@@ -166,13 +230,22 @@ def train(
         # question ids stay on the host
         return {("_question_id" if k == "question_id" else k): v for k, v in batch.items()}
 
+    vote = _StopVote(ctx, device)
+
+    def stop_saving(epoch_id, batches_done):
+        # the epoch is incomplete: a resume continues it at its next batch
+        _timed_save(resume_path, state, ctx, epoch_id=epoch_id - 1, val_score=best_val_score,
+                    batches_done=batches_done)
+        logger.info("interrupted at step %d; last_state saved", state.step)
+        return state
+
     try:
         for epoch_id in range(start_epoch, num_epochs):
-            record = {"epoch": epoch_id}
+            record = {"epoch": epoch_id, "world": 1 if ctx is None else ctx.world}
             launches = cuda_build.launch_counts()
             t_epoch = t_window = time.monotonic()
             losses, epoch_losses, samples, samples_window, steps = [], [], 0, 0, 0
-            stop = False
+            stop, done = False, skip
             batches = prefetch_to_device(
                 (host_side(b) for b in train_batcher.epoch_batches(skip=skip)), device,
                 size=2, feature_dtype=model.dtype)
@@ -181,8 +254,10 @@ def train(
                     state, metrics = train_step(state, _device_view(batch), generator)
                     losses.append(metrics["loss"])
                     epoch_losses.append(metrics["loss"])
-                    real = batch.get("_real_count", len(batch["_answers"]))
-                    samples, samples_window, steps = samples + real, samples_window + real, steps + 1
+                    interrupted_before, real = vote.cast(
+                        interrupted.is_set(), batch.get("_real_count", len(batch["_answers"])))
+                    samples, samples_window = samples + real, samples_window + real
+                    steps, done = steps + 1, it + 1
                     if it % log_every == 0 and it != 0:
                         acc = _batch_accuracy(metrics["pred_ids"], batch, answer_vocab, eos,
                                               evaluator.metric_evaluator)
@@ -192,16 +267,16 @@ def train(
                                     epoch_id, it, loss, acc,
                                     samples_window / (time.monotonic() - t_window))
                         losses, t_window, samples_window = [], time.monotonic(), 0
-                    if interrupted.is_set():
-                        # the epoch is incomplete: a resume continues it at
-                        # its next batch
-                        save_checkpoint(resume_path, state, epoch_id=epoch_id - 1,
-                                        val_score=best_val_score, batches_done=it + 1)
-                        logger.info("interrupted at step %d; last_state saved", state.step)
-                        return state
+                    if interrupted_before:
+                        vote.result()
+                        return stop_saving(epoch_id, done)
                     if max_steps is not None and state.step >= max_steps:
                         stop = True
                         break
+            interrupted_last, real = vote.result()
+            samples += real
+            if interrupted_last:
+                return stop_saving(epoch_id, done)
             skip = 0
             if epoch_losses:
                 record["loss"] = _mean_loss(epoch_losses, f"the end of epoch {epoch_id}")
@@ -210,14 +285,16 @@ def train(
                           samples_per_s=samples / train_s if train_s > 0 else None,
                           train_launches=_launch_delta(launches))
 
-            # per-epoch validation (reference train.py:162-171)
+            # per-epoch validation (reference train.py:162-171), on every rank
+            # over the whole split (JAX train.py:259-263)
             if val_batcher is not None:
                 launches = cuda_build.launch_counts()
                 t0 = time.monotonic()
                 result = evaluator.run_split(val_batcher.epoch_batches())
                 val_s = time.monotonic() - t0
-                val_score = result["accuracy"] if result["accuracy"] is not None else 0.0
-                record.update(val_accuracy=val_score, val_s=val_s,
+                own_score = result["accuracy"] if result["accuracy"] is not None else 0.0
+                val_score = own_score if ctx is None else broadcast_scalar(own_score, ctx)
+                record.update(val_accuracy=own_score, val_s=val_s,
                               val_samples=len(result["predictions"]),
                               val_samples_per_s=len(result["predictions"]) / val_s,
                               val_launches=_launch_delta(launches))
@@ -226,10 +303,10 @@ def train(
                 if val_score > best_val_score:
                     best_val_score, best_val_step = val_score, state.step
                     record["best_model_bytes"], record["best_model_save_s"] = _timed_save(
-                        ckpt_path, state, epoch_id, val_score)
+                        ckpt_path, state, ctx, epoch_id=epoch_id, val_score=val_score)
                     logger.info("saved best checkpoint to %s", ckpt_path)
             record["last_state_bytes"], record["last_state_save_s"] = _timed_save(
-                resume_path, state, epoch_id, best_val_score)
+                resume_path, state, ctx, epoch_id=epoch_id, val_score=best_val_score)
             if history is not None:
                 history.append(record)
             if stop:

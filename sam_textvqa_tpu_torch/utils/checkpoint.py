@@ -26,6 +26,8 @@ from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 
 def _bert_layer_map(dst: Tuple[str, ...], src: str) -> Dict[Tuple[str, ...], str]:
@@ -139,25 +141,37 @@ def state_dict_from_jax(
 CHECKPOINT_FORMAT = "sam_textvqa_tpu_torch/1"
 
 
+def _inner(model: torch.nn.Module) -> torch.nn.Module:
+    """The module a ``DistributedDataParallel`` wraps, or ``model``."""
+    return model.module if isinstance(model, DistributedDataParallel) else model
+
+
 def save_checkpoint(path: str, state, *, epoch_id: int, val_score: float,
                     batches_done: int = 0) -> int:
     """Write ``state`` (a ``training.step.TrainState``) to the file ``path``:
     the model's ``state_dict``, the optimizer's and the schedule's state,
     the step and the meta (``epoch_id``, the last whole epoch;
     ``batches_done``, the batches of the next epoch already trained). The
-    file is written under a temporary name, flushed to disk and renamed over
-    ``path``, so an interruption during the save leaves the previous
-    checkpoint whole. Returns its size in bytes."""
+    file is written under a temporary name of this process, flushed to disk
+    and renamed over ``path``, so an interruption during the save leaves the
+    previous checkpoint whole. Returns its size in bytes.
+
+    A ``DistributedDataParallel`` model is saved as its inner module, with
+    no ``module.`` prefix, so data-parallel and single-process checkpoints
+    stand in for each other. In a process group only rank 0 may save: on
+    any other rank this raises."""
+    if dist.is_available() and dist.is_initialized() and dist.get_rank() != 0:
+        raise RuntimeError(f"rank {dist.get_rank()} may not write {path}: only rank 0 saves")
     payload = {
         "format": CHECKPOINT_FORMAT,
         "step": int(state.step),
-        "model_state_dict": state.model.state_dict(),
+        "model_state_dict": _inner(state.model).state_dict(),
         "optimizer_state_dict": state.optimizer.adam.state_dict(),
         "scheduler_state_dict": state.optimizer.scheduler.state_dict(),
         "meta": {"epoch_id": int(epoch_id), "val_score": float(val_score),
                  "batches_done": int(batches_done)},
     }
-    tmp = f"{path}.tmp"
+    tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "wb") as f:
         torch.save(payload, f)
         f.flush()
@@ -186,7 +200,7 @@ def restore_checkpoint(path: str, state=None, map_location: Any = "cpu") -> Dict
         if not ours:
             raise ValueError(f"{path} holds no optimizer state to resume from "
                              "(a reference checkpoint restores the model only)")
-        state.model.load_state_dict(sd, strict=True)
+        _inner(state.model).load_state_dict(sd, strict=True)
         adam = state.optimizer.adam
         # the implementation flags follow this optimizer's device, not the
         # saving one's (fused Adam on the card, another on the CPU)

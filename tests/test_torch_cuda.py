@@ -32,7 +32,7 @@ from sam_textvqa_tpu_torch.ops.decode_step import (WEIGHT_NAMES, decode_step_fus
                                                    decode_step_plain)
 from sam_textvqa_tpu_torch.ops.fused_attention import spatial_attention, spatial_attention_plain
 from sam_textvqa_tpu_torch.ops.spatial_graph import build_spatial_graph, relation_head_lut
-from sam_textvqa_tpu_torch.training.optimizer import make_optimizer
+from sam_textvqa_tpu_torch.training.optimizer import lr_factor_schedule, make_optimizer
 from sam_textvqa_tpu_torch.training.step import (create_train_state, make_eval_step,
                                                  make_train_step)
 
@@ -337,6 +337,59 @@ def test_eval_step_kernel_backend_launches_k1(dev):
     assert launched == task.mmt.layer_type_list.count("s")
     assert out["loss"].item() == pytest.approx(plain["loss"].item(), rel=1e-5)
     assert torch.equal(out["pred_ids"], plain["pred_ids"])
+
+
+def test_ddp_two_gloo_ranks_share_the_card(dev, tmp_path):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device), f32, dropout 0, TF32 off: ``STEPS`` DDP steps with
+    ``grad_accum`` 1 and 2 against as many single-process steps on the
+    whole batch of 8, whose halves carry different masked counts. The
+    ranks' parameters are bit-identical after every step; loss rtol 1e-5,
+    gradient norm rtol 1e-4, parameters within the reach of the Adam steps
+    taken on each side (twice the sum of lr times the schedule's factor:
+    elements whose gradient is float noise move that far, either way)."""
+    from test_torch_parallel import NUM_ANSWERS, STEPS, run_workers, wait_workers
+
+    zero = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    raw = {"SA-M4C": dict(hidden_size=128, intermediate_size=256, ptr_query_size=128,
+                          max_obj_num=8, max_ocr_num=6, num_decoding_steps=4, max_seq_length=6,
+                          num_attention_heads=2, num_spatial_relations=2, obj_drop=0.0,
+                          ocr_drop=0.0, **zero),
+           "TextBERT": dict(num_hidden_layers=1, hidden_size=128, intermediate_size=256,
+                            num_attention_heads=2, **zero)}
+    task = task_config_from_dict(raw)
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, NUM_ANSWERS))
+    model.init_weights(torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), tmp_path / "weights.pt")
+    batch = make_batch(task, 8, seed=2, num_answers_vocab=NUM_ANSWERS)
+    batch["train_loss_mask"][4:, 1:] = 0
+    np.savez(tmp_path / "batch.npz", **{k: v for k, v in batch.items() if not k.startswith("_")})
+    proc = run_workers(dict(raw=raw, device="cuda:0", accum=[1, 2], parts=[]), tmp_path)
+    try:
+        model = model.to(dev)
+        optimizer = make_optimizer(model, task)
+        step, state = make_train_step(model, optimizer), create_train_state(model, optimizer)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        losses, norms = [], []
+        for _ in range(STEPS):
+            state, metrics = step(state, device_batch(batch, dev), gen)
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+    finally:
+        ranks, _ = wait_workers(proc, tmp_path)
+    counts = [r["accum1"]["count"] for r in ranks]
+    assert counts[0] != counts[1]
+    factor = lr_factor_schedule(task)
+    reach = 2 * sum(task.lr * factor(i) for i in range(STEPS))
+    for accum in (1, 2):
+        r0, r1 = (r[f"accum{accum}"] for r in ranks)
+        assert r0["digests"] == r1["digests"] and r0["losses"] == r1["losses"]
+        np.testing.assert_allclose(r0["losses"], losses, rtol=1e-5)
+        np.testing.assert_allclose(r0["norms"], norms, rtol=1e-4)
+        with np.load(tmp_path / f"params_accum{accum}_rank0.npz") as z:
+            worst = max(np.abs(z[k] - v.detach().cpu().numpy()).max()
+                        for k, v in model.state_dict().items())
+        assert worst <= reach, (accum, worst, reach)
 
 
 # ---------------------------------------------------------------- train loop pieces

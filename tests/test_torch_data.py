@@ -219,6 +219,72 @@ def test_batches_equal_jax(files):
     assert any("<pad>" not in toks for toks in mine.packed.ocr_tokens)
 
 
+def test_feature_cache_is_bounded_and_batches_stay_bit_equal(files):
+    """The feature cache is an LRU bounded in bytes: with a budget of three
+    images' features it evicts (also under 3 worker threads) and never
+    holds more than the budget, with no budget it holds nothing, and at the
+    default it keeps every image; batches are bit-equal to JAX's cold, warm
+    and evicting."""
+    dset, paths = files
+    raw = raw_config(paths, dset)
+    ref = jax_split(raw, dset, "train")
+    ref_batches = [epoch(ref, jax_dataset.EpochBatcher, t) for t in (True, False)]
+    ds = port_split(raw, dset, "train", cache=False)
+    images = sorted(set(ds.packed.image_ids))
+    per_image = sum(a.nbytes for kind in ("obj", "ocr") for a in ds._features(kind, images[0]))
+    for budget in (0, 3 * per_image, dataset.FEATURE_CACHE_BYTES):
+        ds = port_split(raw, dset, "train", cache=False)
+        ds.feature_cache_bytes = budget
+        for _ in range(2):  # cold, then warm (or evicting)
+            for training, want in zip((True, False), ref_batches):
+                got = list(dataset.EpochBatcher(ds, BATCH, shuffle=training, seed=3,
+                                                supervised=training,
+                                                num_workers=3).epoch_batches())
+                assert_batches_equal(got, want)
+                assert ds.cached_feature_bytes <= budget
+        held = sum(a.nbytes for out in ds._feat_cache.values() for a in out)
+        assert held == ds.cached_feature_bytes
+        if budget == 0:
+            assert held == 0
+        elif budget < dataset.FEATURE_CACHE_BYTES:
+            assert 0 < len(ds._feat_cache) < 2 * len(images)  # it evicted
+        else:
+            assert len(ds._feat_cache) == 2 * len(images)  # obj and OCR of each image
+
+
+def test_preprocess_cache_is_written_by_rank_0_only(files, tmp_path, monkeypatch):
+    """In a process group of 2 (simulated here), rank 0 builds and writes
+    the preprocess cache and then releases the barrier; rank 1 waits at it
+    first, builds nothing and loads what rank 0 wrote (bit-equal batches);
+    without rank 0's cache rank 1 raises."""
+    dset, paths = files
+    raw = raw_config(dict(paths, cache=tmp_path / "cache_{}.pkl"), dset)
+    events, build = [], dataset._build_packed
+
+    def counted_build(*a, **kw):
+        events.append("build")
+        return build(*a, **kw)
+
+    rank = {"r": 1}
+    monkeypatch.setattr(dataset, "is_distributed", lambda: True)
+    monkeypatch.setattr(dataset.dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(dataset.dist, "get_rank", lambda: rank["r"])
+    monkeypatch.setattr(dataset, "barrier", lambda: events.append(f"barrier {rank['r']}"))
+    monkeypatch.setattr(dataset, "_build_packed", counted_build)
+    with pytest.raises(RuntimeError, match="rank 0 left no preprocess cache"):
+        port_split(raw, dset, "train")
+    assert events == ["barrier 1"]
+    rank["r"], events[:] = 0, []
+    first = port_split(raw, dset, "train")
+    assert events == ["build", "barrier 0"]
+    rank["r"], events[:] = 1, []
+    second = port_split(raw, dset, "train")
+    assert events == ["barrier 1"]
+    for training in (True, False):
+        assert_batches_equal(epoch(second, dataset.EpochBatcher, training),
+                             epoch(first, dataset.EpochBatcher, training))
+
+
 class _Bomb:
     """Unpickling this raises: a stand-in for any foreign pickle."""
 

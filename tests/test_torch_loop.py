@@ -386,19 +386,21 @@ def test_cli_train_resume_and_pretrained_eval(cli_config):
     (["--beam_size", "2"], "item 5"),
     (["--ocr_bucket", "20,50"], "item 7"),
     (["--obj_bucket", "50"], "item 7"),
-    (["--model_parallel", "2"], "item 9"),
-    (["--multihost"], "item 9"),
+    (["--model_parallel", "2"], "item 9b"),
+    (["--multihost"], "torchrun"),  # ported: refused without torchrun's environment
     (["--dropout_reuse"], "item 1"),
     (["--compile_cache", "cache"], "item 11"),
     (["--decode_backend", "xla_early"], "item 4"),
     (["--decode_backend", "xla_flat"], "item 4"),
 ])
-def test_cli_refuses_unported_flags(flags, item, capsys):
+def test_cli_refuses_unported_flags(flags, item, capsys, monkeypatch):
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit) as exc:
         train_cli.get_args(["--config", "c.yml", *flags])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "not ported yet" in err and item in err
+    assert item in err and ("not ported yet" in err) == (item != "torchrun")
 
 
 def test_cli_device_and_data_checks(cli_config, monkeypatch, tmp_path):

@@ -550,8 +550,8 @@ def test_server_cli_drains_on_sigterm(env, tmp_path):
     (["--decode_backend", "policy"], "item 4"),
     (["--decode_backend", "xla_early"], "item 4"),
     (["--decode_backend", "xla_flat"], "item 4"),
-    (["--model_parallel", "2"], "item 9"),
-    (["--data_parallel", "2"], "item 9"),
+    (["--model_parallel", "2"], "item 9b"),
+    (["--data_parallel", "2"], "item 9b"),
     (["--artifact", "exported"], "item 10"),
     (["--compile_cache", "cache"], "item 11"),
     ([], "pick a mode"),
