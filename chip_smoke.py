@@ -136,6 +136,22 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    ``best_model`` restored ``strict=True`` into a plain ``SAM4C``, and 1
    epoch plus a ``--resume``-d second under torchrun against the
    uninterrupted run (largest parameter difference, no bar);
+9. multi-device serving, before phase 4 too, on the card repeated (one
+   card's compute shared: the path and its cost, not speed across cards).
+   9a, K1 and K2 at a tensor-parallel shard's shapes against their plain
+   versions in f32 and bf16 within phase 2's bars, with phase 2's times,
+   bounds and SDPA times: K1 on 6 of the 12 spatial heads with shard 1's
+   LUT columns 6..11, K2 384 wide (tp 2) and 192 wide (tp 4). 9b, c3 at
+   std 0.1 over buckets (2, 8, 32), in f32 and bf16: one device, then dp 2
+   on ``[cuda:0, cuda:0]``, tp 2 on the same list and dp 2 x tp 2 on four
+   entries, each answering the 64 requests from 8 threads with the launch
+   counts zeroed before and read after (dp: K1 and K3; tp: K1 and K2, no
+   K3), its ids of a B=2 and a B=32 batch (f32: identical to one device's;
+   bf16: the agreement printed), decode ms of those batches, samples/s,
+   p50/p95, graphs and capture seconds. 9c, the serve CLI as subprocesses:
+   ``--device cuda:0,cuda:0 --data_parallel 2`` must exit 0 and log
+   ``dp=2 x tp=1``, ``--model_parallel 3`` must exit nonzero with "must
+   divide";
 4. after every timed phase, ``torch.profiler`` device time by kernel of one
    spatial-attention call (code pass and attention), of one bf16 decode
    step at batch 32 (its kernels by name with launch counts, so launches
@@ -145,8 +161,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    f32 the three backends must give identical ids and the full forward
    with the kernel attention must match the plain one;
 then JSON lines of the training path, of the train CLI, of the real-data
-run, of the server, of data parallelism and of the kernels, and the result
-line ``{"ok": true, "device": {...}}``.
+run, of the server, of data parallelism, of multi-device serving and of
+the kernels, and the result line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --resume-check CONFIG DIR [DEVICE [MODE]]`` is that child
 (``MODE`` ``deterministic``, the default, or ``default``): it prints one JSON
@@ -411,12 +427,16 @@ def rand(gen, *shape, dtype=torch.float32, dev="cuda"):
 
 # ---------------------------------------------------------------- phase 2
 
-def bench_spatial_attention(task, batch, gen) -> dict:
+def bench_spatial_attention(task, batch, gen, heads: int = None, first_head: int = 0) -> dict:
+    """K1 at c3's shapes, or at a tensor-parallel shard's: ``heads`` of the
+    spatial heads from ``first_head`` on, with those heads' LUT columns
+    (phase 9a)."""
     mmt = task.mmt
-    h, d = mmt.num_spatial_relations, mmt.hidden_size // mmt.num_spatial_relations
+    h, d = heads or mmt.num_spatial_relations, mmt.hidden_size // mmt.num_spatial_relations
     q_len, n_ctx = mmt.max_seq_length, mmt.max_obj_num + mmt.max_ocr_num
     classes = batch["spatial_classes"]
-    lut = torch.tensor(relation_head_lut("3")[:, :h], dtype=torch.float32, device="cuda")
+    lut = torch.tensor(relation_head_lut("3")[:, first_head:first_head + h],
+                       dtype=torch.float32, device="cuda")
     enc_mask = torch.cat([batch["question_mask"], batch["pad_obj_mask"],
                           batch["pad_ocr_mask"]], dim=1).float()
     b = enc_mask.shape[0]
@@ -478,10 +498,12 @@ def _n_valid(seg, t):
     return int(seg.sum().item()) + seg.shape[0] * (t + 1)
 
 
-def bench_decode_attention(task, seg, gen) -> dict:
+def bench_decode_attention(task, seg, gen, d: int = None) -> dict:
+    """K2 at c3's width, or at a tensor-parallel shard's ``d`` columns
+    (phase 9a), in heads of c3's head dim."""
     mmt = task.mmt
-    d, t_max = mmt.hidden_size, mmt.num_decoding_steps
-    hd = d // mmt.num_attention_heads
+    hd = mmt.hidden_size // mmt.num_attention_heads
+    d, t_max = d or mmt.hidden_size, mmt.num_decoding_steps
     q_len, n_obj = mmt.max_seq_length, mmt.max_obj_num
     le = q_len + n_obj + mmt.max_ocr_num
     b = seg.shape[0]
@@ -1460,12 +1482,9 @@ def graph_parity(engine, samples, strict: bool, f32_ids=None):
     return out, full_ids
 
 
-def in_process_serving(engine, samples) -> dict:
+def flood(engine, samples):
     """``SERVER_CLIENTS`` threads submit every request (closed-loop flood)
-    and wait; the launch counts are zeroed before and read after, and must
-    equal the launches recorded in the replayed graphs."""
-    before = engine.graph_counts()["launches"]
-    cuda_build.reset_launch_counts()
+    and wait: (the results in request order, wall seconds)."""
     futs = [None] * len(samples)
 
     def client(c):
@@ -1478,8 +1497,18 @@ def in_process_serving(engine, samples) -> dict:
         t.start()
     for t in threads:
         t.join(SOCKET_TIMEOUT)
-    answers = [f.result(timeout=SOCKET_TIMEOUT)["answer"] for f in futs]
-    wall = time.monotonic() - t0
+    results = [f.result(timeout=SOCKET_TIMEOUT) for f in futs]
+    return results, time.monotonic() - t0
+
+
+def in_process_serving(engine, samples) -> dict:
+    """``SERVER_CLIENTS`` threads submit every request (closed-loop flood)
+    and wait; the launch counts are zeroed before and read after, and must
+    equal the launches recorded in the replayed graphs."""
+    before = engine.graph_counts()["launches"]
+    cuda_build.reset_launch_counts()
+    results, wall = flood(engine, samples)
+    answers = [r["answer"] for r in results]
     torch.cuda.synchronize()
     launches, by_dtype = cuda_build.launch_counts(), cuda_build.launch_counts_by_dtype()
     after = engine.graph_counts()["launches"]
@@ -1582,7 +1611,7 @@ def graph_vs_eager(engine, model, samples, bos: int) -> dict:
     prepared = [engine._prepare(s) for s in samples[:engine.buckets[-1]]]
     out = {}
     for b in engine.buckets:
-        g = engine._routing.grid[(None, None)].graphs[b]
+        g = engine._routing.grid[(None, None)].graphs[0][b]
         batch = {k: v.to("cuda") for k, v in engine._stack(prepared[:b], b).items()}
         with torch.no_grad():
             out[b] = dict(
@@ -1591,7 +1620,7 @@ def graph_vs_eager(engine, model, samples, bos: int) -> dict:
                     model, batch, bos, backend="mega", check_masks=False), iters=5, warmup=1),
                 eager_mega_engine_consts_ms=cuda_ms(lambda: greedy_decode_fast(
                     model, batch, bos, backend="mega", check_masks=False,
-                    consts=engine._consts), iters=5, warmup=1),
+                    consts=engine._replicas[0].consts), iters=5, warmup=1),
             )
         log(f"  B={b}: graph replay {out[b]['graph_replay_ms']:.3f} ms, eager mega "
             f"{out[b]['eager_mega_ms']:.3f} ms (engine's stacked weights "
@@ -2186,6 +2215,175 @@ def ddp_path(task, vocab, cli, dev=torch.device("cuda"), config_path=CONFIG) -> 
     return out
 
 
+# ---------------------------------------------------------------- phase 9
+
+SHARD_TP, SHARD_RANK = 2, 1  # 9a: tp 2, shard 1 (heads 6..11 of 12)
+MESH_BUCKETS = (2, 8, 32)
+#: (name, devices on the repeated card, model_parallel): the engines of 9b
+MESH_ENGINES = (("dp2", 2, 1), ("tp2", 2, 2), ("dp2xtp2", 4, 2))
+#: model_parallel -> (kernels that must launch, kernels that must not)
+MESH_LAUNCHES = {1: (("spatial_attention", "decode_step"), ("decode_attention",)),
+                 2: (("spatial_attention", "decode_attention"), ("decode_step",))}
+
+
+def shard_kernels(task, batch, seg, gen) -> dict:
+    """Phase 9a: K1 and K2 at a tensor-parallel shard's shapes against
+    their plain versions in f32 and bf16 within phase 2's bars, with
+    phase 2's times and bounds: K1 on 6 of c3's 12 spatial heads with
+    shard 1's LUT columns 6..11, K2 384 wide (6 heads), and 192 wide (tp 4,
+    3 heads)."""
+    mmt = task.mmt
+    h = mmt.num_spatial_relations // SHARD_TP
+    k1, _ = bench_spatial_attention(task, batch, gen, heads=h, first_head=SHARD_RANK * h)
+    out = {"spatial_attention": dict(k1, shard=f"tp {SHARD_TP}, shard {SHARD_RANK}: heads "
+                                                f"{SHARD_RANK * h}..{SHARD_RANK * h + h - 1}")}
+    for tp in (SHARD_TP, 4):
+        out[f"decode_attention_tp{tp}"] = bench_decode_attention(
+            task, seg, gen, d=mmt.hidden_size // tp)
+    k2 = out["decode_attention_tp2"]
+    log(f"  shard K1 bf16 ({k1['shape']}): {k1['ms']:.4f} ms eager, device {k1['device_ms']:.5f}, "
+        f"SDPA device {k1['library_device_ms']:.5f}, bound {k1['bound_ms']:.5f}; shard K2 "
+        f"({k2['shape']}): {k2['ms']:.4f} ms eager, device {k2['device_ms']:.5f}, SDPA device "
+        f"{k2['library_device_ms']:.5f}, bound {k2['bound_ms']:.5f}; K2 at tp 4 max_abs_err "
+        f"f32 {out['decode_attention_tp4']['max_abs_err_float32']:.3g}, bf16 "
+        f"{out['decode_attention_tp4']['max_abs_err_bfloat16']:.3g}")
+    return out
+
+
+def full_width_ids(engine, prepared, bucket: int):
+    """The engine's ids of the first ``bucket`` requests at full width,
+    through its own decode (each replica's graph, or eager), on the host."""
+    slot = engine._next_slot()
+    host = engine._stack(prepared[:bucket], bucket, None, None, slot)
+    ids, done = engine._launch(engine._routing.grid[(None, None)], bucket, None, None, host, slot)
+    if done is not None:
+        done.synchronize()
+    return ids.clone()
+
+
+def decode_ms(engine, prepared, bucket: int, iters: int = 5) -> float:
+    """Median wall milliseconds of one staged batch of ``bucket`` through
+    the engine's decode to its ids on the host (the host's stacking
+    outside)."""
+    slot = engine._next_slot()
+    host = engine._stack(prepared[:bucket], bucket, None, None, slot)
+    cell = engine._routing.grid[(None, None)]
+    times_ms = []
+    for _ in range(iters + 1):
+        t0 = time.perf_counter()
+        _, done = engine._launch(cell, bucket, None, None, host, slot)
+        if done is not None:
+            done.synchronize()
+        times_ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times_ms[1:]))
+
+
+def mesh_engine_run(engine, samples, prepared) -> dict:
+    """Warm ``engine``, flood it with ``samples`` between zeroed and read
+    launch counts, and time its B=2 and B=32 decodes."""
+    t0 = time.monotonic()
+    engine.warmup()
+    warmup_s = time.monotonic() - t0
+    cuda_build.reset_launch_counts()
+    results, wall = flood(engine, samples)
+    torch.cuda.synchronize()
+    launches = cuda_build.launch_counts()
+    stats = engine.stats.summary()
+    counts = engine.graph_counts()
+    return dict(
+        answers=[(r["answer"], r["belongs_to"]) for r in results],
+        ids={b: full_width_ids(engine, prepared, b) for b in (2, BATCH)},
+        decode_ms={b: decode_ms(engine, prepared, b) for b in (2, BATCH)},
+        samples_per_s=len(samples) / wall, wall_s=wall, warmup_s=warmup_s, launches=launches,
+        graphs=counts["graphs"], capture_s=counts["capture_s"], decode_backend=engine.decode_backend,
+        **{k: stats.get(k) for k in ("latency_ms_p50", "latency_ms_p95", "occupancy")})
+
+
+def run_cli(cmd: list, timeout: float):
+    """Start ``cmd`` (a session of its own) and return a function that
+    waits for it: (exit code, stdout, stderr); on a timeout it kills the
+    session and raises."""
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    deadline = time.monotonic() + timeout
+
+    def wait():
+        try:
+            out, err = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate(timeout=30)
+            raise AssertionError(f"{cmd[2:]} did not end within {timeout} s")
+        return proc.returncode, out, err
+
+    return wait
+
+
+def mesh_path(task, vocab, samples, dev=torch.device("cuda")) -> dict:
+    """Phase 9 (see the module docstring), 9b and 9c."""
+    serve_cli = [sys.executable, "-m", "sam_textvqa_tpu_torch.serve", "--config", str(CONFIG),
+                 "--device", f"{dev},{dev}"]
+    # 9c's refusal runs beside 9b: it ends before any CUDA work
+    refused = run_cli(serve_cli + ["--model_parallel", "3", "--demo", "8"], 300)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        model = SAM4C(SAM4CParams(task.mmt, task.text_bert, len(vocab)), dtype=dtype)
+        model.init_weights(torch.Generator().manual_seed(0), std=SERVE_STD)
+        engine = ServingEngine(model.eval(), vocab, buckets=MESH_BUCKETS, device=dev)
+        prepared = [engine._prepare(s) for s in samples[:BATCH]]
+        with engine:
+            one = mesh_engine_run(engine, samples, prepared)
+        res = {"one_device": {k: v for k, v in one.items() if k not in ("answers", "ids")}}
+        for label, n_dev, tp in MESH_ENGINES:
+            engine = ServingEngine(model, vocab, buckets=MESH_BUCKETS, devices=[dev] * n_dev,
+                                   model_parallel=tp)
+            with engine:
+                run = mesh_engine_run(engine, samples, prepared)
+            must, must_not = MESH_LAUNCHES[tp]
+            require_launched(run["launches"], must, f"{label} {name} serving")
+            if any(run["launches"][k] for k in must_not):
+                raise AssertionError(f"{label} {name} launched {run['launches']}")
+            answers, ids = run.pop("answers"), run.pop("ids")
+            run["answer_agreement"] = float(np.mean([a == b for a, b in zip(answers,
+                                                                              one["answers"])]))
+            run["token_agreement"] = {b: (ids[b] == one["ids"][b]).float().mean().item()
+                                      for b in ids}
+            if dtype == torch.float32 and (run["answer_agreement"] < 1.0 or not all(
+                    torch.equal(ids[b], one["ids"][b]) for b in ids)):
+                raise AssertionError(f"{label} f32 ids differ from one device's: {run}")
+            log(f"  {label} {name}: {run['samples_per_s']:.1f} samples/s, p50 "
+                f"{run['latency_ms_p50']:.2f} / p95 {run['latency_ms_p95']:.2f} ms, decode ms "
+                f"B=2 {run['decode_ms'][2]:.3f} / B=32 {run['decode_ms'][BATCH]:.3f} (one device "
+                f"{one['decode_ms'][2]:.3f} / {one['decode_ms'][BATCH]:.3f}), {run['graphs']} "
+                f"graphs, capture {run['capture_s']:.2f} s, launches {run['launches']}, agreement "
+                f"answers {run['answer_agreement']:.3f} tokens {run['token_agreement']}")
+            res[label] = run
+            del engine
+        if len({a for a, _ in one["answers"]}) < 2:
+            raise AssertionError("every request got the same answer: the comparisons cannot bite")
+        out[name] = res
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    code, stdout, stderr = run_cli(
+        serve_cli + ["--data_parallel", "2", "--buckets", "2,8", "--demo", "32"], 300)()
+    if code != 0 or "dp=2 x tp=1" not in stderr:
+        raise AssertionError(f"serve --data_parallel 2 exited {code}: {stderr[-3000:]}")
+    stats = json.loads(stdout.strip().splitlines()[-1])
+    if stats["requests"] != 32 or stats["errors"] or stats["mesh"] != {"data": 2, "model": 1}:
+        raise AssertionError(f"serve --data_parallel 2: {stats}")
+    code, _, err = refused()
+    if code == 0 or "must divide" not in err:
+        raise AssertionError(f"serve --model_parallel 3 on 2 devices exited {code}: {err[-2000:]}")
+    out["cli"] = dict(data_parallel_2={k: stats.get(k) for k in (
+        "samples_per_s", "latency_ms_p50", "latency_ms_p95", "decode_backend", "mesh")},
+        model_parallel_3_exit=code, model_parallel_3_message=err.strip().splitlines()[-1])
+    log(f"  CLI: --data_parallel 2 {json.dumps(out['cli']['data_parallel_2'])}; "
+        f"--model_parallel 3 exit {code}: {out['cli']['model_parallel_3_message']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2254,6 +2452,12 @@ def main() -> int:
     log("== phase 8: data parallelism (8a: NCCL on one card; 2 gloo ranks on one card, f32 "
         "parity and a bf16 loop epoch; 8b: the train CLI under torchrun, world 1, NCCL)")
     parallel = ddp_path(task, vocab, cli)
+    log("== phase 9: multi-device serving on the repeated card (9a: K1/K2 at shard shapes; "
+        "9b: dp2, tp2, dp2 x tp2 engines, f32 and bf16; 9c: the serve CLI)")
+    t9 = time.monotonic()
+    mesh = {"shard_kernels": shard_kernels(task, batch, seg, gen)}
+    mesh.update(mesh_path(task, vocab, samples))
+    mesh["seconds"] = time.monotonic() - t9
     # profiles come after every timed phase, so that no timing runs after
     # the profiler has been started in this process
     log("== phase 4: device profiles (K1 call, K3 step at B=32, B=32 bf16 mega decode, "
@@ -2285,7 +2489,7 @@ def main() -> int:
                                    backend="mega"))
     training["profile_train_step"] = device_profile(train_call)
     server["bfloat16"]["profile_graph_replay_b32"] = device_profile(
-        served._routing.grid[(None, None)].graphs[BATCH].graph.replay)
+        served._routing.grid[(None, None)].graphs[0][BATCH].graph.replay)
     log(f"  B=32 bf16 graph replay: idle share "
         f"{server['bfloat16']['profile_graph_replay_b32'].get('idle_share')}")
     log(json.dumps({k: v for k, v in main.items() if k not in ("batch", "ids_mega_bf16")}))
@@ -2311,13 +2515,19 @@ def main() -> int:
                                       for r in parallel["ddp_bf16_loop"]["ranks"]],
             "torchrun_cli_val_launches": parallel["torchrun_world1"]["epochs"][-1][
                 "val_launches"][name],
+            "mesh_launches": {dt: {e: mesh[dt][e]["launches"][name] for e, _, _ in MESH_ENGINES}
+                              for dt in ("float32", "bfloat16")},
             "parity": "ok", **res,
         })
+        for key, shard in mesh["shard_kernels"].items():
+            if key.startswith(name):
+                rows[-1][f"shard_{key[len(name) + 1:] or 'tp2'}"] = shard
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"train_cli": cli}), flush=True)
     print(json.dumps({"real_data": real}), flush=True)
     print(json.dumps({"server": server}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
+    print(json.dumps({"mesh": mesh}), flush=True)
     log(f"total seconds: {time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

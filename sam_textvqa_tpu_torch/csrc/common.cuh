@@ -8,6 +8,7 @@
 #include <math.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <mutex>
 #include <type_traits>
 
 #define SAM_EXPORT extern "C" __attribute__((visibility("default")))
@@ -124,6 +125,39 @@ __device__ __forceinline__ void store2(float* p, float x, float y) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
+
+// ---- the dynamic shared-memory limit of one kernel, per device
+
+constexpr int kMaxDevices = 64;
+
+// cudaFuncSetAttribute raises a kernel's limit on the CURRENT device only,
+// so the limit already raised is kept per device (keyed by cudaGetDevice;
+// the wrappers make the tensors' device current around each launch). Each
+// launch site keeps one as a static of a function with internal linkage:
+// one per kernel instantiation and library (a static local of an inline
+// function in this header would be one symbol across every library in the
+// process). The mutex keeps two threads from lowering each other's limit.
+class SmemLimit {
+ public:
+  template <typename Kernel>
+  cudaError_t raise(Kernel* kernel, size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> lock(mutex_);
+    if (smem <= allowed_[device]) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess) allowed_[device] = smem;
+    return err;
+  }
+
+ private:
+  std::mutex mutex_;
+  size_t allowed_[kMaxDevices] = {};
+};
 
 }  // namespace sam
 

@@ -206,27 +206,23 @@ decode_attention_kernel(const T* q, int q_stride, const T* kv_row, int kv_stride
 }
 
 // Launch one CTA per (sample, head) on ``stream``; raises the kernel's
-// dynamic shared-memory limit first where it needs more than 48 KB. With
-// ``dependent`` the launch may start while the kernel before it still runs
-// (programmatic dependent launch; the kernel waits for it before reading).
-// Returns cudaGetLastError(): a refused launch never runs. ``static`` gives
-// each library its own copy of the limit it has set: the static local of an
-// inline template would be one symbol across every library in the process.
+// dynamic shared-memory limit first (on the current device) where it needs
+// more than 48 KB. With ``dependent`` the launch may start while the kernel
+// before it still runs (programmatic dependent launch; the kernel waits for
+// it before reading). Returns cudaGetLastError(): a refused launch never
+// runs. ``static`` gives each library its own copy of the limits it has set:
+// the static local of an inline template would be one symbol across every
+// library in the process.
 template <typename T>
 static cudaError_t launch_decode_attention(const T* q, int q_stride, const T* kv_row, int kv_stride,
                                     const T* k_enc, const T* v_enc, T* k_dec, T* v_dec, T* out,
                                     const int* seg_lens, const int* t, int B, int H, int hd,
                                     int le, int t_max, int q_len, int n_obj, float scale,
                                     cudaStream_t stream, bool dependent = false) {
-  static size_t smem_allowed = 48 * 1024;  // per instantiation, raised once
+  static SmemLimit limit;  // per instantiation and device
   const size_t smem = decode_attention_smem<T>(hd, le, t_max);
-  if (smem > smem_allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    smem_allowed = smem;
-  }
+  const cudaError_t raised = limit.raise(decode_attention_kernel<T>, smem);
+  if (raised != cudaSuccess) return raised;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(B * H);
   config.blockDim = dim3(kAttnThreads);

@@ -449,19 +449,14 @@ size_t workspace_bytes(int B, int D, int F) {
 // Launch one product, its K-slices as clusters, allowed to start while the
 // kernel before it still runs (it waits for it before reading); raises its dynamic
 // shared-memory limit first where it needs more than 48 KB (once per
-// instantiation: this namespace gives the static internal linkage, one per
-// library).
+// instantiation and device: this namespace gives the static internal
+// linkage, one per library).
 template <typename T, int EPI, int NT>
 cudaError_t launch_product(const Product<T>& p, cudaStream_t stream) {
-  static size_t allowed = 48 * 1024;
+  static sam::SmemLimit limit;
   const size_t smem = product_smem<T, NT>(p.K, p.splits, p.ln_w != nullptr);
-  if (smem > allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        product_kernel<T, EPI, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    allowed = smem;
-  }
+  const cudaError_t raised = limit.raise(product_kernel<T, EPI, NT>, smem);
+  if (raised != cudaSuccess) return raised;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(p.N / kRows * p.splits, (p.B + kGroup - 1) / kGroup);
   config.blockDim = dim3(kThreads);

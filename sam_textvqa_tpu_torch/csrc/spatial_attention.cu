@@ -384,15 +384,10 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, Strides sq, Strides sk, Strides sv,
            const uint8_t* codes, const float* lut, void* out, int B, int H, int L, float scale,
            cudaStream_t stream) {
-  static size_t smem_allowed = 48 * 1024;  // per instantiation, raised when needed
+  static sam::SmemLimit limit;  // per instantiation and device, raised when needed
   const size_t smem = layout<T>(L, D).total;
-  if (smem > smem_allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(spatial_attention_kernel<T, D>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    smem_allowed = smem;
-  }
+  const cudaError_t err = limit.raise(spatial_attention_kernel<T, D>, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((L + kRows - 1) / kRows, H, B);
   spatial_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), sq, sk, sv,

@@ -18,6 +18,11 @@ Backends (:func:`greedy_decode_fast`):
 
 The kernel backends also run the encoder-cache pass of the spatial layers
 through the fused spatial-attention kernel (ops/fused_attention.py).
+
+A tensor-parallel model (``models/tensor_parallel.py``) decodes through the
+same functions, each shard on its own heads: ``plain`` and ``fused`` (its
+``auto`` on CUDA), never ``mega``, whose one launch runs every layer while
+tensor parallelism sums two products inside each.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from ..ops.decode_attention import decode_attention
 from ..ops.decode_step import WEIGHT_NAMES, decode_step_fused
 from ..ops.fused_attention import spatial_attention
 from ..ops.spatial_graph import build_spatial_allowed, relation_head_lut
+from ..parallel.tensor import reduce_sum
 from .bert import merge_heads, split_heads
 from .layers import MASK_BIAS, gelu_erf, layer_norm_tf, row_alive_from_bias
 
@@ -80,6 +86,38 @@ def _attention(q, k, v, bias, zero_fully_masked):
     return torch.matmul(probs, v)
 
 
+def _cache_attention(ap, layer_type: str, key: str, x, k_out, v_out, col_bias, col_mask,
+                     spatial_classes, cfg: MMTConfig, backend: str, first_head: int,
+                     spatial_bias: Dict[str, torch.Tensor]):
+    """One layer's attention in the encoder-cache pass: writes the layer's
+    head-flat K/V into ``k_out`` / ``v_out`` and returns the merged context
+    of ``ap``'s heads, global heads ``first_head`` onward (a tensor-parallel
+    shard's; 0 on one device). ``spatial_bias`` caches the plain path's
+    spatial bias per context key."""
+    h = ap.num_heads
+    q_len, n_ctx = cfg.max_seq_length, spatial_classes.shape[-1]
+    quadrants = tuple(cfg.attention_mask_quadrants)
+    k_out.copy_(ap.key(x))
+    v_out.copy_(ap.value(x))
+    q, k, v = split_heads(ap.query(x), h), split_heads(k_out, h), split_heads(v_out, h)
+    if layer_type == "n":
+        ctx = _attention(q, k, v, col_bias, zero_fully_masked=False)
+    elif backend == "kernel":
+        lut = _device_lut(key, first_head, h, x.device)
+        ctx = spatial_attention(
+            q, k, v, spatial_classes.contiguous(), lut, col_mask, q_len=q_len,
+            n_ctx=n_ctx, dec_len=0, mask_quadrants=quadrants, spatial=True,
+        )
+    else:
+        if key not in spatial_bias:
+            allowed = build_spatial_allowed(spatial_classes,
+                                            _device_lut(key, first_head, h, x.device),
+                                            q_len, 0, quadrants, h)
+            spatial_bias[key] = torch.minimum(torch.where(allowed, 0.0, MASK_BIAS), col_bias)
+        ctx = _attention(q, k, v, spatial_bias[key], zero_fully_masked=True)
+    return _with_head_bias(ap, merge_heads(ctx))
+
+
 def build_mmt_cache(mmt, text_bert_emb, obj_mmt_in, ocr_mmt_in, question_mask,
                     obj_mask, ocr_mask, spatial_classes,
                     attention_backend: str = "plain") -> MMTCache:
@@ -90,9 +128,6 @@ def build_mmt_cache(mmt, text_bert_emb, obj_mmt_in, ocr_mmt_in, question_mask,
     spatial layers' attention through the fused spatial-attention kernel
     (``dec_len=0``) on the head-split views in the compute dtype."""
     cfg = mmt.config
-    q_len = cfg.max_seq_length
-    n_ctx = spatial_classes.shape[-1]
-    quadrants = tuple(cfg.attention_mask_quadrants)
     x = torch.cat([text_bert_emb, obj_mmt_in, ocr_mmt_in], dim=1)
     b, le, d = x.shape
     col_mask = torch.cat([question_mask, obj_mask, ocr_mask], dim=1).float()
@@ -103,28 +138,10 @@ def build_mmt_cache(mmt, text_bert_emb, obj_mmt_in, ocr_mmt_in, question_mask,
     spatial_bias: Dict[str, torch.Tensor] = {}
 
     for li, (layer_type, mix, layer) in enumerate(mmt.iter_layers()):
-        h = _layer_heads(cfg, layer_type)
-        ap = layer.attention.self
-        k_all[li] = ap.key(x)
-        v_all[li] = ap.value(x)
-        q, k, v = split_heads(ap.query(x), h), split_heads(k_all[li], h), split_heads(v_all[li], h)
-        key = MATRIX_TYPE_MAP[mix]
-        if layer_type == "n":
-            ctx = _attention(q, k, v, col_bias, zero_fully_masked=False)
-        elif attention_backend == "kernel":
-            lut = _device_lut(key, h, x.device)
-            ctx = spatial_attention(
-                q, k, v, spatial_classes.contiguous(), lut, col_mask, q_len=q_len,
-                n_ctx=n_ctx, dec_len=0, mask_quadrants=quadrants, spatial=True,
-            )
-        else:
-            if key not in spatial_bias:
-                allowed = build_spatial_allowed(spatial_classes, _device_lut(key, h, x.device),
-                                                q_len, 0, quadrants, h)
-                spatial_bias[key] = torch.minimum(
-                    torch.where(allowed, 0.0, MASK_BIAS), col_bias)
-            ctx = _attention(q, k, v, spatial_bias[key], zero_fully_masked=True)
-        x = layer.ffn(layer.attention.output(_with_head_bias(ap, merge_heads(ctx)), x))
+        ctx = _cache_attention(layer.attention.self, layer_type, MATRIX_TYPE_MAP[mix], x,
+                               k_all[li], v_all[li], col_bias, col_mask, spatial_classes, cfg,
+                               attention_backend, 0, spatial_bias)
+        x = layer.ffn(layer.attention.output(ctx, x))
 
     return MMTCache(
         k_enc=k_all, v_enc=v_all, enc_out=x, enc_bias_cols=col_bias,
@@ -133,8 +150,8 @@ def build_mmt_cache(mmt, text_bert_emb, obj_mmt_in, ocr_mmt_in, question_mask,
     )
 
 
-def _dec_quadrant_bias(cfg: MMTConfig, layer_type: str):
-    """(H, Le) and (H, T) f32 biases cutting spatial heads' decoder-row
+def _dec_quadrant_bias(cfg: MMTConfig, layer_type: str, h: int):
+    """(h, Le) and (h, T) f32 biases cutting spatial heads' decoder-row
     attention under quadrants 7 (question cols), 8 (obj+OCR cols) and 9
     (decoder cols) — reference sa_m4c.py:504-549."""
     quadrants = tuple(cfg.attention_mask_quadrants)
@@ -147,7 +164,6 @@ def _dec_quadrant_bias(cfg: MMTConfig, layer_type: str):
     if 8 in quadrants:
         enc_cut |= col >= q_len
     dec_cut = np.full(cfg.num_decoding_steps, 9 in quadrants)
-    h = _layer_heads(cfg, layer_type)
     spatial_head = np.ones(h, dtype=bool)[:, None]
     return (np.where(spatial_head & enc_cut, MASK_BIAS, 0.0).astype(np.float32),
             np.where(spatial_head & dec_cut, MASK_BIAS, 0.0).astype(np.float32))
@@ -162,13 +178,13 @@ def _prev_pred_tables(mmt, classifier_weight, ocr_mmt_in):
     return ans_emb, ocr_emb
 
 
-def _dec_row_embedding(mmt, tables, ans_num: int, token, t: int):
-    """PrevPredEmbeddings for ONE decoder row at position ``t``: (B, D)."""
-    pp = mmt.prev_pred_embeddings
-    ans_emb, ocr_emb = tables
+def _dec_row_embedding(pp, vocab_rows, ocr_emb, ans_num: int, token, t: int):
+    """PrevPredEmbeddings ``pp`` for ONE decoder row at position ``t``:
+    (B, D). ``vocab_rows(ids)`` looks up the layernormed answer
+    embeddings."""
     prev = token.long()
     is_vocab = prev < ans_num
-    from_vocab = ans_emb[torch.where(is_vocab, prev, 0)]
+    from_vocab = vocab_rows(torch.where(is_vocab, prev, 0))
     rows = torch.arange(prev.shape[0], device=prev.device)
     from_ocr = ocr_emb[rows, torch.where(is_vocab, 0, prev - ans_num)]
     raw = torch.where(is_vocab[:, None], from_vocab, from_ocr)
@@ -196,56 +212,82 @@ def _output_head(model, ptr_keys, x):
     return torch.cat([fixed, dyn + ocr_bias], dim=-1)
 
 
+def _one_row_context(ap, layer_type: str, cfg: MMTConfig, cache: MMTCache, li: int, x,
+                     dec_kv, t: int, dec_col_bias):
+    """One layer's attention for one decoder row (B, 1, D) of ``ap``'s
+    heads against the cached encoder K/V of layer ``li`` and the decoder
+    K/V buffers ``dec_kv`` (k, v) of shape (B, H, T, hd), row t written in
+    place. Returns the merged context (B, 1, H * hd)."""
+    b = x.shape[0]
+    h = ap.num_heads
+    le = cache.k_enc.shape[2]
+    q = split_heads(ap.query(x), h)  # (B, H, 1, hd)
+    k_buf, v_buf = dec_kv
+    k_buf[:, :, t] = split_heads(ap.key(x), h)[:, :, 0]
+    v_buf[:, :, t] = split_heads(ap.value(x), h)[:, :, 0]
+    k_enc = split_heads(cache.k_enc[li], h)
+    v_enc = split_heads(cache.v_enc[li], h)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores_enc = torch.matmul(q, k_enc.transpose(-1, -2)) * scale
+    scores_dec = torch.matmul(q, k_buf.transpose(-1, -2)) * scale
+    enc_bias, dec_bias = cache.enc_bias_cols, dec_col_bias
+    if cache.spatial_dec_masked[li]:
+        qe, qd = (torch.from_numpy(a).to(x.device) for a in _dec_quadrant_bias(cfg, layer_type, h))
+        enc_bias = torch.minimum(enc_bias, qe[None, :, None, :])
+        dec_bias = torch.minimum(dec_bias, qd[None, :, None, :])
+    scores = torch.cat([scores_enc + enc_bias.to(q.dtype),
+                        scores_dec + dec_bias.to(q.dtype)], dim=-1)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    if cache.spatial_dec_masked[li]:
+        # under quadrants 7/8/9 a spatial head's row can be fully masked:
+        # zero it like the reference (sa_m4c.py:574-584)
+        full_bias = torch.cat([enc_bias.expand(b, h, 1, le),
+                               dec_bias.expand(b, h, 1, dec_bias.shape[-1])], dim=-1)
+        probs = probs * row_alive_from_bias(full_bias).to(probs.dtype)
+    ctx = torch.matmul(probs[..., :le], v_enc) + torch.matmul(probs[..., le:], v_buf)
+    return _with_head_bias(ap, merge_heads(ctx))
+
+
+def _dec_col_bias(cfg: MMTConfig, t: int, device):
+    """(1, 1, 1, T) additive bias of the decoder columns visible at step t."""
+    return torch.where(torch.arange(cfg.num_decoding_steps, device=device) <= t, 0.0,
+                       MASK_BIAS)[None, None, None, :]
+
+
 def _decode_one_row(mmt, cfg: MMTConfig, cache: MMTCache, x, dec_kv, t: int):
     """One decoder row (B, 1, D) through all layers (plain PyTorch) against
     the cached encoder K/V and the decoder K/V buffers ``dec_kv`` — per layer
     (k, v) of shape (B, H, T, hd), row t written in place. Returns (B, 1, D)."""
-    b = x.shape[0]
-    le = cache.k_enc.shape[2]
-    dec_col_bias = torch.where(
-        torch.arange(cfg.num_decoding_steps, device=x.device) <= t, 0.0, MASK_BIAS
-    )[None, None, None, :]
+    dec_col_bias = _dec_col_bias(cfg, t, x.device)
     for li, (layer_type, _, layer) in enumerate(mmt.iter_layers()):
-        h = _layer_heads(cfg, layer_type)
-        ap = layer.attention.self
-        q = split_heads(ap.query(x), h)  # (B, H, 1, hd)
-        k_buf, v_buf = dec_kv[li]
-        k_buf[:, :, t] = split_heads(ap.key(x), h)[:, :, 0]
-        v_buf[:, :, t] = split_heads(ap.value(x), h)[:, :, 0]
-        k_enc = split_heads(cache.k_enc[li], h)
-        v_enc = split_heads(cache.v_enc[li], h)
-        scale = 1.0 / math.sqrt(q.shape[-1])
-        scores_enc = torch.matmul(q, k_enc.transpose(-1, -2)) * scale
-        scores_dec = torch.matmul(q, k_buf.transpose(-1, -2)) * scale
-        enc_bias, dec_bias = cache.enc_bias_cols, dec_col_bias
-        if cache.spatial_dec_masked[li]:
-            qe, qd = (torch.from_numpy(a).to(x.device) for a in _dec_quadrant_bias(cfg, layer_type))
-            enc_bias = torch.minimum(enc_bias, qe[None, :, None, :])
-            dec_bias = torch.minimum(dec_bias, qd[None, :, None, :])
-        scores = torch.cat([scores_enc + enc_bias.to(q.dtype),
-                            scores_dec + dec_bias.to(q.dtype)], dim=-1)
-        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        if cache.spatial_dec_masked[li]:
-            # under quadrants 7/8/9 a spatial head's row can be fully masked:
-            # zero it like the reference (sa_m4c.py:574-584)
-            full_bias = torch.cat([enc_bias.expand(b, h, 1, le),
-                                   dec_bias.expand(b, h, 1, dec_bias.shape[-1])], dim=-1)
-            probs = probs * row_alive_from_bias(full_bias).to(probs.dtype)
-        ctx = torch.matmul(probs[..., :le], v_enc) + torch.matmul(probs[..., le:], v_buf)
-        x = layer.ffn(layer.attention.output(_with_head_bias(ap, merge_heads(ctx)), x))
+        ctx = _one_row_context(layer.attention.self, layer_type, cfg, cache, li, x,
+                               dec_kv[li], t, dec_col_bias)
+        x = layer.ffn(layer.attention.output(ctx, x))
     return x
 
 
-def _kernel_violations(cfg: MMTConfig, uniform: bool) -> List[str]:
-    """Why the kernel backends cannot run ``cfg`` (empty when they can).
+def _kernel_violations(cfg: MMTConfig, uniform: bool, tp: int = 1) -> List[str]:
+    """Why the kernel backends cannot run ``cfg`` on ``tp`` tensor-parallel
+    shards (empty when they can). A shard runs the kernels on its own
+    H/tp heads over a width of D/tp:
+
+    * the decode attention (``fused``, and inside the decode step) reads a
+      head's row in 16-byte chunks, at most one warp per key: the head dim
+      must divide 128 (``ops/decode_attention.check_decode_shapes``);
+    * the decode step (``mega``, ``uniform``) tiles its products by 64
+      columns: D/tp and the FFN width / tp must be multiples of 64, and all
+      layers must have one head count. (The JAX package's ``D % 128`` is the
+      TPU's lane width; no kernel of the port needs it, so a c3 shard 192
+      wide at tp 4 decodes with ``fused``.)
+
     The kernels rebuild the encoder padding from per-segment valid counts,
     so the masks must also be prefix-contiguous (checked per batch by
     :func:`_seg_lens`)."""
-    d = cfg.hidden_size
+    d, f = cfg.hidden_size // tp, cfg.intermediate_size // tp
     problems = []
-    if d % 128:
-        problems.append(f"hidden size {d} is not a multiple of 128")
-    heads = {_layer_heads(cfg, lt) for lt in cfg.layer_type_list}
+    if uniform and (d % 64 or f % 64):
+        problems.append(f"width {d} or FFN width {f} is not a multiple of 64")
+    heads = {_layer_heads(cfg, lt) // tp for lt in cfg.layer_type_list}
     for h in sorted(heads):
         if d % h or 128 % (d // h):
             problems.append(f"head dim {d}/{h} does not divide 128")
@@ -267,19 +309,31 @@ def _mega_supported(cfg: MMTConfig) -> bool:
     return not _kernel_violations(cfg, uniform=True)
 
 
-def resolve_backend(backend: str, cfg: MMTConfig, device: torch.device) -> str:
+#: why ``mega`` cannot decode a tensor-parallel model
+MEGA_TP_REFUSAL = ("decode backend 'mega' runs all layers of a step in one launch, and "
+                   "tensor parallelism sums two products inside every layer: use 'fused' "
+                   "(a per-layer decode-step entry is ROADMAP queue 1, item 9e)")
+
+
+def resolve_backend(backend: str, cfg: MMTConfig, device: torch.device, tp: int = 1) -> str:
     """The concrete backend for ``backend``; ``auto`` picks ``mega`` on CUDA
-    when the config allows it and ``plain`` otherwise, and logs why."""
+    when the config allows it and ``plain`` otherwise, and logs why. For a
+    model of ``tp`` > 1 tensor-parallel shards ``auto`` picks ``fused`` on
+    CUDA where the shards meet its preconditions, and ``mega`` raises."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown decode backend {backend!r} (expected {' | '.join(BACKENDS)})")
+    if tp > 1 and backend == "mega":
+        raise ValueError(MEGA_TP_REFUSAL)
     if backend != "auto":
         return backend
     if device.type != "cuda":
         chosen, why = "plain", f"device {device} has no kernels"
     else:
-        problems = _kernel_violations(cfg, uniform=True)
-        chosen = "plain" if problems else "mega"
-        why = "; ".join(problems) or "config meets the per-step kernel's preconditions"
+        problems = _kernel_violations(cfg, uniform=tp == 1, tp=tp)
+        chosen = "plain" if problems else ("mega" if tp == 1 else "fused")
+        why = "; ".join(problems) or (
+            "config meets the per-step kernel's preconditions" if tp == 1 else
+            f"{tp} tensor-parallel shards meet the decode-attention kernel's preconditions")
     logger.info("decode backend auto -> %s (%s)", chosen, why)
     return chosen
 
@@ -315,27 +369,38 @@ def _mega_step_consts(mmt, dtype) -> Dict[str, torch.Tensor]:
     }
 
 
-def _decode_one_row_fused(cfg: MMTConfig, consts, cache: MMTCache, seg_lens, x,
-                          k_dec, v_dec, t: int, t_dev):
+def _decode_one_row_fused(cfg: MMTConfig, consts, caches, seg_lens, x, k_dec, v_dec,
+                          t: int, t_dev):
     """One decoder row (B, D) through all layers with the decode-attention
-    kernel; ``k_dec``/``v_dec`` are (L, B, T, D) head-flat, row t written in
-    place. Returns (B, D)."""
-    d = cfg.hidden_size
+    kernel. The arguments other than ``x`` are lists with one entry per
+    tensor-parallel shard (one entry on one device), each on its shard's
+    device: the stacked weights ``consts``, the caches, the segment counts,
+    the decoder K/V buffers (L, B, T, D/tp) head-flat, row t written in
+    place, and the step index. Each shard attends over its own heads; the
+    attention output and the FFN's second product are summed over the
+    shards on ``x``'s device, where the replicated biases and LayerNorms of
+    shard 0 apply once. Returns (B, D)."""
+    home = consts[0]
     for li, layer_type in enumerate(cfg.layer_type_list):
-        qkv = torch.matmul(x, consts["wqkv"][li].t()) + consts["bqkv"][li]
-        q, k_row, v_row = qkv.split(d, dim=-1)
-        k_dec[li, :, t] = k_row
-        v_dec[li, :, t] = v_row
-        ctx = decode_attention(
-            q.contiguous(), cache.k_enc[li], cache.v_enc[li], k_dec[li], v_dec[li],
-            seg_lens, t_dev, hd=d // _layer_heads(cfg, layer_type),
-            q_len=cfg.max_seq_length, n_obj=cfg.max_obj_num,
-        )
-        attn = torch.matmul(ctx, consts["wout"][li].t()) + consts["bout"][li] + x
-        attn_out = layer_norm_tf(attn, consts["ln1w"][li], consts["ln1b"][li])
-        inter = gelu_erf(torch.matmul(attn_out, consts["wff1"][li].t()) + consts["bff1"][li])
-        out = torch.matmul(inter, consts["wff2"][li].t()) + consts["bff2"][li] + attn_out
-        x = layer_norm_tf(out, consts["ln2w"][li], consts["ln2b"][li])
+        hd = cfg.hidden_size // _layer_heads(cfg, layer_type)
+        ctxs = []
+        for c, cache, seg, kd, vd, td in zip(consts, caches, seg_lens, k_dec, v_dec, t_dev):
+            qkv = torch.matmul(x.to(td.device), c["wqkv"][li].t()) + c["bqkv"][li]
+            q, k_row, v_row = qkv.chunk(3, dim=-1)
+            kd[li, :, t] = k_row
+            vd[li, :, t] = v_row
+            ctxs.append(decode_attention(
+                q.contiguous(), cache.k_enc[li], cache.v_enc[li], kd[li], vd[li], seg, td,
+                hd=hd, q_len=cfg.max_seq_length, n_obj=cfg.max_obj_num,
+            ))
+        attn = reduce_sum([torch.matmul(ctx, c["wout"][li].t()) for ctx, c in zip(ctxs, consts)],
+                          x.device) + home["bout"][li] + x
+        attn_out = layer_norm_tf(attn, home["ln1w"][li], home["ln1b"][li])
+        inters = [gelu_erf(torch.matmul(attn_out.to(td.device), c["wff1"][li].t()) + c["bff1"][li])
+                  for c, td in zip(consts, t_dev)]
+        out = reduce_sum([torch.matmul(i, c["wff2"][li].t()) for i, c in zip(inters, consts)],
+                         x.device) + home["bff2"][li] + attn_out
+        x = layer_norm_tf(out, home["ln2w"][li], home["ln2b"][li])
     return x
 
 
@@ -354,11 +419,15 @@ def check_prefix_masks(masks) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_lut(key: str, h: int, device: torch.device) -> torch.Tensor:
-    """The (13, h) float32 relation -> head LUT on ``device``, made once per
-    (context, heads, device) and never written: copying it for each call
-    from pageable memory waited for all work queued on the stream."""
-    return torch.tensor(relation_head_lut(key)[:, :h], dtype=torch.float32, device=device)
+def _device_lut(key: str, first_head: int, h: int, device: torch.device) -> torch.Tensor:
+    """The (13, h) float32 relation -> head LUT of heads ``first_head`` ..
+    ``first_head + h - 1`` (a tensor-parallel shard's; 0 .. h - 1 on one
+    device) on ``device``, contiguous (the spatial-attention kernel reads
+    ``lut[c * h + head]``), made once per (context, heads, device) and
+    never written: copying it for each call from pageable memory waited for
+    all work queued on the stream."""
+    return torch.tensor(relation_head_lut(key)[:, first_head:first_head + h],
+                        dtype=torch.float32, device=device)
 
 
 def _seg_lens(batch, validate: bool = True) -> torch.Tensor:
@@ -374,16 +443,14 @@ def _seg_lens(batch, validate: bool = True) -> torch.Tensor:
     return lens.to(torch.int32).contiguous()
 
 
-def _greedy_steps(model, cfg, cache, tables, ptr_keys, bos_idx, dtype, step_fn):
-    """The greedy loop shared by every backend: ``step_fn(x, t)`` maps the
-    (B, D) row embedding at step t to the final-layer row."""
-    b = cache.enc_out.shape[0]
-    ans_num = model.classifier.weight.shape[0]
-    token = torch.full((b,), bos_idx, dtype=torch.long, device=cache.enc_out.device)
+def _greedy_steps(cfg: MMTConfig, b: int, device, bos_idx: int, embed, head, step_fn):
+    """The greedy loop shared by every backend: ``embed(token, t)`` is the
+    (B, D) row embedding of the previous tokens at step t, ``step_fn(x, t)``
+    maps it to the final-layer row and ``head(x)`` to the step's scores."""
+    token = torch.full((b,), bos_idx, dtype=torch.long, device=device)
     all_logits = []
     for t in range(cfg.num_decoding_steps):
-        x = _dec_row_embedding(model.mmt, tables, ans_num, token, t).to(dtype)
-        logits = _output_head(model, ptr_keys, step_fn(x.contiguous(), t))
+        logits = head(step_fn(embed(token, t).contiguous(), t))
         token = logits.argmax(-1)
         all_logits.append(logits)
     scores = torch.stack(all_logits, dim=1)  # (B, T, V + OCR)
@@ -398,24 +465,34 @@ def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
     :func:`..models.sa_m4c.greedy_decode`. Returns (scores (B, T, V+O),
     pred ids (B, T)).
 
+    ``model``: a ``SAM4C``, or a ``models.tensor_parallel.TPSAM4C`` (with
+    ``batch`` on its first device), whose shards decode their own heads.
+
     ``backend``: ``plain`` | ``fused`` | ``mega`` | ``auto`` (see the module
-    docstring); ``fused`` and ``mega`` raise for configs they do not cover.
+    docstring); ``fused`` and ``mega`` raise for configs they do not cover,
+    and ``mega`` for a tensor-parallel model.
     They need prefix-contiguous masks, which ``check_masks`` checks on a
     host copy, waiting for the device: the engine and the evaluator check
     their host arrays with :func:`check_prefix_masks` before the transfer
     and pass False, so that the decode never waits for the device.
 
     ``consts``: the kernel backends' stacked weights,
-    ``_mega_step_consts(model.mmt, model.dtype)``, made once by a caller
-    whose weights do not change (the serving engine); by default they are
-    made anew in each call, from the weights as they are then."""
+    ``_mega_step_consts(model.mmt, model.dtype)`` (a tensor-parallel
+    model's ``decode_consts()``), made once by a caller whose weights do
+    not change (the serving engine); by default they are made anew in each
+    call, from the weights as they are then."""
+    from .tensor_parallel import TPSAM4C, decode_tensor_parallel  # it imports this module
+
     cfg = model.params_cfg.mmt
     device = batch["question_indices"].device
-    backend = resolve_backend(backend, cfg, device)
+    tp = model.tp if isinstance(model, TPSAM4C) else 1
+    backend = resolve_backend(backend, cfg, device, tp)
     if backend != "plain":
-        problems = _kernel_violations(cfg, uniform=backend == "mega")
+        problems = _kernel_violations(cfg, uniform=backend == "mega", tp=tp)
         if problems:
             raise ValueError(f"decode backend {backend!r} unsupported: {'; '.join(problems)}")
+    if tp > 1:
+        return decode_tensor_parallel(model, batch, bos_idx, backend, check_masks, consts)
     dtype = model.dtype
     enc = model.encode(batch)
     cache = build_mmt_cache(
@@ -424,10 +501,18 @@ def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
         batch["spatial_classes"],
         attention_backend="plain" if backend == "plain" else "kernel",
     )
-    tables = _prev_pred_tables(model.mmt, model.classifier.weight, cache.ocr_mmt_in)
+    ans_emb, ocr_emb = _prev_pred_tables(model.mmt, model.classifier.weight, cache.ocr_mmt_in)
     ptr_keys = _ptr_keys(model, cfg, cache, batch["pad_ocr_mask"], dtype)
     b, t_max, d = cache.enc_out.shape[0], cfg.num_decoding_steps, cfg.hidden_size
     n_layers = len(cfg.layer_type_list)
+    ans_num = model.classifier.weight.shape[0]
+
+    def embed(token, t):
+        return _dec_row_embedding(model.mmt.prev_pred_embeddings, ans_emb.__getitem__,
+                                  ocr_emb, ans_num, token, t).to(dtype)
+
+    def head(x):
+        return _output_head(model, ptr_keys, x)
 
     if backend == "plain":
         dec_kv = []
@@ -439,7 +524,7 @@ def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
         def step(x, t):
             return _decode_one_row(model.mmt, cfg, cache, x[:, None], dec_kv, t)[:, 0]
 
-        return _greedy_steps(model, cfg, cache, tables, ptr_keys, bos_idx, dtype, step)
+        return _greedy_steps(cfg, b, device, bos_idx, embed, head, step)
 
     seg_lens = _seg_lens(batch, validate=check_masks)
     if consts is None:
@@ -451,8 +536,8 @@ def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
 
     if backend == "fused":
         def step(x, t):
-            return _decode_one_row_fused(cfg, consts, cache, seg_lens, x, k_dec, v_dec,
-                                         t, steps[t:t + 1])
+            return _decode_one_row_fused(cfg, [consts], [cache], [seg_lens], x, [k_dec],
+                                         [v_dec], t, [steps[t:t + 1]])
     else:
         def step(x, t):
             return decode_step_fused(
@@ -461,4 +546,4 @@ def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
                 q_len=cfg.max_seq_length, n_obj=cfg.max_obj_num,
             )
 
-    return _greedy_steps(model, cfg, cache, tables, ptr_keys, bos_idx, dtype, step)
+    return _greedy_steps(cfg, b, device, bos_idx, embed, head, step)

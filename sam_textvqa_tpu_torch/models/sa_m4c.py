@@ -112,9 +112,25 @@ class SAM4C(nn.Module):
     def encode(self, batch: Dict[str, torch.Tensor], deterministic: bool = True,
                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """Everything that does not depend on the previous predictions."""
+        generator = dropout_generator(deterministic, generator, self._dropout_rates())
+        obj_mmt_in, ocr_mmt_in = self.encode_regions(batch, generator)
+        text_bert_out = self.text_bert(
+            batch["question_indices"], batch["question_mask"], self.dtype, generator
+        )
+        if self.text_bert_out_linear is not None:
+            text_bert_out = self.text_bert_out_linear(text_bert_out)
+        return {
+            "text_bert_emb": text_bert_out,
+            "obj_mmt_in": obj_mmt_in,
+            "ocr_mmt_in": ocr_mmt_in,
+        }
+
+    def encode_regions(self, batch: Dict[str, torch.Tensor],
+                       generator: Optional[torch.Generator] = None):
+        """The obj and OCR inputs of the MMT, (obj_mmt_in, ocr_mmt_in);
+        dropout draws from ``generator`` (None: none)."""
         cfg = self.params_cfg.mmt
         dt = self.dtype
-        generator = dropout_generator(deterministic, generator, self._dropout_rates())
         obj_feat = self.obj_faster_rcnn_fc7(batch["pad_obj_features"].to(dt))
         if cfg.normalize:
             obj_feat = l2_normalize(obj_feat)
@@ -140,17 +156,7 @@ class SAM4C(nn.Module):
             self.linear_ocr_feat_to_mmt_in(ocr_feat)
         ) + self.ocr_bbox_layer_norm(self.linear_ocr_bbox_to_mmt_in(ocr_bbox))
         ocr_mmt_in = dropout(ocr_mmt_in, cfg.ocr_drop, generator)
-
-        text_bert_out = self.text_bert(
-            batch["question_indices"], batch["question_mask"], dt, generator
-        )
-        if self.text_bert_out_linear is not None:
-            text_bert_out = self.text_bert_out_linear(text_bert_out)
-        return {
-            "text_bert_emb": text_bert_out,
-            "obj_mmt_in": obj_mmt_in,
-            "ocr_mmt_in": ocr_mmt_in,
-        }
+        return obj_mmt_in, ocr_mmt_in
 
     def decode_step(self, encodings, batch, prev_inds, deterministic: bool = True,
                     generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -192,6 +198,8 @@ def with_widths(model: SAM4C, n_obj: Optional[int] = None,
     shallow ``mmt`` with the narrowed config) before ``mmt`` is replaced:
     the original keeps its config, every ``Parameter`` is shared, and
     nothing new is registered."""
+    if not isinstance(model, SAM4C):  # a tensor-parallel model narrows its own
+        return model.with_widths(n_obj, n_ocr)
     repl = {}
     if n_obj is not None:
         repl["max_obj_num"] = int(n_obj)

@@ -1,0 +1,357 @@
+"""SA-M4C in Megatron tensor parallelism over a list of devices, in one
+process: the JAX package's model under a ``model`` mesh axis
+(``parallel/mesh.py:shard_params``, ``serve.py --model_parallel``).
+
+:class:`TPSAM4C` cuts a ``SAM4C`` into ``tp`` shards, one per device (a
+device may repeat). Each shard is the port's own ``SAM4C`` modules narrowed
+by :func:`..parallel.tensor.shard_state_dict`: its attention modules hold
+H/tp heads (``num_heads``) and its FFNs intermediate/tp columns, and it
+keeps a copy of every replicated weight. The residual stream lives on the
+first device ("home"): each layer copies its input to the shards, each
+shard attends over its own heads (the spatial layers with the relation x
+head LUT columns of those heads, through the spatial-attention kernel in
+the encoder-cache pass), and the two row-parallel products of the layer are
+summed on home, where the replicated biases and LayerNorms apply once.
+Replicated weights are read from shard 0 only, so their gradients collect
+there.
+
+The word embeddings, the classifier and the OCR pointer's query and key
+are cut where :func:`..parallel.mesh.shard_axis` cuts them and used whole
+otherwise. The classifier's rows are also the decoder's answer embeddings:
+each row is looked up on the shard that holds it.
+
+Deterministic forwards only (no dropout); :func:`decode_tensor_parallel`
+is ``fast_decode.greedy_decode_fast``'s path for this model.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..config import MATRIX_TYPE_MAP
+from ..ops.fused_attention import combined_permission
+from ..parallel.mesh import check_tensor_parallel
+from ..parallel.tensor import (ShardState, broadcast, column_parallel, reduce_sum,
+                               row_parallel, shard_state_dict, unshard_state_dict,
+                               vocab_parallel_embedding, vocab_parallel_logits)
+from .bert import BertSelfAttention
+from .fast_decode import (MMTCache, _cache_attention, _dec_col_bias, _dec_row_embedding,
+                          _dec_rows_masked, _decode_one_row_fused, _device_lut, _greedy_steps,
+                          _layer_heads, _mega_step_consts, _one_row_context, _seg_lens)
+from .layers import MASK_BIAS, gelu_erf, layer_norm_tf
+from .sa_m4c import SAM4C
+from .spatial import SpatialBertSelfAttention
+
+
+def _build_shard(model: SAM4C, state: ShardState, device: torch.device) -> SAM4C:
+    """A ``SAM4C`` holding ``state`` (copied to ``device``), its attention
+    modules narrowed to their share of the heads."""
+    with torch.device("meta"):
+        shard = SAM4C(model.params_cfg, dtype=model.dtype,
+                      attention_backend=model.mmt.attention_backend)
+    for key, value in state.items():
+        owner, _, leaf = key.rpartition(".")
+        setattr(shard.get_submodule(owner), leaf,
+                nn.Parameter(value.detach().to(device).clone(memory_format=torch.contiguous_format)))
+    for module in shard.modules():
+        if isinstance(module, (BertSelfAttention, SpatialBertSelfAttention)):
+            module.num_heads //= state.tp
+    left = [n for n, t in (*shard.named_parameters(), *shard.named_buffers()) if t.is_meta]
+    if left:
+        raise ValueError(f"the shard state has no value for {left}")
+    return shard
+
+
+class TPSAM4C:
+    """``model``'s weights cut over ``devices``, one shard each (see the
+    module docstring). The shards hold copies: ``model`` is not changed and
+    later changes to it do not reach them."""
+
+    def __init__(self, model: SAM4C, devices: Sequence):
+        self.devices = [torch.device(d) for d in devices]
+        self.tp = len(self.devices)
+        check_tensor_parallel(model.params_cfg, self.tp)
+        self.params_cfg = model.params_cfg
+        self.dtype = model.dtype
+        sd = model.state_dict()
+        states = [shard_state_dict(sd, self.tp, r) for r in range(self.tp)]
+        self.axes = states[0].axes
+        self.shards = [_build_shard(model, st, dev) for st, dev in zip(states, self.devices)]
+        #: key -> the tensor on each shard where it is cut, else shard 0's
+        self.parts: Dict[str, List[nn.Parameter]] = {
+            k: [s.get_parameter(k) for s in (self.shards if axis is not None else self.shards[:1])]
+            for k, axis in self.axes.items()}
+
+    @property
+    def home(self) -> torch.device:
+        """The first device: inputs, the residual stream and the outputs."""
+        return self.devices[0]
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The full model's ``state_dict``, put together from the shards."""
+        return unshard_state_dict([ShardState(s.state_dict(), tp=self.tp, rank=r, axes=self.axes)
+                                   for r, s in enumerate(self.shards)])
+
+    def with_widths(self, n_obj: Optional[int] = None, n_ocr: Optional[int] = None):
+        """The same shards at narrower obj/OCR slot counts
+        (``models.sa_m4c.with_widths``): every width is read from
+        ``params_cfg.mmt``."""
+        repl = {k: int(v) for k, v in (("max_obj_num", n_obj), ("max_ocr_num", n_ocr))
+                if v is not None}
+        if not repl:
+            return self
+        small = copy.copy(self)
+        small.params_cfg = self.params_cfg._replace(
+            mmt=dataclasses.replace(self.params_cfg.mmt, **repl))
+        return small
+
+    @torch.no_grad()
+    def decode_consts(self) -> List[Dict[str, torch.Tensor]]:
+        """Each shard's stacked weights for the ``fused`` decode."""
+        return [_mega_step_consts(s.mmt, self.dtype) for s in self.shards]
+
+    # ----- layers -----
+
+    def _layer(self, layers, x, attend):
+        """One BERT layer over ``x`` (on home): ``layers`` are the shards'
+        narrowed layers and ``attend(r, layer, x_r)`` shard r's merged
+        attention context."""
+        xs = broadcast(x, self.devices)
+        ctxs = [attend(r, layer, xs[r]) for r, layer in enumerate(layers)]
+        home = layers[0]
+        y = row_parallel(ctxs, [l.attention.output.dense.weight for l in layers],
+                         home.attention.output.dense.bias, x.device)
+        attn_out = home.attention.output.LayerNorm(y + x)
+        inters = [gelu_erf(h) for h in column_parallel(
+            attn_out, [l.intermediate.dense.weight for l in layers],
+            [l.intermediate.dense.bias for l in layers])]
+        y = row_parallel(inters, [l.output.dense.weight for l in layers],
+                         home.output.dense.bias, x.device)
+        return home.output.LayerNorm(y + attn_out)
+
+    def _mmt_layers(self):
+        """(layer_type, mix, the shards' layers) in ``layer_type_list`` order."""
+        for layers in zip(*(s.mmt.iter_layers() for s in self.shards)):
+            yield layers[0][0], layers[0][1], [layer for _, _, layer in layers]
+
+    def _text_bert(self, ids, mask):
+        emb = self.shards[0].text_bert.embeddings
+        words = vocab_parallel_embedding(
+            ids.long(), self.parts["text_bert.embeddings.word_embeddings.weight"], ids.device)
+        x = (words + emb.position_embeddings.weight[None, :ids.shape[1]]
+             + emb.token_type_embeddings.weight[0]).to(self.dtype)
+        x = emb.LayerNorm(x)
+        biases = broadcast(((1.0 - mask.float()) * MASK_BIAS)[:, None, None, :], self.devices)
+        for layers in zip(*(s.text_bert.encoder.layer for s in self.shards)):
+            x = self._layer(layers, x, lambda r, m, xr: m.attention.self(xr, biases[r]))
+        return x
+
+    def encode(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``SAM4C.encode`` (deterministic), on home."""
+        home = self.shards[0]
+        obj_mmt_in, ocr_mmt_in = home.encode_regions(batch)
+        text = self._text_bert(batch["question_indices"], batch["question_mask"])
+        if home.text_bert_out_linear is not None:
+            text = home.text_bert_out_linear(text)
+        return {"text_bert_emb": text, "obj_mmt_in": obj_mmt_in, "ocr_mmt_in": ocr_mmt_in}
+
+    # ----- output head -----
+
+    def answer_tables(self, dtype) -> List[torch.Tensor]:
+        """The layernormed answer embeddings (the classifier's rows in
+        ``dtype``), each part on the shard that holds its rows; the
+        LayerNorm is shard 0's."""
+        ln = self.shards[0].mmt.prev_pred_embeddings.ans_layer_norm
+        return [layer_norm_tf(w.to(dtype), ln.weight.to(w.device), ln.bias.to(w.device), ln.eps)
+                for w in self.parts["classifier.weight"]]
+
+    @property
+    def num_answers(self) -> int:
+        return sum(w.shape[0] for w in self.parts["classifier.weight"])
+
+    def classify(self, x):
+        """The classifier's logits of ``x`` in vocab order, on ``x``'s device."""
+        return vocab_parallel_logits(x, self.parts["classifier.weight"],
+                                     self.parts["classifier.bias"], x.device)
+
+    def ptr_project(self, x, which: str) -> List[torch.Tensor]:
+        """The OCR pointer's ``query`` or ``key`` projection of ``x``, one
+        part per shard that holds a slice of it."""
+        return column_parallel(x, self.parts[f"ocr_ptr_net.{which}.weight"],
+                               self.parts[f"ocr_ptr_net.{which}.bias"])
+
+    def ptr_norm(self) -> float:
+        """The pointer scores' divisor: the root of the whole query width."""
+        return math.sqrt(self.shards[0].ocr_ptr_net.query_key_size)
+
+    # ----- teacher-forced forward -----
+
+    def _prev_pred_embeddings(self, ocr_emb, prev_inds):
+        """``mmt.PrevPredEmbeddings`` (deterministic)."""
+        pp = self.shards[0].mmt.prev_pred_embeddings
+        dtype = ocr_emb.dtype
+        ans_num = self.num_answers
+        ocr_emb = pp.ocr_layer_norm(ocr_emb)
+        prev = prev_inds.long()
+        is_vocab = prev < ans_num
+        from_vocab = vocab_parallel_embedding(torch.where(is_vocab, prev, 0),
+                                              self.answer_tables(dtype), prev.device)
+        ocr_idx = torch.where(is_vocab, 0, prev - ans_num)
+        from_ocr = torch.gather(ocr_emb, 1, ocr_idx[:, :, None].expand(-1, -1, ocr_emb.shape[-1]))
+        raw = torch.where(is_vocab[:, :, None], from_vocab, from_ocr)
+        token_type = (prev >= ans_num).long()
+        emb = (pp.position_embeddings.weight[None, :prev.shape[1]]
+               + pp.token_type_embeddings.weight[token_type]).to(dtype)
+        return raw + pp.emb_layer_norm(emb)
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``SAM4C.forward`` (deterministic, teacher-forced on
+        ``train_prev_inds``): the MMT outputs and ``scores``, on home."""
+        cfg = self.params_cfg.mmt
+        enc = self.encode(batch)
+        dec_emb = self._prev_pred_embeddings(enc["ocr_mmt_in"], batch["train_prev_inds"])
+        x = torch.cat([enc["text_bert_emb"], enc["obj_mmt_in"], enc["ocr_mmt_in"], dec_emb], 1)
+        b, dec_len = x.shape[0], dec_emb.shape[1]
+        classes = batch["spatial_classes"]
+        q_len = cfg.max_seq_length
+        col_mask = torch.cat([batch["question_mask"].float(), batch["pad_obj_mask"].float(),
+                              batch["pad_ocr_mask"].float(),
+                              torch.zeros(b, dec_len, device=x.device)], dim=1)
+        perm = dict(q_len=q_len, n_ctx=classes.shape[-1], dec_len=dec_len,
+                    mask_quadrants=tuple(cfg.attention_mask_quadrants))
+        base_ok = combined_permission(classes, None, col_mask, spatial=False, num_heads=1, **perm)
+        base = broadcast(torch.where(base_ok, 0.0, MASK_BIAS), self.devices)
+        masks, classes_r = broadcast(col_mask, self.devices), broadcast(classes, self.devices)
+        spatial_args: List[Dict[str, dict]] = [{} for _ in self.devices]
+
+        def spatial(r, key, h):
+            if key not in spatial_args[r]:
+                lut = _device_lut(key, r * h, h, self.devices[r])
+                if self.shards[r].mmt.attention_backend == "kernel":
+                    spatial_args[r][key] = {"kernel_ctx": dict(
+                        classes=classes_r[r].contiguous(), lut=lut, col_mask=masks[r],
+                        spatial=True, **perm)}
+                else:
+                    spatial_args[r][key] = {"combined_ok": combined_permission(
+                        classes_r[r], lut, masks[r], spatial=True, num_heads=h, **perm)}
+            return spatial_args[r][key]
+
+        for layer_type, mix, layers in self._mmt_layers():
+            if layer_type == "n":
+                x = self._layer(layers, x, lambda r, m, xr: m.attention.self(xr, base[r]))
+            else:
+                key = MATRIX_TYPE_MAP[mix]
+                x = self._layer(layers, x, lambda r, m, xr: m.attention.self(
+                    xr, **spatial(r, key, m.attention.self.num_heads)))
+
+        ocr_begin = q_len + cfg.max_obj_num
+        dec_out = x[:, -dec_len:]
+        ocr_out = x[:, ocr_begin:ocr_begin + cfg.max_ocr_num]
+        dyn = reduce_sum([torch.matmul(q, k.transpose(-1, -2)) for q, k in zip(
+            self.ptr_project(dec_out, "query"), self.ptr_project(ocr_out, "key"))],
+            x.device) / self.ptr_norm()
+        ocr_bias = ((1.0 - batch["pad_ocr_mask"].to(self.dtype)) * MASK_BIAS)[:, None, :]
+        return {
+            "mmt_seq_output": x,
+            "mmt_txt_output": x[:, :q_len],
+            "mmt_ocr_output": ocr_out,
+            "mmt_dec_output": dec_out,
+            "scores": torch.cat([self.classify(dec_out), dyn + ocr_bias.to(dyn.dtype)], dim=-1),
+        }
+
+    # ----- encoder cache -----
+
+    def build_mmt_cache(self, enc, batch, attention_backend: str = "plain") -> List[MMTCache]:
+        """``fast_decode.build_mmt_cache`` on the shards: one ``MMTCache``
+        per shard, its K/V (L, B, Le, D/tp) of its own heads on its device
+        (``enc_out`` and ``ocr_mmt_in`` are home's, shared)."""
+        cfg = self.params_cfg.mmt
+        x = torch.cat([enc["text_bert_emb"], enc["obj_mmt_in"], enc["ocr_mmt_in"]], dim=1)
+        b, le, d = x.shape
+        col_mask = torch.cat([batch["question_mask"], batch["pad_obj_mask"],
+                              batch["pad_ocr_mask"]], dim=1).float()
+        masks = broadcast(col_mask, self.devices)
+        biases = broadcast(((1.0 - col_mask) * MASK_BIAS)[:, None, None, :], self.devices)
+        classes = broadcast(batch["spatial_classes"], self.devices)
+        n_layers = len(cfg.layer_type_list)
+        k_all = [x.new_empty(n_layers, b, le, d // self.tp, device=dev) for dev in self.devices]
+        v_all = [x.new_empty(n_layers, b, le, d // self.tp, device=dev) for dev in self.devices]
+        spatial_bias: List[Dict[str, torch.Tensor]] = [{} for _ in self.devices]
+        for li, (layer_type, mix, layers) in enumerate(self._mmt_layers()):
+            key = MATRIX_TYPE_MAP[mix]
+            x = self._layer(layers, x, lambda r, m, xr: _cache_attention(
+                m.attention.self, layer_type, key, xr, k_all[r][li], v_all[r][li], biases[r],
+                masks[r], classes[r], cfg, attention_backend, r * m.attention.self.num_heads,
+                spatial_bias[r]))
+        masked = tuple(_dec_rows_masked(cfg, lt) for lt in cfg.layer_type_list)
+        return [MMTCache(k_enc=k, v_enc=v, enc_out=x, enc_bias_cols=bias,
+                         ocr_mmt_in=enc["ocr_mmt_in"], spatial_dec_masked=masked)
+                for k, v, bias in zip(k_all, v_all, biases)]
+
+
+def decode_tensor_parallel(model: TPSAM4C, batch, bos_idx: int, backend: str,
+                           check_masks: bool, consts=None):
+    """``greedy_decode_fast`` of a tensor-parallel model with a resolved
+    ``backend`` (``plain`` or ``fused``; ``consts``: ``decode_consts()``).
+    The shards' tables, caches and decoder K/V stay on their devices; the
+    scores and ids come back on home."""
+    cfg = model.params_cfg.mmt
+    dtype, home, devices, tp = model.dtype, model.home, model.devices, model.tp
+    enc = model.encode(batch)
+    caches = model.build_mmt_cache(enc, batch, "plain" if backend == "plain" else "kernel")
+    pp = model.shards[0].mmt.prev_pred_embeddings
+    # step-invariant tables, as fast_decode._prev_pred_tables makes them
+    tables = model.answer_tables(torch.float32)
+    ocr_emb = pp.ocr_layer_norm(caches[0].ocr_mmt_in).to(torch.float32)
+    ocr_begin = cfg.max_seq_length + cfg.max_obj_num
+    ocr_out = caches[0].enc_out[:, ocr_begin:ocr_begin + cfg.max_ocr_num].to(dtype)
+    keys = model.ptr_project(ocr_out, "key")
+    ocr_bias = ((1.0 - batch["pad_ocr_mask"].float()) * MASK_BIAS).to(dtype)
+    ans_num = model.num_answers
+    b, t_max, n_layers = ocr_out.shape[0], cfg.num_decoding_steps, len(cfg.layer_type_list)
+
+    def embed(token, t):
+        return _dec_row_embedding(pp, lambda ids: vocab_parallel_embedding(ids, tables, home),
+                                  ocr_emb, ans_num, token, t).to(dtype)
+
+    def head(x):
+        dyn = reduce_sum([torch.matmul(k, q[:, :, None])[:, :, 0] for k, q in zip(
+            keys, model.ptr_project(x, "query"))], home) / model.ptr_norm()
+        return torch.cat([model.classify(x), dyn + ocr_bias], dim=-1)
+
+    if backend == "plain":
+        dec_kv = [[(c.k_enc.new_zeros(shape), c.k_enc.new_zeros(shape))
+                   for shape in ((b, _layer_heads(cfg, lt) // tp, t_max,
+                                  cfg.hidden_size // _layer_heads(cfg, lt))
+                                 for lt in cfg.layer_type_list)] for c in caches]
+
+        def step(x, t):
+            col_bias = [_dec_col_bias(cfg, t, dev) for dev in devices]
+            x = x[:, None]
+            for li, (layer_type, _, layers) in enumerate(model._mmt_layers()):
+                x = model._layer(layers, x, lambda r, m, xr: _one_row_context(
+                    m.attention.self, layer_type, cfg, caches[r], li, xr, dec_kv[r][li], t,
+                    col_bias[r]))
+            return x[:, 0]
+
+        return _greedy_steps(cfg, b, home, bos_idx, embed, head, step)
+
+    seg = _seg_lens(batch, validate=check_masks)
+    segs = broadcast(seg, devices)
+    if consts is None:
+        consts = model.decode_consts()
+    k_dec = [c.k_enc.new_zeros(n_layers, b, t_max, c.k_enc.shape[-1]) for c in caches]
+    v_dec = [c.k_enc.new_zeros(n_layers, b, t_max, c.k_enc.shape[-1]) for c in caches]
+    steps = [torch.arange(t_max, dtype=torch.int32, device=dev) for dev in devices]
+
+    def step(x, t):
+        return _decode_one_row_fused(cfg, consts, caches, segs, x, k_dec, v_dec, t,
+                                     [s[t:t + 1] for s in steps])
+
+    return _greedy_steps(cfg, b, home, bos_idx, embed, head, step)

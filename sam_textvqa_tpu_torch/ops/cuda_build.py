@@ -195,6 +195,14 @@ def stream(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+def on_device(device: torch.device):
+    """A context that makes ``device`` (an indexed CUDA device) current
+    around a kernel launch: the C entry points launch on the current device,
+    and raise a kernel's shared-memory limit there, while the tensors may
+    lie on another."""
+    return torch.cuda.device(device)
+
+
 def refuse_grad(what: str, tensors: Iterable[torch.Tensor]) -> None:
     """Raise when grad mode is on and any of ``tensors`` requires grad: the
     kernels have no backward (neither have the JAX package's), and writing

@@ -98,11 +98,12 @@ def decode_attention(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, *, hd: int,
     lib = cuda_build.library("decode_attention", _declare)
     out = torch.empty_like(q)
     p = cuda_build.ptr
-    rc = lib.sam_decode_attention(
-        code, p(q), p(k_enc), p(v_enc), p(k_dec), p(v_dec), p(out),
-        p(seg_lens), p(t), b, d // hd, hd, le, t_max, q_len, n_obj,
-        1.0 / math.sqrt(hd), cuda_build.stream(dev),
-    )
+    with cuda_build.on_device(dev):
+        rc = lib.sam_decode_attention(
+            code, p(q), p(k_enc), p(v_enc), p(k_dec), p(v_dec), p(out),
+            p(seg_lens), p(t), b, d // hd, hd, le, t_max, q_len, n_obj,
+            1.0 / math.sqrt(hd), cuda_build.stream(dev),
+        )
     cuda_build.check(lib, rc, "decode_attention")
     cuda_build.count_launch("decode_attention", dt)
     return out

@@ -144,10 +144,11 @@ def decode_step_fused(t, seg_lens, x0, wqkv, bqkv, wout, bout, ln1w, ln1b,
     x_out = torch.empty_like(x0)
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     p = cuda_build.ptr
-    rc = lib.sam_decode_step(
-        cuda_build.dtype_code(dt), *(p(x) for x in args), p(x_out), p(workspace),
-        n_layers, b, d, f, le, t_max, hd, q_len, n_obj, stream,
-    )
+    with cuda_build.on_device(dev):
+        rc = lib.sam_decode_step(
+            cuda_build.dtype_code(dt), *(p(x) for x in args), p(x_out), p(workspace),
+            n_layers, b, d, f, le, t_max, hd, q_len, n_obj, stream,
+        )
     cuda_build.check(lib, rc, "decode_step_fused")
     cuda_build.count_launch("decode_step", dt)
     return x_out

@@ -124,12 +124,13 @@ def spatial_attention(
     quad_bits = sum(1 << qd for qd in set(mask_quadrants))
     scratch = torch.empty(scratch_bytes, dtype=torch.int8, device=dev)
     p = cuda_build.ptr
-    rc = lib.sam_spatial_attention(
-        code, p(q), p(k), p(v), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        p(classes), p(lut), p(col_mask), p(out), p(scratch),
-        b, h, length, d, q_len, n_ctx, quad_bits, int(spatial),
-        1.0 / math.sqrt(d), cuda_build.stream(dev),
-    )
+    with cuda_build.on_device(dev):
+        rc = lib.sam_spatial_attention(
+            code, p(q), p(k), p(v), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            p(classes), p(lut), p(col_mask), p(out), p(scratch),
+            b, h, length, d, q_len, n_ctx, quad_bits, int(spatial),
+            1.0 / math.sqrt(d), cuda_build.stream(dev),
+        )
     cuda_build.check(lib, rc, "spatial_attention")
     cuda_build.count_launch("spatial_attention", dt)
     return out

@@ -10,20 +10,25 @@ process assembles only its own rows of every global batch
 the one a single process computes on the whole global batch
 (``training/step.py``).
 
-One device per process: the kernels keep their raised shared-memory limit
-in a process-wide ``static`` and ``cudaFuncSetAttribute`` acts on the
-current device, so :func:`init_distributed` calls ``torch.cuda.set_device``
-before any CUDA work and :func:`wrap_model` refuses a model on another
-device. Tensor parallelism (the JAX package's ``_TP_RULES``) is ROADMAP
-queue 1, item 9b.
+One device per process for training: :func:`init_distributed` calls
+``torch.cuda.set_device`` before any CUDA work and :func:`wrap_model`
+refuses a model on another device.
+
+Serving runs in one process over a list of devices instead
+(``serving/engine.py``): :func:`make_mesh` lays them out as the JAX
+package's (data, model) grid, and the Megatron rules of
+:data:`TP_RULES` / :func:`shard_axis` say which weights a tensor-parallel
+group cuts (``parallel/tensor.py``, ``models/tensor_parallel.py``).
+Tensor-parallel training is ROADMAP queue 1, item 9c.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -159,3 +164,84 @@ def check_batch(batch_size: int, world: int, grad_accum: int) -> None:
         raise ValueError(f"each process's {batch_size // world} rows do not split into "
                          f"{grad_accum} microbatches: pick a batch_size that is a multiple "
                          f"of {world * grad_accum}")
+
+
+def make_mesh(devices: Sequence[Union[str, torch.device]],
+              model_parallel: int = 1) -> List[List[torch.device]]:
+    """A (data, model) grid over ``devices``, the JAX package's
+    ``make_mesh``: row g is data-parallel group g, and its
+    ``model_parallel`` devices hold the shards of one tensor-parallel model
+    (shard r on column r). A model axis of 1 is pure data parallelism. A
+    device may repeat (``cuda:0,cuda:0``): each entry is one replica or one
+    shard all the same."""
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    if model_parallel < 1 or n < 1 or n % model_parallel:
+        raise ValueError(f"{n} devices do not make a grid with a model axis of "
+                         f"{model_parallel}")
+    return [devices[i:i + model_parallel] for i in range(0, n, model_parallel)]
+
+
+#: (regex over a ``state_dict`` key, the dim cut over the model axis), first
+#: match wins: the JAX package's ``_TP_RULES`` (``parallel/mesh.py``)
+#: translated from its param paths to the reference names. Megatron's
+#: mapping for (out, in) weights: QKV (and the OCR pointer's query and key,
+#: which the JAX pattern also matches) and the FFN's first product cut their
+#: output dim; the attention output and the FFN's second product their input
+#: dim (their biases stay whole); the word embeddings and the classifier
+#: their vocab rows.
+TP_RULES: Tuple[Tuple[str, int], ...] = (
+    (r".*(query|key|value)\.weight$", 0),
+    (r".*(query|key|value)\.bias$", 0),
+    (r".*intermediate\.dense\.weight$", 0),
+    (r".*intermediate\.dense\.bias$", 0),
+    (r".*attention\.output\.dense\.weight$", 1),
+    (r".*\.output\.dense\.weight$", 1),
+    (r".*word_embeddings\.weight$", 0),
+    (r"classifier\.weight$", 0),
+    (r"classifier\.bias$", 0),
+)
+
+
+def param_sharding_rules(key: str) -> Optional[int]:
+    """The dim :data:`TP_RULES` cut for ``key``; None: replicated."""
+    for pattern, axis in TP_RULES:
+        if re.match(pattern, key):
+            return axis
+    return None
+
+
+def shard_axis(key: str, shape: Sequence[int], tp: int) -> Optional[int]:
+    """The dim along which ``tp`` shards cut the tensor ``key`` of
+    ``shape``, or None where it is replicated: JAX ``shard_params``' rule,
+    which cuts only a dim that ``tp`` divides evenly (so at tp 4 c3's 30,522
+    word embeddings stay whole, and at tp 3 its 5,000 classifier rows)."""
+    axis = param_sharding_rules(key)
+    if tp <= 1 or axis is None or axis >= len(shape) or shape[axis] % tp:
+        return None
+    return axis
+
+
+def check_tensor_parallel(params_cfg, tp: int) -> None:
+    """Raise ``ValueError`` unless ``tp`` shards can hold whole heads and
+    FFN slices of every layer of ``params_cfg`` (a ``SAM4CParams``). JAX
+    lets XLA reshard a head that straddles devices; each shard here runs
+    the kernels on its own whole heads, so ``tp`` must divide every head
+    count and FFN width (a deliberate difference). The learned spatial head
+    bias (``use_bias``) is refused too: it is cut by no rule."""
+    mmt, tb = params_cfg.mmt, params_cfg.text_bert
+    if tp < 1:
+        raise ValueError(f"model_parallel must be at least 1, not {tp}")
+    heads = {"TextBERT": tb.num_attention_heads, "MMT normal": mmt.num_attention_heads}
+    if "s" in mmt.layer_type_list:
+        heads["MMT spatial"] = mmt.num_spatial_relations
+    problems = [f"the {n} layers' {h} heads" for n, h in heads.items() if h % tp]
+    problems += [f"the {n} FFN width {f}" for n, f in
+                 (("TextBERT", tb.intermediate_size), ("MMT", mmt.intermediate_size)) if f % tp]
+    if problems:
+        raise ValueError(f"model_parallel {tp} does not divide {', '.join(problems)}: each "
+                         f"shard must hold whole heads (the kernels run on a shard's own "
+                         f"heads)")
+    if tp > 1 and mmt.use_bias:
+        raise ValueError("tensor parallelism does not take the learned spatial head bias "
+                         "(use_bias)")

@@ -22,6 +22,17 @@ With ``--port 0`` the bound port is announced on stdout as
 ``{"listening": [host, port]}``. SIGTERM or SIGINT stops accepting, drains
 the queued requests and exits.
 
+Several devices, in this one process (JAX ``serve.py``'s dp x tp mesh):
+
+  # 2 data-parallel replicas, each coalesced batch cut in two row blocks
+  python -m sam_textvqa_tpu_torch.serve --config ... --demo 256 --data_parallel 2
+  # Megatron tensor parallelism over 2 devices (the batch-1 latency lever)
+  python -m sam_textvqa_tpu_torch.serve --config ... --demo 256 --model_parallel 2
+
+``--device`` takes a comma-separated list (default: every visible CUDA
+device); a device may repeat (``cuda:0,cuda:0`` or ``cpu,cpu``), which runs
+the same path on one card.
+
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions,
 eagerly, instead.
 """
@@ -44,18 +55,17 @@ import torch
 from .config import TaskConfig, load_task_config
 from .data.synthetic import make_batch
 from .data.vocab import VocabDict, synthetic_vocab
+from .models.fast_decode import MEGA_TP_REFUSAL
 from .models.sa_m4c import SAM4C, SAM4CParams
+from .parallel.mesh import check_tensor_parallel
 from .serving.engine import SAMPLE_KEYS, ServingEngine
 from .utils.checkpoint import restore_checkpoint
-from .utils.device import resolve_device
 
 logger = logging.getLogger("serve")
 
 #: JAX flags not ported yet: (flag, its default, the ROADMAP queue 1 item)
 UNPORTED = (
     ("beam_size", 1, "item 5, beam search"),
-    ("model_parallel", 1, "item 9b, tensor parallelism"),
-    ("data_parallel", 0, "item 9b, multi-device serving"),
     ("artifact", None, "item 10, AOT artifacts"),
     ("compile_cache", None, "item 11, the compile cache"),
 )
@@ -97,18 +107,25 @@ def get_args(argv=None):
     p.add_argument("--port", type=int, default=None,
                    help="serve JSON lines over TCP on this port (0: any free port)")
     p.add_argument("--host", default="127.0.0.1")
-    p.add_argument("--device", default=None, help="default: cuda")
+    p.add_argument("--device", default=None, metavar="DEV[,DEV...]",
+                   help="the devices to serve on, comma-separated; a device may repeat "
+                        "(default: every visible CUDA device)")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor-parallel ways over a DP x TP device grid (the batch-1 "
+                        "latency lever); 1 = no tensor parallelism")
+    p.add_argument("--data_parallel", type=int, default=0, metavar="N",
+                   help="data-parallel ways (the throughput lever): each coalesced batch "
+                        "is cut into N row blocks, one per replica. Default 0 = auto: every "
+                        "device left over after --model_parallel when TP is on, else one "
+                        "device. Buckets must divide by N")
     p.add_argument("--seed", type=int, default=0, help="weights and demo requests")
     # JAX flags refused unless left at their defaults (UNPORTED)
     p.add_argument("--beam_size", type=int, default=1)
-    p.add_argument("--model_parallel", type=int, default=1)
-    p.add_argument("--data_parallel", type=int, default=0)
     p.add_argument("--artifact", default=None, metavar="DIR")
     p.add_argument("--compile_cache", default=None, metavar="DIR")
     args = p.parse_args(argv)
     for flag, default, item in UNPORTED:
-        value = getattr(args, flag)
-        if value != default and not (flag == "data_parallel" and value == 1):
+        if getattr(args, flag) != default:
             p.error(f"--{flag} is not ported yet (ROADMAP queue 1, {item})")
     if args.decode_backend in UNPORTED_DECODE_BACKENDS:
         p.error(f"--decode_backend {args.decode_backend} is not ported yet "
@@ -118,6 +135,48 @@ def get_args(argv=None):
     if not args.demo and args.port is None:
         p.error("pick a mode: --demo N or --port P")
     return args
+
+
+def parse_devices(spec) -> list:
+    """The devices of ``--device``: a comma-separated list (a device may
+    repeat), by default every visible CUDA device (the counterpart of
+    ``jax.devices()``). With no GPU and no list this raises; it never drops
+    to the CPU by itself."""
+    if spec:
+        return [torch.device(d.strip()) for d in spec.split(",") if d.strip()]
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def plan_mesh(args, n_dev: int, buckets) -> tuple:
+    """(dp, tp) from ``--data_parallel`` / ``--model_parallel`` over
+    ``n_dev`` devices, with JAX ``serve.py``'s checks and messages: auto dp
+    must use every device, an explicit dp may leave some idle (a warning),
+    dp x tp may not exceed the devices, and dp must divide every bucket."""
+    tp = args.model_parallel
+    if tp < 1 or args.data_parallel < 0:
+        raise SystemExit(f"--model_parallel {tp} and --data_parallel {args.data_parallel} "
+                         f"must be positive (0: auto dp)")
+    # default 0 = auto: soak up the leftover devices when TP is on, one
+    # device otherwise; auto must use every device, an explicit dp may not
+    if not args.data_parallel and tp > 1 and n_dev % tp != 0:
+        raise SystemExit(
+            f"--model_parallel {tp} must divide the {n_dev} available devices (otherwise "
+            f"devices silently idle); or pass an explicit --data_parallel")
+    dp = args.data_parallel if args.data_parallel else (max(1, n_dev // tp) if tp > 1 else 1)
+    if args.data_parallel and dp * tp < n_dev:
+        logger.warning("dp=%d x tp=%d uses %d of %d devices; the rest idle",
+                       dp, tp, dp * tp, n_dev)
+    if dp > 1 or tp > 1:
+        if dp * tp > n_dev:
+            raise SystemExit(f"--data_parallel {dp} x --model_parallel {tp} needs {dp * tp} "
+                             f"devices; only {n_dev} available")
+        bad = [b for b in buckets if b % dp != 0]
+        if bad:
+            raise SystemExit(f"buckets {bad} not divisible by dp={dp}; pick --buckets that "
+                             f"dp divides, or change --data_parallel")
+    return dp, tp
 
 
 def build_vocab(task_cfg: TaskConfig) -> VocabDict:
@@ -291,21 +350,37 @@ def main(argv=None):
     logging.basicConfig(format="%(asctime)s %(levelname)s %(name)s: %(message)s",
                         level=logging.INFO)
     args = get_args(argv)
-    device = resolve_device(args.device)
+    devices = parse_devices(args.device)
+    buckets = _ladder(args.buckets)
+    dp, tp = plan_mesh(args, len(devices), buckets)
+    devices = devices[:dp * tp]
     task_cfg = load_task_config(args.config)
+    if tp > 1:
+        if args.decode_backend == "mega":
+            raise SystemExit(MEGA_TP_REFUSAL)
+        try:
+            check_tensor_parallel(task_cfg, tp)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+    if dp > 1 or tp > 1:
+        logger.info("serving over mesh %s (dp=%d x tp=%d)",
+                    {"data": dp, "model": tp, "devices": [str(d) for d in devices]}, dp, tp)
     vocab = build_vocab(task_cfg)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    model = build_model(task_cfg, len(vocab), dtype, args.seed, device)
+    # a tensor-parallel engine copies its shards from the CPU
+    home = devices[0] if tp == 1 else torch.device("cpu")
+    model = build_model(task_cfg, len(vocab), dtype, args.seed, home)
     if args.checkpoint:
-        restored = restore_checkpoint(args.checkpoint, map_location=device)
+        restored = restore_checkpoint(args.checkpoint, map_location=home)
         model.load_state_dict(restored["model_state_dict"], strict=True)
         logger.info("serving the weights of %s", args.checkpoint)
     else:
         logger.warning("no --checkpoint: serving RANDOM weights (seed %d)", args.seed)
     engine = ServingEngine(
-        model, vocab, buckets=_ladder(args.buckets), max_wait_ms=args.max_wait_ms,
-        decode_backend=args.decode_backend, device=device, ocr_buckets=args.ocr_bucket,
-        obj_buckets=args.obj_bucket, auto_tune_every=args.auto_tune,
+        model, vocab, buckets=buckets, max_wait_ms=args.max_wait_ms,
+        decode_backend=args.decode_backend, devices=devices, model_parallel=tp,
+        ocr_buckets=args.ocr_bucket, obj_buckets=args.obj_bucket,
+        auto_tune_every=args.auto_tune,
     )
     t0 = time.monotonic()
     engine.warmup()
@@ -318,8 +393,9 @@ def main(argv=None):
                                          args.demo_ocr)
             stats = run_demo(engine, samples, args.demo, args.concurrency, args.rate)
             stats["decode_backend"] = engine.decode_backend
-            stats["device"] = (str(device) if device.type != "cuda"
-                               else torch.cuda.get_device_name(device))
+            stats["device"] = (str(devices[0]) if devices[0].type != "cuda"
+                               else torch.cuda.get_device_name(devices[0]))
+            stats["mesh"] = {"data": dp, "model": tp}
             print(json.dumps(stats), flush=True)
         if args.port is not None:
             run_server(engine, args.host, args.port)

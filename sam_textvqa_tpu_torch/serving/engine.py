@@ -22,6 +22,16 @@
   replay, before the next batch can overwrite it. A capture that fails
   raises: no cell is ever served eagerly on the card. On the CPU every
   batch is decoded eagerly.
+* **Several devices** (``devices=``, ``model_parallel=``; JAX's dp x tp
+  mesh, in one process): the devices form ``len(devices) // model_parallel``
+  data-parallel groups (``parallel.mesh.make_mesh``). Each coalesced batch
+  of bucket B is cut into one block of B / dp rows per group, in row order,
+  and the ids are put back in that order. A group of one device is a
+  replica: its own copy of the weights, stacked decode weights, streams,
+  graph pool and one CUDA graph per cell. A group of several devices is a
+  tensor-parallel model (``models/tensor_parallel.py``) and decodes eagerly
+  (graphs across devices are ROADMAP queue 1, item 9d). A device may repeat
+  (``cuda:0,cuda:0``, ``cpu,cpu``).
 * **Coalescing.** One batcher thread blocks on the request queue, then takes
   whatever else arrives within ``max_wait_ms`` (or until the largest bucket
   fills).
@@ -44,6 +54,7 @@ processors.py:96-102,407-441).
 
 from __future__ import annotations
 
+import copy
 import gc
 import logging
 import threading
@@ -63,7 +74,9 @@ from ..evaluation.metrics import decode_predictions
 from ..models.fast_decode import (MASK_KEYS, _mega_step_consts, check_prefix_masks,
                                   greedy_decode_fast, resolve_backend)
 from ..models.sa_m4c import with_widths
+from ..models.tensor_parallel import TPSAM4C
 from ..ops import cuda_build
+from ..parallel.mesh import make_mesh
 from ..utils.device import resolve_device
 from .ladder import normalize_ladder, plan_axis, plan_buckets
 
@@ -218,14 +231,45 @@ class _Graph(NamedTuple):
     replays: List[int]
 
 
-class _Cell:
-    """One (obj width, OCR width) cell of the routing grid: the model at
-    those widths (the full model's parameters) and, on the card, its graph
-    per bucket."""
+class _Done(NamedTuple):
+    """The events after which a batch's ids, decoded by several replicas,
+    are on the host."""
 
-    def __init__(self, model):
-        self.model = model
-        self.graphs: Dict[int, _Graph] = {}
+    events: Tuple
+
+    def synchronize(self):
+        for event in self.events:
+            event.synchronize()
+
+
+class _Replica:
+    """One data-parallel group: its model (a ``SAM4C`` on its device, or a
+    ``TPSAM4C`` over its devices), the kernel backends' stacked weights
+    and, with graphs, its capture and replay streams and graph pool (its
+    replays never overlap; another replica's may)."""
+
+    def __init__(self, model, devices: List[torch.device], consts, graphs_on: bool):
+        self.model, self.devices, self.consts = model, devices, consts
+        self.device = devices[0]
+        if graphs_on:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.capture_stream = torch.cuda.Stream(self.device)
+            self.replay_stream = torch.cuda.Stream(self.device)
+
+
+class _Cell:
+    """One (obj width, OCR width) cell of the routing grid: each replica's
+    model at those widths (its full model's parameters) and, on the card,
+    each replica's graph per bucket."""
+
+    def __init__(self, models):
+        self.models = models
+        self.graphs: List[Dict[int, _Graph]] = [{} for _ in models]
+
+    @property
+    def model(self):
+        """The first replica's model."""
+        return self.models[0]
 
 
 class _Routing(NamedTuple):
@@ -264,6 +308,10 @@ class ServingEngine:
         (models/fast_decode.py); ``auto`` is resolved once, here.
       device: where the model runs; default ``cuda``, and with no GPU the
         engine raises unless ``device="cpu"`` is passed.
+      devices / model_parallel: instead of ``device``, a list of devices
+        laid out as ``len(devices) // model_parallel`` data-parallel groups
+        of ``model_parallel`` tensor-parallel shards (see the module
+        docstring); every bucket must divide by the number of groups.
       ocr_buckets / obj_buckets: optional width ladders (rungs below the
         full width); every batch runs at the narrowest (obj, OCR) cell that
         holds all its real tokens, with identical answers.
@@ -286,22 +334,35 @@ class ServingEngine:
                  ocr_buckets: Optional[Sequence[int]] = None,
                  obj_buckets: Optional[Sequence[int]] = None,
                  auto_tune_every: int = 0, auto_tune_min_speedup: float = 1.05,
-                 max_executables: int = 48):
+                 max_executables: int = 48, devices: Optional[Sequence] = None,
+                 model_parallel: int = 1):
         if not buckets or any(int(b) <= 0 for b in buckets):
             raise ValueError(f"buckets must be positive ints, got {buckets}")
         if auto_tune_every < 0:
             raise ValueError(f"auto_tune_every must be >= 0, got {auto_tune_every}")
-        self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        if devices is None:
+            if model_parallel != 1:
+                raise ValueError("model_parallel needs a list of devices")
+            devices = [resolve_device(device)]
+        elif device is not None:
+            raise ValueError("pass device or devices, not both")
+        mesh = make_mesh(devices, model_parallel)
+        if len({d.type for group in mesh for d in group}) != 1:
+            raise ValueError(f"devices {devices} mix device types")
+        self.dp, self.tp = len(mesh), int(model_parallel)
+        self.buckets = sorted({int(b) for b in buckets})
+        bad = [b for b in self.buckets if b % self.dp]
+        if bad:
+            raise ValueError(f"buckets {bad} not divisible by dp={self.dp}")
+        self.device = mesh[0][0]
+        mmt = model.params_cfg.mmt
+        self.decode_backend = resolve_backend(decode_backend, mmt, self.device, self.tp)
+        self._graphs_on = self.device.type == "cuda" and self.tp == 1
+        self._replicas = [self._replica(model.eval(), g, group) for g, group in enumerate(mesh)]
+        self.model = self._replicas[0].model
         self.answer_vocab = answer_vocab
         self.special = answer_vocab.special_ids()
-        self.buckets = sorted({int(b) for b in buckets})
         self.max_wait_s = max_wait_ms / 1000.0
-        mmt = model.params_cfg.mmt
-        self.decode_backend = resolve_backend(decode_backend, mmt, self.device)
-        # the kernel backends' stacked weights, made once (frozen weights)
-        self._consts = (None if self.decode_backend == "plain"
-                        else _mega_step_consts(self.model.mmt, self.model.dtype))
         self.stats = ServingStats()
         self._queue: "Queue[_Pending]" = Queue(maxsize=MAX_QUEUE)
         self._results: "Queue" = Queue(maxsize=PIPELINE_DEPTH)
@@ -309,16 +370,13 @@ class ServingEngine:
         self._inflight = 0  # popped but unanswered requests (under stats.lock)
         self._schema = {k: (v.shape, v.dtype) for k, v in self._zero_sample().items()
                         if k in SAMPLE_KEYS}
-        self._graphs_on = self.device.type == "cuda"
         self._capture_lock = threading.Lock()
         self.capture_s = 0.0  # seconds spent capturing graphs (warmup and tuner)
         self.pool_bytes = 0   # rise of memory_reserved over all captures
         if self._graphs_on:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._capture_stream = torch.cuda.Stream(self.device)
-            self._replay_stream = torch.cuda.Stream(self.device)
             self._staging: List[Dict[str, torch.Tensor]] = [{} for _ in range(PIPELINE_DEPTH)]
-            self._staged: List[Optional[torch.cuda.Event]] = [None] * PIPELINE_DEPTH
+            #: per slot, the events after which each replica's copy is done
+            self._staged: List[List[torch.cuda.Event]] = [[] for _ in range(PIPELINE_DEPTH)]
             self._slot = 0
         obj_ladder = normalize_ladder(obj_buckets, mmt.max_obj_num, "obj")
         ocr_ladder = normalize_ladder(ocr_buckets, mmt.max_ocr_num, "ocr")
@@ -335,6 +393,20 @@ class ServingEngine:
         self._threads_started = False
 
     # ---- decode plumbing ------------------------------------------------
+
+    def _replica(self, model, g: int, devices: List[torch.device]) -> _Replica:
+        """Data-parallel group ``g`` on ``devices``: group 0 takes ``model``
+        itself to its device, every other group a copy of its own; a group
+        of several devices cuts ``model`` into tensor-parallel shards."""
+        if len(devices) > 1:
+            replica = TPSAM4C(model, devices)
+        else:
+            replica = (model if g == 0 else copy.deepcopy(model)).to(devices[0])
+        consts = None
+        if self.decode_backend != "plain":  # stacked once: the weights are frozen
+            consts = (replica.decode_consts() if len(devices) > 1
+                      else _mega_step_consts(replica.mmt, replica.dtype))
+        return _Replica(replica, devices, consts, self._graphs_on)
 
     def _zero_sample(self) -> Dict:
         mmt = self.model.params_cfg.mmt
@@ -362,7 +434,7 @@ class ServingEngine:
         for ow in (*obj_ladder, None):
             for cw in (*ocr_ladder, None):
                 grid[(ow, cw)] = reuse.get((ow, cw)) or _Cell(
-                    with_widths(self.model, n_obj=ow, n_ocr=cw))
+                    [with_widths(r.model, n_obj=ow, n_ocr=cw) for r in self._replicas])
         return grid
 
     def _shrink(self, host_batch: Dict, obj_w, ocr_w) -> Dict:
@@ -411,28 +483,29 @@ class ServingEngine:
                 out[k] = torch.cat(parts, out=self._staging_view(slot, k, shape, parts[0].dtype))
         return out
 
-    def _decode(self, model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _decode(self, model, batch: Dict[str, torch.Tensor], consts=None) -> torch.Tensor:
         # the masks were checked on the host in _validate: the decode never
         # waits for the device
         _, pred_ids = greedy_decode_fast(model, batch, self.special.bos,
                                          backend=self.decode_backend, check_masks=False,
-                                         consts=self._consts)
+                                         consts=consts)
         return pred_ids
 
-    def _capture(self, model, host: Dict[str, torch.Tensor]) -> _Graph:
-        """Run the decode once eagerly on the capturing stream, then capture
-        it into the shared pool. A failed capture raises."""
+    def _capture(self, replica: _Replica, model, host: Dict[str, torch.Tensor]) -> _Graph:
+        """Run ``replica``'s decode once eagerly on its capturing stream,
+        then capture it into its pool. A failed capture raises."""
+        dev = replica.device
         with self._capture_lock:
-            stream = self._capture_stream
+            stream = replica.capture_stream
             with torch.cuda.stream(stream):
-                inputs = {k: v.to(self.device) for k, v in host.items()}
-                self._decode(model, inputs)
+                inputs = {k: v.to(dev) for k, v in host.items()}
+                self._decode(model, inputs, replica.consts)
             # the capture empties the allocator's cache first: do it here, so
             # that the rise of memory_reserved is the graph pool's growth
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(dev)
             torch.cuda.empty_cache()
             graph = torch.cuda.CUDAGraph()
-            reserved = torch.cuda.memory_reserved(self.device)
+            reserved = torch.cuda.memory_reserved(dev)
             t0 = time.monotonic()
             # no garbage collection inside the capture: collecting an old
             # CUDA graph (an engine and its threads form a cycle) destroys it
@@ -443,50 +516,76 @@ class ServingEngine:
             gc.disable()
             try:
                 with cuda_build.recording_launches() as launches:
-                    with torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                    with torch.cuda.graph(graph, pool=replica.pool, stream=stream,
                                           capture_error_mode="thread_local"):
-                        pred_ids = self._decode(model, inputs)
+                        pred_ids = self._decode(model, inputs, replica.consts)
             finally:
                 if gc_on:
                     gc.enable()
             self.capture_s += time.monotonic() - t0
-            self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
+            self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
         return _Graph(graph, inputs, pred_ids, launches, [0])
 
     def _warm(self, cell: _Cell, bucket: int, obj_w, ocr_w, zero: Dict) -> None:
-        """Decode the zero sample at ``cell`` and ``bucket``: on the card,
-        capture the cell's graph for the bucket (once)."""
-        if bucket in cell.graphs:
-            return
-        host = self._stack([zero], bucket, obj_w, ocr_w)
-        if self._graphs_on:
-            cell.graphs[bucket] = self._capture(cell.model, host)
-        else:
-            self._decode(cell.model, host)
+        """Decode the zero sample at ``cell`` and ``bucket`` on every
+        replica (its B / dp rows): on the card, capture each replica's graph
+        of the cell for the bucket (once)."""
+        host = self._stack([zero], bucket // self.dp, obj_w, ocr_w)
+        for g, replica in enumerate(self._replicas):
+            if bucket in cell.graphs[g]:
+                continue
+            if self._graphs_on:
+                cell.graphs[g][bucket] = self._capture(replica, cell.models[g], host)
+            else:
+                self._decode(cell.models[g], {k: v.to(replica.device) for k, v in host.items()},
+                             replica.consts)
 
     def _launch(self, cell: _Cell, bucket: int, obj_w, ocr_w, host: Dict, slot):
-        """Queue the decode of a staged host batch. Returns (pred ids, the
-        event after which they are on the host, or None on the CPU)."""
+        """Queue the decode of a staged host batch, row block g on replica
+        g. Returns (pred ids, whatever's ``synchronize()`` waits until they
+        are on the host, or None on the CPU)."""
+        rows = bucket // self.dp
+        blocks = [{k: v[g * rows:(g + 1) * rows] for k, v in host.items()}
+                  for g in range(self.dp)]
         if not self._graphs_on:
-            return self._decode(cell.model, host), None
-        if bucket not in cell.graphs:  # not warmed: capture on first use
+            return self._launch_eager(cell, bucket, blocks)
+        if any(bucket not in graphs for graphs in cell.graphs):  # capture on first use
             self._warm(cell, bucket, obj_w, ocr_w, self._prepare(self._zero_sample()))
-        g = cell.graphs[bucket]
-        with torch.cuda.stream(self._replay_stream):
-            for k, v in host.items():
-                g.inputs[k].copy_(v, non_blocking=True)
-            staged = torch.cuda.Event()
-            staged.record()
-            self._staged[slot] = staged
-            g.graph.replay()
-            # copy the ids out before a later replay of this cell overwrites them
-            ids = torch.empty(g.pred_ids.shape, dtype=g.pred_ids.dtype, pin_memory=True)
-            ids.copy_(g.pred_ids, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        g.replays[0] += 1
-        cuda_build.add_launches(g.launches)
-        return ids, done
+        first = cell.graphs[0][bucket].pred_ids
+        ids = torch.empty((bucket, *first.shape[1:]), dtype=first.dtype, pin_memory=True)
+        staged, done = [], []
+        for r, (replica, graphs, block) in enumerate(zip(self._replicas, cell.graphs, blocks)):
+            g = graphs[bucket]
+            with torch.cuda.stream(replica.replay_stream):
+                for k, v in block.items():
+                    g.inputs[k].copy_(v, non_blocking=True)
+                staged.append(torch.cuda.Event())
+                staged[-1].record()
+                g.graph.replay()
+                # copy the ids out before a later replay of this cell overwrites them
+                ids[r * rows:(r + 1) * rows].copy_(g.pred_ids, non_blocking=True)
+                done.append(torch.cuda.Event())
+                done[-1].record()
+            g.replays[0] += 1
+            cuda_build.add_launches(g.launches)
+        self._staged[slot] = staged
+        return ids, done[0] if len(done) == 1 else _Done(tuple(done))
+
+    def _launch_eager(self, cell: _Cell, bucket: int, blocks: List[Dict]):
+        """Decode each replica's block eagerly (the CPU; tensor-parallel
+        groups on the card)."""
+        outs = [self._decode(m, {k: v.to(r.device) for k, v in block.items()}, r.consts)
+                for m, r, block in zip(cell.models, self._replicas, blocks)]
+        if self.device.type != "cuda":
+            return torch.cat(outs), None
+        ids = torch.empty((bucket, *outs[0].shape[1:]), dtype=outs[0].dtype, pin_memory=True)
+        done = []
+        rows = bucket // self.dp
+        for r, (out, replica) in enumerate(zip(outs, self._replicas)):
+            ids[r * rows:(r + 1) * rows].copy_(out, non_blocking=True)
+            done.append(torch.cuda.Event())
+            done[-1].record(torch.cuda.current_stream(replica.device))
+        return ids, _Done(tuple(done))
 
     def _pick_bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -507,7 +606,7 @@ class ServingEngine:
     @property
     def num_executables(self) -> int:
         """Cells ``warmup`` runs: every bucket at every grid cell plus full
-        width (one CUDA graph each on the card)."""
+        width (one CUDA graph each per replica on the card)."""
         r = self._routing
         return len(self.buckets) * (1 + len(r.obj_ladder)) * (1 + len(r.ocr_ladder))
 
@@ -515,7 +614,8 @@ class ServingEngine:
         """The captured graphs of the current grid: their number, replays,
         and the kernel launches those replays ran (recorded launches x
         replays, by kernel)."""
-        graphs = [g for cell in self._routing.grid.values() for g in list(cell.graphs.values())]
+        graphs = [g for cell in self._routing.grid.values() for by_bucket in cell.graphs
+                  for g in list(by_bucket.values())]
         launches: Counter = Counter()
         for g in graphs:
             for k, n in g.launches.items():
@@ -759,8 +859,8 @@ class ServingEngine:
             return None
         slot = self._slot
         self._slot = (slot + 1) % PIPELINE_DEPTH
-        if self._staged[slot] is not None:
-            self._staged[slot].synchronize()
+        for event in self._staged[slot]:
+            event.synchronize()
         return slot
 
     def _batch_loop(self):

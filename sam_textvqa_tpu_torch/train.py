@@ -70,7 +70,7 @@ UNPORTED = (
     ("beam_size", 1, "item 5, beam search"),
     ("ocr_bucket", None, "item 7, the evaluator's width ladders"),
     ("obj_bucket", None, "item 7, the evaluator's width ladders"),
-    ("model_parallel", 1, "item 9b, tensor parallelism"),
+    ("model_parallel", 1, "item 9c, tensor-parallel training, item 9b's second half"),
     ("dropout_reuse", False, "item 1, dropout_mask_reuse"),
     ("compile_cache", None, "item 11, the compile cache"),
 )

@@ -677,8 +677,8 @@ def test_failed_capture_raises(dev):
     task, engine = _graph_engine(dev)
     decode = engine._decode
 
-    def reads_the_device(model, batch):
-        ids = decode(model, batch)
+    def reads_the_device(*args, **kw):
+        ids = decode(*args, **kw)
         ids.sum().item()
         return ids
 
@@ -687,3 +687,122 @@ def test_failed_capture_raises(dev):
         engine.warmup()
     assert engine.graph_counts()["graphs"] == 0
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------- several devices
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)])
+def test_spatial_attention_on_a_shard_matches_plain(dev, dtype, tol):
+    """K1 at a tensor-parallel shard's shape: H = 6 of c3's 12 spatial heads
+    with shard 1's LUT columns 6..11 (a contiguous (13, 6) tensor)."""
+    from sam_textvqa_tpu_torch.models.fast_decode import _device_lut
+
+    b, h, q_len, n_ctx, d = 4, 6, 20, 150, 64
+    q, k, v, classes, _, col_mask = _spatial_inputs(np.random.RandomState(1), b, h, q_len,
+                                                    n_ctx, 0, d, dev)
+    lut = _device_lut("3", 6, 6, dev)
+    assert torch.equal(lut.cpu(), torch.tensor(relation_head_lut("3")[:, 6:], dtype=torch.float32))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    kw = dict(q_len=q_len, n_ctx=n_ctx, dec_len=0, mask_quadrants=(1, 2), spatial=True)
+    out = spatial_attention(q, k, v, classes, lut, col_mask, **kw)
+    ref = spatial_attention_plain(q, k, v, classes, lut, col_mask, **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("tp", [2, 4])  # shard widths 384 and 192 (H = 6 and 3)
+def test_decode_attention_on_a_shard_matches_plain(dev, dtype, tol, tp):
+    rng = np.random.RandomState(tp)
+    b, d, le, t_max, q_len, n_obj = 32, 768 // tp, 170, 12, 20, 100
+    k_enc, v_enc, k_dec, v_dec, seg = _decode_inputs(rng, b, d, le, t_max, q_len, n_obj,
+                                                     dtype, dev)
+    q = torch.from_numpy(rng.randn(b, d).astype(np.float32)).to(dev, dtype)
+    t = torch.tensor([11], dtype=torch.int32, device=dev)
+    kw = dict(hd=64, q_len=q_len, n_obj=n_obj)
+    out = decode_attention(q, k_enc, v_enc, k_dec, v_dec, seg, t, **kw)
+    ref = decode_attention_plain(q, k_enc, v_enc, k_dec, v_dec, seg, t, **kw)
+    assert (out.float() - ref.float()).abs().max().item() < tol
+
+
+def _mesh_answers(dev, samples=None, **kw):
+    """(requests, answers) of an f32 engine over buckets (2, 4) on the card
+    (std 0.1 weights: the answers depend on the inputs)."""
+    from sam_textvqa_tpu_torch.data.vocab import synthetic_vocab
+    from sam_textvqa_tpu_torch.serve import synthetic_requests
+    from sam_textvqa_tpu_torch.serving.engine import ServingEngine
+
+    task = _train_task()
+    vocab = synthetic_vocab(40)
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, len(vocab)))
+    model.init_weights(torch.Generator().manual_seed(0), std=0.1)
+    engine = ServingEngine(model, vocab, buckets=(2, 4), max_wait_ms=50.0, **kw)
+    engine.warmup()
+    samples = samples or synthetic_requests(task, 8, len(vocab), seed=2)
+    with engine:
+        answers = [f.result(timeout=60)["answer"] for f in engine.submit_many(samples)]
+    return samples, answers, engine
+
+
+@pytest.mark.parametrize("devices,tp,launched,idle", [
+    (2, 1, ("spatial_attention", "decode_step"), ("decode_attention",)),
+    (2, 2, ("spatial_attention", "decode_attention"), ("decode_step",)),
+    (4, 2, ("spatial_attention", "decode_attention"), ("decode_step",)),
+], ids=["dp2", "tp2", "dp2xtp2"])
+def test_mesh_engines_on_one_card_answer_as_one_device(dev, devices, tp, launched, idle):
+    """The card repeated (cuda:0 x N): data-parallel replicas replay one
+    graph each per cell, tensor-parallel groups decode eagerly with K1 and
+    K2 on their shards; the f32 answers equal the single-device engine's."""
+    samples, want, _ = _mesh_answers(dev, device=dev)
+    assert len(set(want)) > 1
+    cuda_build.reset_launch_counts()
+    _, got, engine = _mesh_answers(dev, samples, devices=[dev] * devices, model_parallel=tp)
+    torch.cuda.synchronize()
+    assert got == want
+    counts = cuda_build.launch_counts()
+    assert all(counts[k] > 0 for k in launched) and all(counts[k] == 0 for k in idle), counts
+    graphs = engine.graph_counts()["graphs"]
+    assert graphs == (engine.num_executables * devices if tp == 1 else 0)
+
+
+def test_wrappers_launch_on_the_tensors_device(dev):
+    """With cuda:0 current, each wrapper launches on cuda:1 tensors there,
+    its shared-memory limit raised on cuda:1 too (K1 and f32 K2 at c3 need
+    more than the default 48 KB)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: with one, no other device can be current")
+    rng = np.random.RandomState(0)
+    with torch.cuda.device(0):
+        for card in (torch.device("cuda", 0), torch.device("cuda", 1)):
+            q, k, v, classes, lut, col_mask = _spatial_inputs(rng, 2, 12, 20, 150, 0, 64, card)
+            kw = dict(q_len=20, n_ctx=150, dec_len=0, mask_quadrants=(1, 2), spatial=True)
+            out = spatial_attention(q, k, v, classes, lut, col_mask, **kw)
+            assert out.device == card
+            ref = spatial_attention_plain(q, k, v, classes, lut, col_mask, **kw)
+            assert (out - ref).abs().max().item() < 1e-4
+            k_enc, v_enc, k_dec, v_dec, seg = _decode_inputs(rng, 4, 768, 170, 12, 20, 100,
+                                                             torch.float32, card)
+            qd = torch.from_numpy(rng.randn(4, 768).astype(np.float32)).to(card)
+            t = torch.tensor([5], dtype=torch.int32, device=card)
+            kw = dict(hd=64, q_len=20, n_obj=100)
+            out = decode_attention(qd, k_enc, v_enc, k_dec, v_dec, seg, t, **kw)
+            ref = decode_attention_plain(qd, k_enc, v_enc, k_dec, v_dec, seg, t, **kw)
+            assert (out - ref).abs().max().item() < 1e-5
+            n_layers, d, f, le, t_max, q_len, n_obj = _STEP_C3
+            k_enc, v_enc, k_dec, v_dec, seg = _decode_inputs(rng, 4, d, le, t_max, q_len, n_obj,
+                                                             torch.float32, card, n_layers)
+            dims = {"wqkv": (3 * d, d), "bqkv": (3 * d,), "wout": (d, d), "bout": (d,),
+                    "wff1": (f, d), "bff1": (f,), "wff2": (d, f), "bff2": (d,)}
+            w = [torch.from_numpy((1.0 * n.endswith("w") if n.startswith("ln") else 0.0)
+                                  + (0.1 if n.startswith("ln") else 0.8 / np.sqrt(d))
+                                  * rng.randn(n_layers, *dims.get(n, (d,))).astype(np.float32)
+                                  ).float().to(card) for n in WEIGHT_NAMES]
+            x0 = torch.from_numpy(rng.randn(4, d).astype(np.float32)).to(card)
+            kd2, vd2 = k_dec.clone(), v_dec.clone()
+            out = decode_step_fused(t, seg, x0, *w, k_enc, v_enc, k_dec, v_dec, hd=64,
+                                    q_len=q_len, n_obj=n_obj)
+            ref = decode_step_plain(t, seg, x0, *w, k_enc, v_enc, kd2, vd2, hd=64,
+                                    q_len=q_len, n_obj=n_obj)
+            assert out.device == card and (out - ref).abs().max().item() < 1e-4
+            assert torch.cuda.current_device() == 0
+        torch.cuda.synchronize(1)

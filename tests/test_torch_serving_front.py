@@ -550,18 +550,23 @@ def test_server_cli_drains_on_sigterm(env, tmp_path):
     (["--decode_backend", "policy"], "item 4"),
     (["--decode_backend", "xla_early"], "item 4"),
     (["--decode_backend", "xla_flat"], "item 4"),
-    (["--model_parallel", "2"], "item 9b"),
-    (["--data_parallel", "2"], "item 9b"),
+    # ported since (multi-device serving): on one device JAX serve.py's
+    # mesh checks refuse them, with its messages
+    pytest.param(["--model_parallel", "2"], "must divide the 1 available devices",
+                 id="flags4-item 9b"),
+    pytest.param(["--data_parallel", "2"], "needs 2 devices; only 1 available",
+                 id="flags5-item 9b"),
     (["--artifact", "exported"], "item 10"),
     (["--compile_cache", "cache"], "item 11"),
     ([], "pick a mode"),
 ])
 def test_cli_refuses_unported_flags(flags, item, capsys):
     """Each JAX flag this port lacks is refused by name with its ROADMAP
-    item, before any model is built; so is a run with no mode."""
+    item, before any model is built; so is a run with no mode, and a mesh
+    that the one device cannot hold."""
     mode = [] if item == "pick a mode" else ["--port", "0"]
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit) as exc:
         serve.main(["--config", str(ROOT / "configs" / "train-tvqa-eval-tvqa-c3.yml"),
                     "--device", "cpu", *mode, *flags])
-    err = capsys.readouterr().err
+    err = capsys.readouterr().err + str(exc.value.code)
     assert item in err and (not flags or flags[0] in err)
