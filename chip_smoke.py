@@ -152,6 +152,28 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    ``--device cuda:0,cuda:0 --data_parallel 2`` must exit 0 and log
    ``dp=2 x tp=1``, ``--model_parallel 3`` must exit nonzero with "must
    divide";
+10. tensor-parallel training on the card repeated, before phase 4 too.
+   10a: c3 in f32 at batch 96 (phase 8's parity batch, TF32 off), 3 tp 2
+   steps (``TPSAM4C`` over ``[cuda:0, cuda:0]``) against 3 one-device
+   steps from the same weights and generator, at dropout 0 and as
+   configured (0.1): loss, gradient norm, clipped gradients and parameters
+   within phase 3b's bars (parameters: the reach of the 3 Adam steps); 2
+   gloo ranks (``--ddp-child`` kind ``tp``), each a tp 2 group on the
+   card, 3 f32 steps on 48 rows against the one-device run on 96 (phase
+   8a's bars, the ranks bit-identical); the bf16 train step at batch 96 of
+   one device and of tp 2 in turns (CUDA events, medians of 10 after 3
+   warm-up, peak memory with both resident, no kernel launched), whose tp 2
+   step phase 4 profiles (idle share). 10b: the train CLI with ``--device
+   cuda:0,cuda:0 --model_parallel 2`` (c3, bf16, batch 96, ``--synthetic
+   480``, 2 epochs): ``dp=1 x tp=2`` logged, K1 and K2 launched in every
+   validation and K3 not; the tp 2 ``last_state`` after one epoch resumed
+   under tp 2 (bit-identical to the uninterrupted run, or no farther from
+   it than a second uninterrupted run) and under tp 1 (restored
+   bit-exactly: re-saved from one device it holds the same tensors; its
+   distance to the tp 2 run printed, no bar); ``--pretrained_eval`` of the
+   tp 2 best model in f32 on one device and on tp 2, the answers identical;
+   K1 on shard 1's heads and K2 384 wide against their plain versions at
+   the validation's batch;
 4. after every timed phase, ``torch.profiler`` device time by kernel of one
    spatial-attention call (code pass and attention), of one bf16 decode
    step at batch 32 (its kernels by name with launch counts, so launches
@@ -161,8 +183,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    f32 the three backends must give identical ids and the full forward
    with the kernel attention must match the plain one;
 then JSON lines of the training path, of the train CLI, of the real-data
-run, of the server, of data parallelism, of multi-device serving and of
-the kernels, and the result line ``{"ok": true, "device": {...}}``.
+run, of the server, of data parallelism, of multi-device serving, of
+tensor-parallel training and of the kernels, and the result line
+``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --resume-check CONFIG DIR [DEVICE [MODE]]`` is that child
 (``MODE`` ``deterministic``, the default, or ``default``): it prints one JSON
@@ -170,7 +193,7 @@ line. The parent sets the cuBLAS workspace variable for the deterministic
 child only, so the phases it times run as they ran before phase 5 existed.
 
 ``--ddp-child SPEC`` and ``--torchrun-child OUT CONFIG [DEVICE]`` are
-phase 8's ranks.
+phase 8's ranks (and, with kind ``tp``, phase 10c's).
 
 It imports nothing of JAX, and exits nonzero without a CUDA device.
 """
@@ -209,6 +232,7 @@ from sam_textvqa_tpu_torch.evaluation.evaluator import needed_width
 from sam_textvqa_tpu_torch.evaluation.metrics import decode_predictions
 from sam_textvqa_tpu_torch.models.bert import split_heads
 from sam_textvqa_tpu_torch.models.sa_m4c import SAM4C, SAM4CParams
+from sam_textvqa_tpu_torch.models.tensor_parallel import TPSAM4C
 from sam_textvqa_tpu_torch.models.fast_decode import (_mega_step_consts, _seg_lens,
                                                       build_mmt_cache, greedy_decode_fast)
 from sam_textvqa_tpu_torch.ops import cuda_build
@@ -231,7 +255,7 @@ from sam_textvqa_tpu_torch.training.loop import train
 from sam_textvqa_tpu_torch.training.optimizer import lr_factor_schedule, make_optimizer
 from sam_textvqa_tpu_torch.training.step import (create_train_state, make_eval_step,
                                                  make_train_step)
-from sam_textvqa_tpu_torch.utils.checkpoint import restore_checkpoint
+from sam_textvqa_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "train-tvqa-eval-tvqa-c3.yml"
@@ -1850,6 +1874,8 @@ def ddp_child(spec_path: str) -> int:
             out = {"refused": True, "error": type(e).__name__, "message": str(e)[-1500:]}
         result.write_text(json.dumps(out))
         os._exit(0)  # a refused communicator is not torn down cleanly
+    if kind == "tp":
+        return tp_rank(spec, out_dir, rank)
     writes = []
     if rank != 0:
         _audit_writes(writes)
@@ -2384,6 +2410,465 @@ def mesh_path(task, vocab, samples, dev=torch.device("cuda")) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+
+TP = 2  # tensor-parallel shards on the repeated card
+TP_STEPS = 3
+#: a tp 2 validation decodes with ``fused``: (kernels that must launch, must not)
+TP_VAL_LAUNCHES = (("spatial_attention", "decode_attention"), ("decode_step",))
+
+
+def _tp_grads(model) -> dict:
+    """The gradients under the full model's names (a ``TPSAM4C``'s slices
+    put together)."""
+    if isinstance(model, TPSAM4C):
+        return {k: (p[0].grad if len(p) == 1 else torch.cat([x.grad for x in p],
+                                                             dim=model.axes[k]))
+                for k, p in model.parts.items()}
+    return {k: p.grad for k, p in model.named_parameters()}
+
+
+def _f32_steps(model, task, batch) -> dict:
+    """TP_STEPS train steps of ``model`` on ``batch`` from generator seed 0:
+    losses, gradient norms, host ms per step (to the loss on the host), the
+    last step's clipped gradients and the parameters."""
+    optimizer = make_optimizer(model, task)
+    step, state = make_train_step(model, optimizer), create_train_state(model, optimizer)
+    gen = torch.Generator(device=batch["targets"].device).manual_seed(0)
+    out = {"losses": [], "norms": [], "step_ms": []}
+    for _ in range(TP_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        out["losses"].append(metrics["loss"].item())
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["norms"].append(metrics["grad_norm"].item())
+    out["grads"] = _tp_grads(model)
+    out["params"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return out
+
+
+def _tp_model(task, num_answers: int, dtype, dev, tp: int):
+    """c3 from seed 0 (the weights of ``build_model``): one device, or
+    ``tp`` shards on ``dev`` repeated, cut from a model built on the CPU."""
+    if tp == 1:
+        return build_model(task, num_answers, dtype, seed=0, device=dev)
+    return TPSAM4C(build_model(task, num_answers, dtype, seed=0, device="cpu"), [dev] * tp)
+
+
+def tp_train_parity(task, num_answers: int, ref_path: Path, dev) -> dict:
+    """10a: three f32 tp 2 steps of c3 against three one-device steps on the
+    96-row parity batch of phase 8 (uneven masked counts), from the same
+    weights and generator, at dropout 0 and as configured (0.1): loss,
+    gradient norm, clipped gradients and parameters within phase 3b's bars
+    (parameters: the reach of the Adam steps taken). The one-device
+    parameters at dropout 0 go to ``ref_path`` for 10c."""
+    factor = lr_factor_schedule(task)
+    reach = 2 * sum(task.lr * factor(i) for i in range(TP_STEPS))
+    batch = device_batch(_ddp_batch(task, num_answers), dev)
+    out = {"batch": TRAIN_BATCH, "steps": TP_STEPS, "param_bar": reach, "bars": TRAIN_PARITY}
+    for label, t in (("dropout_0", without_dropout(task)), ("dropout_as_configured", task)):
+        runs = {}
+        for name, tp in (("one_device", 1), ("tp2", TP)):
+            model = _tp_model(t, num_answers, torch.float32, dev, tp)
+            runs[name] = _f32_steps(model, t, batch)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        one, tp2 = runs["one_device"], runs["tp2"]
+        grad_rel = (torch.linalg.vector_norm(torch.stack(
+            [(tp2["grads"][k] - g).norm() for k, g in one["grads"].items()]))
+            / torch.linalg.vector_norm(torch.stack([g.norm() for g in one["grads"].values()])))
+        row = dict(
+            dropout=t.mmt.hidden_dropout_prob, losses_one_device=one["losses"],
+            losses_tp2=tp2["losses"], norms_one_device=one["norms"], norms_tp2=tp2["norms"],
+            loss_rel_err=max(abs(a / b - 1) for a, b in zip(tp2["losses"], one["losses"])),
+            grad_norm_rel_err=max(abs(a / b - 1) for a, b in zip(tp2["norms"], one["norms"])),
+            clipped_grad_rel_l2=grad_rel.item(),
+            param_max_abs_err=max(max_err(tp2["params"][k], v) for k, v in one["params"].items()),
+            step_ms_one_device=one["step_ms"], step_ms_tp2=tp2["step_ms"])
+        out[label] = row
+        log(f"  f32 tp 2 vs one device, {label} (B={TRAIN_BATCH}, {TP_STEPS} steps): "
+            f"{json.dumps({k: v for k, v in row.items() if 'err' in k or 'l2' in k})}")
+        if not (row["loss_rel_err"] <= TRAIN_PARITY["loss_rtol"]
+                and row["grad_norm_rel_err"] <= TRAIN_PARITY["grad_norm_rtol"]
+                and row["clipped_grad_rel_l2"] <= TRAIN_PARITY["grad_rel_l2"]
+                and row["param_max_abs_err"] <= reach):
+            raise AssertionError(f"phase 10a: the f32 tp 2 step differs from one device's: {row}")
+        if label == "dropout_0":
+            torch.save({k: v.cpu() for k, v in one["params"].items()}, ref_path)
+            out["reference"] = dict(losses=one["losses"], norms=one["norms"])
+        del runs, one, tp2
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_cost(task, num_answers: int, dev):
+    """10a: the bf16 train step at batch 96 of one device and of tp 2 on
+    the repeated card (dropout as configured), each on its own weights, in
+    turns after TRAIN_WARMUP of each: CUDA events per step, peak memory
+    during each one's steps (both models resident), launch counts (none:
+    training runs no kernel). Returns the result and a call of one more
+    tp 2 step, which phase 4 profiles."""
+    batch = device_batch(make_batch(task, TRAIN_BATCH, seed=3, num_answers_vocab=num_answers),
+                         dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    runs = {}
+    for name, tp in (("one_device", 1), ("tp2", TP)):
+        model = _tp_model(task, num_answers, torch.bfloat16, dev, tp)
+        optimizer = make_optimizer(model, task)
+        runs[name] = {"step": make_train_step(model, optimizer), "ms": [], "peak": 0,
+                      "state": create_train_state(model, optimizer), "losses": []}
+
+    def once(name):
+        run = runs[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run["state"], metrics = run["step"](run["state"], batch, gen)
+        end.record()
+        end.synchronize()
+        run["ms"].append(start.elapsed_time(end))
+        run["losses"].append(metrics["loss"].item())
+        run["peak"] = max(run["peak"], torch.cuda.max_memory_allocated())
+
+    cuda_build.reset_launch_counts()
+    for _ in range(TRAIN_WARMUP):
+        once("one_device")
+        once("tp2")
+    for run in runs.values():
+        run["ms"].clear()
+    for _ in range(TRAIN_TIMED // 2):
+        for name in ("one_device", "tp2", "tp2", "one_device"):
+            once(name)
+    launches = cuda_build.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"phase 10a: the bf16 train steps launched kernels: {launches}")
+    out = {name: dict(step_ms=run["ms"], median_ms=float(np.median(run["ms"])),
+                      samples_per_s=TRAIN_BATCH / (float(np.median(run["ms"])) / 1e3),
+                      peak_memory_bytes=run["peak"], losses=run["losses"])
+           for name, run in runs.items()}
+    for name, run in out.items():
+        if not all(np.isfinite(run["losses"])):
+            raise AssertionError(f"phase 10a: {name} bf16 losses {run['losses']}")
+    out["tp2_over_one_device"] = out["tp2"]["median_ms"] / out["one_device"]["median_ms"]
+    out["launches"] = launches
+    log(f"  bf16 train step at B={TRAIN_BATCH}, in turns: one device "
+        f"{out['one_device']['median_ms']:.2f} ms, tp 2 on the repeated card "
+        f"{out['tp2']['median_ms']:.2f} ms ({out['tp2_over_one_device']:.2f}x), peak memory "
+        f"{out['tp2']['peak_memory_bytes'] / 2**30:.2f} GiB (both models resident)")
+    del runs["one_device"]
+    tp_run = runs["tp2"]
+    return out, (lambda: tp_run["step"](tp_run["state"], batch, gen))
+
+
+def tp_parity_b96(task, batch, gen) -> dict:
+    """K1 on shard 1's 6 heads (LUT columns 6..11) and K2 384 wide against
+    their plain versions at the validation's batch (96, L = 170), f32 and
+    bf16, within phase 2's bars."""
+    mmt = task.mmt
+    b, dev = batch["question_mask"].shape[0], batch["question_mask"].device
+    h = mmt.num_spatial_relations // TP
+    hd = mmt.hidden_size // mmt.num_spatial_relations
+    q_len, n_ctx = mmt.max_seq_length, mmt.max_obj_num + mmt.max_ocr_num
+    lut = torch.tensor(relation_head_lut("3")[:, h:2 * h], dtype=torch.float32, device=dev)
+    col_mask = torch.cat([batch["question_mask"], batch["pad_obj_mask"],
+                          batch["pad_ocr_mask"]], dim=1).float()
+    kw = dict(q_len=q_len, n_ctx=n_ctx, dec_len=0,
+              mask_quadrants=tuple(mmt.attention_mask_quadrants), spatial=True)
+    proj = [rand(gen, b, q_len + n_ctx, h * hd, dev=dev) for _ in range(3)]
+    seg = _seg_lens(batch)
+    d, t_max = mmt.hidden_size // TP, mmt.num_decoding_steps
+    t = torch.tensor([t_max - 1], dtype=torch.int32, device=dev)
+    out = {"batch": b}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        args = (*(split_heads(x.to(dtype), h) for x in proj), batch["spatial_classes"], lut,
+                col_mask)
+        mine, plain = spatial_attention(*args, **kw), spatial_attention_plain(*args, **kw)
+        log(f"  spatial_attention, tp 2 shard 1, B={b}:")
+        check("spatial_attention", dtype, max_err(mine, plain), mean_err(mine, plain))
+        out[f"spatial_attention_max_abs_err_{name}"] = max_err(mine, plain)
+        q = rand(gen, b, d, dtype=dtype, dev=dev)
+        kv = [rand(gen, b, n, d, dtype=dtype, dev=dev) for n in (q_len + n_ctx,) * 2 + (t_max,) * 2]
+        step_kw = dict(hd=mmt.hidden_size // mmt.num_attention_heads, q_len=q_len,
+                       n_obj=mmt.max_obj_num)
+        mine = decode_attention(q, *kv, seg, t, **step_kw)
+        plain = decode_attention_plain(q, *kv, seg, t, **step_kw)
+        log(f"  decode_attention {d} wide, B={b}:")
+        check("decode_attention", dtype, max_err(mine, plain))
+        out[f"decode_attention_max_abs_err_{name}"] = max_err(mine, plain)
+    return out
+
+
+def tp_cli_args(config: str, tag: str, *extra: str, devices: str) -> list:
+    return ["--config", config, "--tag", tag, "--synthetic", str(CLI_SYNTHETIC),
+            "--batch_size", str(TRAIN_BATCH), "--device", devices, *extra]
+
+
+def _checkpoint_tensors(path: Path) -> dict:
+    """Every tensor of a checkpoint (model, then Adam's state), by a flat
+    name, on the host."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    out = {f"model/{k}": v for k, v in payload["model_state_dict"].items()}
+    for i, st in payload["optimizer_state_dict"]["state"].items():
+        out.update({f"adam/{i}/{k}": torch.as_tensor(v) for k, v in st.items()})
+    return out
+
+
+def tp_cli_path(task, vocab, dev) -> dict:
+    """10b: the train CLI with ``--device cuda:0,cuda:0 --model_parallel
+    2`` (c3, bf16, batch 96, ``--synthetic 480``, 2 epochs): ``dp=1 x
+    tp=2`` logged; K1 and K2 launched in every validation, K3 not, none in
+    the train steps; the tp 2 ``last_state`` after 1 epoch resumed under tp
+    2 (against the uninterrupted run: bit-identical, or if an op of the run
+    is not, no farther than a second uninterrupted run) and under tp 1
+    (restored bit-exactly: the tp 1 model and optimizer save the same
+    tensors; its epoch printed against the uninterrupted tp 2 run, no bar:
+    another layout sums in another order); ``--pretrained_eval`` of the tp
+    2 ``best_model`` in f32 on one device (``auto`` = ``mega``) and on tp 2
+    (``fused``), the answers identical."""
+    import logging
+    import yaml
+
+    cuda = f"cuda:{dev.index or 0}" if dev.type == "cuda" else str(dev)
+    pair = f"{cuda},{cuda}"
+    tp_flags = ("--model_parallel", str(TP))
+    out = {}
+    records = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    grab = Grab(level=logging.INFO)
+    loop_logger = logging.getLogger("sam_textvqa_tpu_torch.training.loop")
+    loop_logger.addHandler(grab)
+    level = loop_logger.level
+    loop_logger.setLevel(logging.INFO)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+            tmp = Path(tmp)
+            raw = yaml.safe_load(CONFIG.read_text())
+            raw["output_dir"] = str(tmp)
+            config = tmp / "c3.yml"
+            config.write_text(yaml.safe_dump(raw))
+            config = str(config)
+
+            def run(tag, *extra, devices=pair, flags=tp_flags):
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.monotonic()
+                result = train_cli.main(tp_cli_args(config, tag, *flags, *extra,
+                                                    devices=devices))
+                torch.cuda.synchronize()
+                return result, time.monotonic() - t0, torch.cuda.max_memory_allocated()
+
+            full, wall, peak = run("full", "--num_train_epochs", str(CLI_EPOCHS))
+            history = full["history"]
+            must, must_not = TP_VAL_LAUNCHES
+            for h in history:
+                require_launched(h["val_launches"], must,
+                                 f"tp 2 CLI validation, epoch {h['epoch']}")
+                if any(h["val_launches"][k] for k in must_not) or any(
+                        h["train_launches"].values()) or h["model_parallel"] != TP:
+                    raise AssertionError(f"tp 2 CLI epoch: {h}")
+                if not np.isfinite(h["loss"]):
+                    raise AssertionError(f"non-finite epoch loss: {h}")
+            mesh_lines = [r for r in records if "dp=1 x tp=2" in r]
+            if not mesh_lines:
+                raise AssertionError(f"the tp 2 CLI did not log dp=1 x tp=2: {records[-5:]}")
+            if full["state"].step != CLI_EPOCHS * CLI_SYNTHETIC // TRAIN_BATCH:
+                raise AssertionError(f"the tp 2 loop took {full['state'].step} steps")
+            ref = final_params(full)
+            out["train"] = dict(
+                epochs=history, steps=full["state"].step, wall_s=wall, peak_memory_bytes=peak,
+                loop_samples_per_s=[h["samples_per_s"] for h in history],
+                val_samples_per_s=[h["val_samples_per_s"] for h in history],
+                val_launches=[h["val_launches"] for h in history], logged=mesh_lines[0],
+                final_eval={s: r["accuracy"] for s, r in full["eval"].items()})
+            del full
+            for h in history:
+                log(f"  tp 2 CLI epoch {h['epoch']}: loop {h['samples_per_s']:.1f} samples/s, "
+                    f"loss {h['loss']:.3f}; validation {h['val_samples_per_s']:.1f} "
+                    f"samples/s, launches {h['val_launches']}")
+
+            # resumes of the tp 2 last_state after one epoch
+            run("resumed", "--num_train_epochs", "1")
+            shutil.copytree(tmp / "resumed", tmp / "tp1")
+            before = _checkpoint_tensors(tmp / "tp1" / "last_state")
+            one = build_model(task, len(vocab), torch.bfloat16, seed=0, device=dev)
+            one_opt = make_optimizer(one, task)
+            restore_checkpoint(str(tmp / "tp1" / "last_state"),
+                               create_train_state(one, one_opt), map_location=dev)
+            save_checkpoint(str(tmp / "resaved"), create_train_state(one, one_opt),
+                            epoch_id=0, val_score=0.0)
+            after = _checkpoint_tensors(tmp / "resaved")
+            restore_exact = sorted(before) == sorted(after) and all(
+                torch.equal(before[k], after[k]) for k in before)
+            del one, one_opt, before, after
+            (tmp / "resaved").unlink()
+            if not restore_exact:
+                raise AssertionError("the tp 2 last_state did not restore bit-exactly on one "
+                                     "device")
+            resumed, _, _ = run("resumed", "--num_train_epochs", str(CLI_EPOCHS), "--resume")
+            mine = final_params(resumed)
+            steps = (resumed["state"].step, [h["epoch"] for h in resumed["history"]])
+            del resumed
+            tp2 = dict(step=steps[0], resumed_epochs=steps[1],
+                       max_abs_diff=max(max_err(mine[k], ref[k]) for k in ref),
+                       bit_identical=all(torch.equal(mine[k], ref[k]) for k in ref))
+            if not tp2["bit_identical"]:
+                again, _, _ = run("again", "--num_train_epochs", str(CLI_EPOCHS))
+                other = final_params(again)
+                del again
+                tp2["bar_two_uninterrupted_runs"] = max(max_err(other[k], ref[k]) for k in ref)
+            if steps != (CLI_EPOCHS * CLI_SYNTHETIC // TRAIN_BATCH, [CLI_EPOCHS - 1]) or not (
+                    tp2["bit_identical"]
+                    or tp2["max_abs_diff"] <= tp2["bar_two_uninterrupted_runs"]):
+                raise AssertionError(f"the tp 2 resume differs from the uninterrupted run: {tp2}")
+            one_run, _, _ = run("tp1", "--num_train_epochs", str(CLI_EPOCHS), "--resume",
+                                devices=cuda, flags=())
+            mine = final_params(one_run)
+            tp1 = dict(step=one_run["state"].step,
+                       resumed_epochs=[h["epoch"] for h in one_run["history"]],
+                       restored_bit_exactly=restore_exact,
+                       max_abs_diff_to_uninterrupted_tp2=max(max_err(mine[k], ref[k])
+                                                             for k in ref),
+                       val_launches=[h["val_launches"] for h in one_run["history"]])
+            del one_run, mine
+            if (tp1["step"], tp1["resumed_epochs"]) != (tp2["step"], [CLI_EPOCHS - 1]):
+                raise AssertionError(f"the tp 1 resume took other steps: {tp1}")
+            out["resume"] = {"tp2": tp2, "tp1": tp1}
+            log(f"  resumes of the tp 2 last_state: {json.dumps(out['resume'])}")
+
+            best = str(tmp / "full" / "best_model")
+            evals = {}
+            for name, devices, flags, kernels in (
+                    ("one_device", cuda, (), ("spatial_attention", "decode_step")),
+                    ("tp2", pair, tp_flags, must)):
+                cuda_build.reset_launch_counts()
+                t0 = time.monotonic()
+                res, _, _ = run("eval", "--pretrained_eval", best, "--dtype", "f32",
+                                devices=devices, flags=flags)
+                launches = cuda_build.launch_counts()
+                require_launched(launches, kernels, f"--pretrained_eval {name}")
+                evals[name] = dict(seconds=time.monotonic() - t0, launches=launches,
+                                   accuracy=res["eval"]["val"]["accuracy"],
+                                   answers=[p["pred_answer"] for p in res["eval"]["val"]["predictions"]])
+                del res
+            if evals["tp2"]["launches"]["decode_step"]:
+                raise AssertionError(f"the tp 2 evaluation launched K3: {evals['tp2']}")
+            if evals["tp2"]["answers"] != evals["one_device"]["answers"]:
+                raise AssertionError("--pretrained_eval f32: tp 2 answers differ from one "
+                                     "device's")
+            n = len(evals["tp2"].pop("answers"))
+            evals["one_device"].pop("answers")
+            out["pretrained_eval_f32"] = dict(evals, answers=n, identical=True)
+            log(f"  --pretrained_eval f32 of the tp 2 best model: {json.dumps(out['pretrained_eval_f32'])}")
+    finally:
+        loop_logger.removeHandler(grab)
+        loop_logger.setLevel(level)
+    return out
+
+
+def tp_rank(spec: dict, out_dir: Path, rank: int) -> int:
+    """One rank of phase 10c (``--ddp-child`` with kind ``tp``): over gloo,
+    a tp 2 group on the spec's device repeated, TP_STEPS f32 steps of c3 at
+    dropout 0 on this rank's half of the parity batch; rank 0 measures its
+    parameters against the one-device reference. Writes
+    ``<dir>/tp_<rank>.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = init_distributed(spec["device"], backend="gloo", timeout_s=600)
+    task0 = without_dropout(load_task_config(spec["config"]))
+    num_answers = len(build_vocab(task0))
+    per = TRAIN_BATCH // ctx.world
+    batch = device_batch(_ddp_batch(task0, num_answers), ctx.device)
+    local = {k: v[ctx.rank * per:(ctx.rank + 1) * per] for k, v in batch.items()}
+    model = _tp_model(task0, num_answers, torch.float32, ctx.device, TP)
+    optimizer = make_optimizer(model, task0)
+    step = make_train_step(model, optimizer, ctx=ctx)
+    state = create_train_state(model, optimizer)
+    gen = torch.Generator(device=ctx.device).manual_seed(0)
+    out = {"rank": ctx.rank, "count": local["train_loss_mask"].sum().item(), "losses": [],
+           "norms": [], "digests": [], "step_ms": []}
+    for _ in range(TP_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, local, gen)
+        out["losses"].append(metrics["loss"].item())
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["norms"].append(metrics["grad_norm"].item())
+        out["digests"].append(params_digest(model))
+    if ctx.is_main:
+        reference = torch.load(spec["reference"], map_location=ctx.device, weights_only=True)
+        out["param_max_abs_err"] = max(max_err(v, reference[k])
+                                       for k, v in model.state_dict().items())
+    dist.destroy_process_group()
+    (out_dir / f"tp_{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def tp_ddp_path(task, vocab, ref_path: Path, reference: dict, dev) -> dict:
+    """10c: 2 gloo ranks sharing the card, each a tp 2 group on ``cuda:0``
+    repeated, 3 f32 steps of c3 at dropout 0 on its 48 rows of the parity
+    batch, against 10a's one-device run on all 96 (``ref_path``,
+    ``reference``): phase 8a's bars, the ranks bit-identical."""
+    cast_bf16(np.zeros(8, np.float32))  # the native host pass is built here, by no rank
+    factor = lr_factor_schedule(task)
+    reach = 2 * sum(task.lr * factor(i) for i in range(TP_STEPS))
+    child = {"device": f"cuda:{dev.index or 0}" if dev.type == "cuda" else "cpu",
+             "config": str(CONFIG), "reference": str(ref_path)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_ddp_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.monotonic()
+        ranks = _ranks("tp", tmp, 600, child)
+    if any(r.get("hung") for r in ranks):
+        raise AssertionError(f"phase 10c: the gloo ranks hung: {ranks}")
+    r0, r1 = ranks
+    row = dict(world=2, model_parallel=TP, per_rank=TRAIN_BATCH // 2, steps=TP_STEPS,
+               masked_counts=[r0["count"], r1["count"]], losses=r0["losses"], norms=r0["norms"],
+               step_ms=[r0["step_ms"], r1["step_ms"]],
+               loss_rel_err=max(abs(a / b - 1) for a, b in zip(r0["losses"],
+                                                                reference["losses"])),
+               grad_norm_rel_err=max(abs(a / b - 1) for a, b in zip(r0["norms"],
+                                                                     reference["norms"])),
+               param_max_abs_err=r0["param_max_abs_err"], param_bar=reach, bars=DDP_PARITY,
+               ranks_bit_identical_every_step=r0["digests"] == r1["digests"],
+               seconds=time.monotonic() - t0)
+    log(f"  dp 2 x tp 2 f32, 2 gloo ranks on one card: {json.dumps(row)}")
+    if not (row["ranks_bit_identical_every_step"] and r0["losses"] == r1["losses"]
+            and row["loss_rel_err"] <= DDP_PARITY["loss_rtol"]
+            and row["grad_norm_rel_err"] <= DDP_PARITY["grad_norm_rtol"]
+            and row["param_max_abs_err"] <= reach and r0["count"] != r1["count"]):
+        raise AssertionError(f"phase 10c: dp 2 x tp 2 differs from one process: {row}")
+    return row
+
+
+def tp_training_path(task, vocab, gen, dev=torch.device("cuda")):
+    """Phase 10 (see the module docstring). Returns the result and a call
+    of one bf16 tp 2 train step for phase 4's profile."""
+    num_answers = len(vocab)
+    out = {}
+    t10 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_ref_") as tmp:
+        ref_path = Path(tmp) / "reference.pt"
+        out["parity_f32"] = tp_train_parity(task, num_answers, ref_path, dev)
+        out["dp2_x_tp2_f32"] = tp_ddp_path(task, vocab, ref_path,
+                                           out["parity_f32"]["reference"], dev)
+    out["train_step_bf16"], call = tp_train_cost(task, num_answers, dev)
+    out["cli"] = tp_cli_path(task, vocab, dev)
+    val_batch = device_batch(make_batch(task, TRAIN_BATCH, seed=1, num_answers_vocab=num_answers),
+                             dev)
+    out["parity_b96_shard"] = tp_parity_b96(task, val_batch, gen)
+    out["seconds"] = time.monotonic() - t10
+    return out, call
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2458,6 +2943,9 @@ def main() -> int:
     mesh = {"shard_kernels": shard_kernels(task, batch, seg, gen)}
     mesh.update(mesh_path(task, vocab, samples))
     mesh["seconds"] = time.monotonic() - t9
+    log("== phase 10: tensor-parallel training on the repeated card (10a: f32 tp 2 vs one "
+        "device, dp 2 x tp 2 over gloo, bf16 step; 10b: the train CLI --model_parallel 2)")
+    tp_training, tp_call = tp_training_path(task, vocab, gen)
     # profiles come after every timed phase, so that no timing runs after
     # the profiler has been started in this process
     log("== phase 4: device profiles (K1 call, K3 step at B=32, B=32 bf16 mega decode, "
@@ -2488,6 +2976,10 @@ def main() -> int:
         lambda: greedy_decode_fast(model, main["batch"], vocab.special_ids().bos,
                                    backend="mega"))
     training["profile_train_step"] = device_profile(train_call)
+    tp_training["train_step_bf16"]["tp2"]["profile"] = device_profile(tp_call)
+    log(f"  tp 2 bf16 train step: idle share "
+        f"{tp_training['train_step_bf16']['tp2']['profile'].get('idle_share')}")
+    del tp_call
     server["bfloat16"]["profile_graph_replay_b32"] = device_profile(
         served._routing.grid[(None, None)].graphs[0][BATCH].graph.replay)
     log(f"  B=32 bf16 graph replay: idle share "
@@ -2517,6 +3009,10 @@ def main() -> int:
                 "val_launches"][name],
             "mesh_launches": {dt: {e: mesh[dt][e]["launches"][name] for e, _, _ in MESH_ENGINES}
                               for dt in ("float32", "bfloat16")},
+            "tp_train_cli_val_launches": tp_training["cli"]["train"]["val_launches"][-1][name],
+            "tp_pretrained_eval_f32_launches": tp_training["cli"]["pretrained_eval_f32"]["tp2"][
+                "launches"][name],
+            "tp_train_step_launches": tp_training["train_step_bf16"]["launches"][name],
             "parity": "ok", **res,
         })
         for key, shard in mesh["shard_kernels"].items():
@@ -2528,6 +3024,7 @@ def main() -> int:
     print(json.dumps({"server": server}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
+    print(json.dumps({"tp_training": tp_training}), flush=True)
     log(f"total seconds: {time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

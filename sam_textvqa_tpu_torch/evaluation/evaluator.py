@@ -7,7 +7,10 @@ Reference: evaluator.py (run_model_no_beam :162-176, evaluate_no_beam
 on the host, keyed by batch position. Each batch decodes through
 :func:`..models.fast_decode.greedy_decode_fast` with the evaluator's backend
 (``auto`` is ``mega`` on the card: the spatial-attention kernel in the
-encoder-cache pass, the decode-step kernel per step). Beam search and the
+encoder-cache pass, the decode-step kernel per step; for a tensor-parallel
+``TPSAM4C`` it is ``fused``: K1 and the decode-attention kernel on each
+shard's heads, its stacked weights made anew in every decode from the
+weights as they are then). Beam search and the
 evaluator's obj/OCR width ladders are not ported yet (ROADMAP queue 1,
 items 5 and 7); the width helpers the serving engine routes with are here.
 """
@@ -27,6 +30,7 @@ from ..data.prefetch import cast_features_for_transfer
 from ..data.vocab import VocabDict
 from ..models.fast_decode import (MASK_KEYS, check_prefix_masks, greedy_decode_fast,
                                   resolve_backend)
+from ..models.tensor_parallel import home_device
 from ..serving.engine import SAMPLE_KEYS
 from .metrics import (
     OCRVQAAccuracyEvaluator,
@@ -160,8 +164,9 @@ class Evaluator:
         if ocr_bucket is not None or obj_bucket is not None:
             raise NotImplementedError(
                 "obj/OCR width ladders are not ported yet (ROADMAP queue 1, item 7)")
-        device = next(self.model.parameters()).device
-        backend = resolve_backend(self.decode_backend, self.model.params_cfg.mmt, device)
+        device = home_device(self.model)
+        backend = resolve_backend(self.decode_backend, self.model.params_cfg.mmt, device,
+                                  getattr(self.model, "tp", 1))
         all_preds: List[Dict] = []
         scored_preds: List[Dict] = []
 

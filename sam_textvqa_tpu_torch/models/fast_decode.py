@@ -339,34 +339,34 @@ def resolve_backend(backend: str, cfg: MMTConfig, device: torch.device, tp: int 
 
 
 @torch.no_grad()
-def _mega_step_consts(mmt, dtype) -> Dict[str, torch.Tensor]:
+def _mega_step_consts(mmt, dtype, names=WEIGHT_NAMES) -> Dict[str, torch.Tensor]:
     """Stacked per-layer weights in torch (out, in) layout, cast once per
-    decode: matrices and biases in ``dtype``, LayerNorm params in f32. Taken
-    outside autograd: the decode-step kernel has no backward."""
+    decode: matrices and biases in ``dtype``, LayerNorm params in f32; only
+    those of ``names`` (default: all). Taken outside autograd: the
+    decode-step kernel has no backward."""
     layers = [layer for _, _, layer in mmt.iter_layers()]
-
-    def stack(get, dt):
-        return torch.stack([get(layer) for layer in layers]).to(dt).contiguous()
 
     def qkv(layer, leaf):
         a = layer.attention.self
         return torch.cat([getattr(a.query, leaf), getattr(a.key, leaf), getattr(a.value, leaf)])
 
     f32 = torch.float32
-    return {
-        "wqkv": stack(lambda l: qkv(l, "weight"), dtype),
-        "bqkv": stack(lambda l: qkv(l, "bias"), dtype),
-        "wout": stack(lambda l: l.attention.output.dense.weight, dtype),
-        "bout": stack(lambda l: l.attention.output.dense.bias, dtype),
-        "ln1w": stack(lambda l: l.attention.output.LayerNorm.weight, f32),
-        "ln1b": stack(lambda l: l.attention.output.LayerNorm.bias, f32),
-        "wff1": stack(lambda l: l.intermediate.dense.weight, dtype),
-        "bff1": stack(lambda l: l.intermediate.dense.bias, dtype),
-        "wff2": stack(lambda l: l.output.dense.weight, dtype),
-        "bff2": stack(lambda l: l.output.dense.bias, dtype),
-        "ln2w": stack(lambda l: l.output.LayerNorm.weight, f32),
-        "ln2b": stack(lambda l: l.output.LayerNorm.bias, f32),
+    getters = {
+        "wqkv": (lambda l: qkv(l, "weight"), dtype),
+        "bqkv": (lambda l: qkv(l, "bias"), dtype),
+        "wout": (lambda l: l.attention.output.dense.weight, dtype),
+        "bout": (lambda l: l.attention.output.dense.bias, dtype),
+        "ln1w": (lambda l: l.attention.output.LayerNorm.weight, f32),
+        "ln1b": (lambda l: l.attention.output.LayerNorm.bias, f32),
+        "wff1": (lambda l: l.intermediate.dense.weight, dtype),
+        "bff1": (lambda l: l.intermediate.dense.bias, dtype),
+        "wff2": (lambda l: l.output.dense.weight, dtype),
+        "bff2": (lambda l: l.output.dense.bias, dtype),
+        "ln2w": (lambda l: l.output.LayerNorm.weight, f32),
+        "ln2b": (lambda l: l.output.LayerNorm.bias, f32),
     }
+    return {n: torch.stack([getters[n][0](layer) for layer in layers]).to(
+        getters[n][1]).contiguous() for n in names}
 
 
 def _decode_one_row_fused(cfg: MMTConfig, consts, caches, seg_lens, x, k_dec, v_dec,

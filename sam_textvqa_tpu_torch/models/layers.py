@@ -78,7 +78,18 @@ def dropout(x: torch.Tensor, rate: float,
     call (autograd keeps it for the backward); the f32 uniforms are freed."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return apply_keep_mask(x, keep_mask(x.shape, rate, generator, x.device), rate)
+
+
+def keep_mask(shape, rate: float, generator: torch.Generator, device) -> torch.Tensor:
+    """The bool keep mask :func:`dropout` draws for a tensor of ``shape``
+    (one uniform per element from ``generator``, kept where it is at least
+    ``rate``)."""
+    return torch.rand(shape, generator=generator, device=device) >= rate
+
+
+def apply_keep_mask(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Inverted dropout of ``x`` under a drawn ``keep`` mask."""
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 

@@ -1,33 +1,39 @@
 """SA-M4C in Megatron tensor parallelism over a list of devices, in one
 process: the JAX package's model under a ``model`` mesh axis
-(``parallel/mesh.py:shard_params``, ``serve.py --model_parallel``).
+(``parallel/mesh.py:shard_params``, ``train.py`` / ``serve.py
+--model_parallel``).
 
 :class:`TPSAM4C` cuts a ``SAM4C`` into ``tp`` shards, one per device (a
 device may repeat). Each shard is the port's own ``SAM4C`` modules narrowed
 by :func:`..parallel.tensor.shard_state_dict`: its attention modules hold
-H/tp heads (``num_heads``) and its FFNs intermediate/tp columns, and it
-keeps a copy of every replicated weight. The residual stream lives on the
-first device ("home"): each layer copies its input to the shards, each
-shard attends over its own heads (the spatial layers with the relation x
-head LUT columns of those heads, through the spatial-attention kernel in
-the encoder-cache pass), and the two row-parallel products of the layer are
-summed on home, where the replicated biases and LayerNorms apply once.
-Replicated weights are read from shard 0 only, so their gradients collect
-there.
+H/tp heads (``num_heads``) and its FFNs intermediate/tp columns. The
+residual stream lives on the first device ("home"): each layer copies its
+input to the shards, each shard attends over its own heads (the spatial
+layers with the relation x head LUT columns of those heads, through the
+spatial-attention kernel in the encoder-cache pass), and the two
+row-parallel products of the layer are summed on home, where the
+replicated biases and LayerNorms apply once. A replicated weight exists
+once, on home: every shard's module holds that one ``Parameter``, so its
+gradient collects there and an optimizer step leaves no stale copy.
 
 The word embeddings, the classifier and the OCR pointer's query and key
 are cut where :func:`..parallel.mesh.shard_axis` cuts them and used whole
 otherwise. The classifier's rows are also the decoder's answer embeddings:
 each row is looked up on the shard that holds it.
 
-Deterministic forwards only (no dropout); :func:`decode_tensor_parallel`
-is ``fast_decode.greedy_decode_fast``'s path for this model.
+:meth:`TPSAM4C.forward` is ``SAM4C.forward``, dropout included: every mask
+is drawn at its full shape on home, in the one-device model's order, from
+the step's generator, and each shard takes its heads' slice of the
+attention-probs masks, so a train step equals the one-device step (JAX
+draws the global array's masks too). :func:`decode_tensor_parallel` is
+``fast_decode.greedy_decode_fast``'s path for this model.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import math
 from typing import Dict, List, Optional, Sequence
 
@@ -35,30 +41,42 @@ import torch
 from torch import nn
 
 from ..config import MATRIX_TYPE_MAP
+from ..ops.decode_step import WEIGHT_NAMES
 from ..ops.fused_attention import combined_permission
 from ..parallel.mesh import check_tensor_parallel
 from ..parallel.tensor import (ShardState, broadcast, column_parallel, reduce_sum,
                                row_parallel, shard_state_dict, unshard_state_dict,
                                vocab_parallel_embedding, vocab_parallel_logits)
-from .bert import BertSelfAttention
+from .bert import BertSelfAttention, merge_heads, split_heads
 from .fast_decode import (MMTCache, _cache_attention, _dec_col_bias, _dec_row_embedding,
                           _dec_rows_masked, _decode_one_row_fused, _device_lut, _greedy_steps,
                           _layer_heads, _mega_step_consts, _one_row_context, _seg_lens)
-from .layers import MASK_BIAS, gelu_erf, layer_norm_tf
+from .layers import (MASK_BIAS, apply_keep_mask, dropout, dropout_generator, gelu_erf,
+                     keep_mask, layer_norm_tf, masked_softmax_attention)
 from .sa_m4c import SAM4C
 from .spatial import SpatialBertSelfAttention
 
+#: the stacked decode weights of a shard after the first: its own slices
+#: (``_decode_one_row_fused`` reads the replicated ones from the first)
+SHARD_CONSTS = ("wqkv", "bqkv", "wout", "wff1", "bff1", "wff2")
 
-def _build_shard(model: SAM4C, state: ShardState, device: torch.device) -> SAM4C:
+
+def _build_shard(model: SAM4C, state: ShardState, device: torch.device,
+                 shared: Optional[Dict[str, nn.Parameter]] = None) -> SAM4C:
     """A ``SAM4C`` holding ``state`` (copied to ``device``), its attention
-    modules narrowed to their share of the heads."""
+    modules narrowed to their share of the heads; the keys of ``shared``
+    take those parameters themselves instead of a copy."""
+    shared = shared or {}
     with torch.device("meta"):
         shard = SAM4C(model.params_cfg, dtype=model.dtype,
                       attention_backend=model.mmt.attention_backend)
     for key, value in state.items():
         owner, _, leaf = key.rpartition(".")
-        setattr(shard.get_submodule(owner), leaf,
-                nn.Parameter(value.detach().to(device).clone(memory_format=torch.contiguous_format)))
+        param = shared.get(key)
+        if param is None:
+            param = nn.Parameter(value.detach().to(device).clone(
+                memory_format=torch.contiguous_format))
+        setattr(shard.get_submodule(owner), leaf, param)
     for module in shard.modules():
         if isinstance(module, (BertSelfAttention, SpatialBertSelfAttention)):
             module.num_heads //= state.tp
@@ -66,6 +84,21 @@ def _build_shard(model: SAM4C, state: ShardState, device: torch.device) -> SAM4C
     if left:
         raise ValueError(f"the shard state has no value for {left}")
     return shard
+
+
+def _identity(x):
+    return x
+
+
+def _attend(attention, x, bias, zero_fully_masked: bool, drop):
+    """``attention``'s heads over ``x`` under the additive ``bias`` (the
+    plain path of ``BertSelfAttention`` and ``SpatialBertSelfAttention``),
+    the attention probs passed through ``drop``; the merged context."""
+    h = attention.num_heads
+    q, k, v = (split_heads(f(x), h) for f in (attention.query, attention.key, attention.value))
+    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    probs = drop(masked_softmax_attention(scores, bias, zero_fully_masked))
+    return merge_heads(torch.matmul(probs, v))
 
 
 class TPSAM4C:
@@ -78,12 +111,15 @@ class TPSAM4C:
         self.tp = len(self.devices)
         check_tensor_parallel(model.params_cfg, self.tp)
         self.params_cfg = model.params_cfg
-        self.dtype = model.dtype
         sd = model.state_dict()
         states = [shard_state_dict(sd, self.tp, r) for r in range(self.tp)]
         self.axes = states[0].axes
-        self.shards = [_build_shard(model, st, dev) for st, dev in zip(states, self.devices)]
-        #: key -> the tensor on each shard where it is cut, else shard 0's
+        self.shards: List[SAM4C] = []
+        for state, device in zip(states, self.devices):
+            shared = {k: self.shards[0].get_parameter(k) for k, axis in self.axes.items()
+                      if axis is None} if self.shards else None
+            self.shards.append(_build_shard(model, state, device, shared))
+        #: key -> the tensor on each shard where it is cut, else the one on home
         self.parts: Dict[str, List[nn.Parameter]] = {
             k: [s.get_parameter(k) for s in (self.shards if axis is not None else self.shards[:1])]
             for k, axis in self.axes.items()}
@@ -93,10 +129,41 @@ class TPSAM4C:
         """The first device: inputs, the residual stream and the outputs."""
         return self.devices[0]
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype (parameters stay float32)."""
+        return self.shards[0].dtype
+
+    @dtype.setter
+    def dtype(self, value: torch.dtype) -> None:
+        for shard in self.shards:
+            shard.dtype = value
+
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """The full model's ``state_dict``, put together from the shards."""
         return unshard_state_dict([ShardState(s.state_dict(), tp=self.tp, rank=r, axes=self.axes)
                                    for r, s in enumerate(self.shards)])
+
+    @torch.no_grad()
+    def load_state_dict(self, sd, strict: bool = True) -> None:
+        """Copy a full model's ``state_dict`` into the shards (each cut
+        along its axis, as :func:`..parallel.tensor.shard_state_dict` cuts
+        it); ``strict``: the keys must be the model's."""
+        missing = [k for k in self.parts if k not in sd]
+        unexpected = [k for k in sd if k not in self.parts]
+        if strict and (missing or unexpected):
+            raise RuntimeError(f"state_dict keys differ: missing {missing}, "
+                               f"unexpected {unexpected}")
+        for key, parts in self.parts.items():
+            if key not in sd:
+                continue
+            axis = self.axes[key]
+            pieces = [sd[key]] if axis is None else sd[key].chunk(self.tp, dim=axis)
+            for param, piece in zip(parts, pieces):
+                if param.shape != piece.shape:
+                    raise RuntimeError(f"{key}: {tuple(piece.shape)} does not fit "
+                                       f"{tuple(param.shape)}")
+                param.copy_(piece)
 
     def with_widths(self, n_obj: Optional[int] = None, n_ocr: Optional[int] = None):
         """The same shards at narrower obj/OCR slot counts
@@ -113,26 +180,47 @@ class TPSAM4C:
 
     @torch.no_grad()
     def decode_consts(self) -> List[Dict[str, torch.Tensor]]:
-        """Each shard's stacked weights for the ``fused`` decode."""
-        return [_mega_step_consts(s.mmt, self.dtype) for s in self.shards]
+        """Each shard's stacked weights for the ``fused`` decode: all of them
+        on home, a later shard its own slices (:data:`SHARD_CONSTS`)."""
+        return [_mega_step_consts(s.mmt, self.dtype, WEIGHT_NAMES if r == 0 else SHARD_CONSTS)
+                for r, s in enumerate(self.shards)]
 
     # ----- layers -----
 
-    def _layer(self, layers, x, attend):
+    def _probs_dropout(self, layer, x, generator) -> list:
+        """One function per shard for the attention probs of ``layer`` (home's
+        narrowed layer) over ``x``: the one-device model's dropout, its mask
+        drawn at the full (B, H, L, L) shape on home and each shard given its
+        heads' slice; the identity without dropout."""
+        rate = layer.attention.self.attention_probs_dropout_prob
+        if generator is None or rate == 0.0:
+            return [_identity] * self.tp
+        b, length = x.shape[:2]
+        h = layer.attention.self.num_heads
+        keep = keep_mask((b, h * self.tp, length, length), rate, generator, x.device)
+        return [functools.partial(apply_keep_mask, keep=keep[:, r * h:(r + 1) * h].to(dev),
+                                  rate=rate) for r, dev in enumerate(self.devices)]
+
+    def _layer(self, layers, x, attend, generator=None):
         """One BERT layer over ``x`` (on home): ``layers`` are the shards'
-        narrowed layers and ``attend(r, layer, x_r)`` shard r's merged
-        attention context."""
-        xs = broadcast(x, self.devices)
-        ctxs = [attend(r, layer, xs[r]) for r, layer in enumerate(layers)]
+        narrowed layers and ``attend(r, layer, x_r, drop)`` shard r's merged
+        attention context, its probs passed through ``drop``. The hidden
+        dropouts apply on home to the summed products, before the residual
+        adds, as in ``bert.BertSelfOutput`` and ``BertLayer.ffn``."""
         home = layers[0]
+        drops = self._probs_dropout(home, x, generator)
+        xs = broadcast(x, self.devices)
+        ctxs = [attend(r, layer, xs[r], drops[r]) for r, layer in enumerate(layers)]
         y = row_parallel(ctxs, [l.attention.output.dense.weight for l in layers],
                          home.attention.output.dense.bias, x.device)
+        y = dropout(y, home.attention.output.hidden_dropout_prob, generator)
         attn_out = home.attention.output.LayerNorm(y + x)
         inters = [gelu_erf(h) for h in column_parallel(
             attn_out, [l.intermediate.dense.weight for l in layers],
             [l.intermediate.dense.bias for l in layers])]
         y = row_parallel(inters, [l.output.dense.weight for l in layers],
                          home.output.dense.bias, x.device)
+        y = dropout(y, home.hidden_dropout_prob, generator)
         return home.output.LayerNorm(y + attn_out)
 
     def _mmt_layers(self):
@@ -140,23 +228,26 @@ class TPSAM4C:
         for layers in zip(*(s.mmt.iter_layers() for s in self.shards)):
             yield layers[0][0], layers[0][1], [layer for _, _, layer in layers]
 
-    def _text_bert(self, ids, mask):
+    def _text_bert(self, ids, mask, generator=None):
         emb = self.shards[0].text_bert.embeddings
         words = vocab_parallel_embedding(
             ids.long(), self.parts["text_bert.embeddings.word_embeddings.weight"], ids.device)
         x = (words + emb.position_embeddings.weight[None, :ids.shape[1]]
              + emb.token_type_embeddings.weight[0]).to(self.dtype)
-        x = emb.LayerNorm(x)
+        x = dropout(emb.LayerNorm(x), emb.hidden_dropout_prob, generator)
         biases = broadcast(((1.0 - mask.float()) * MASK_BIAS)[:, None, None, :], self.devices)
         for layers in zip(*(s.text_bert.encoder.layer for s in self.shards)):
-            x = self._layer(layers, x, lambda r, m, xr: m.attention.self(xr, biases[r]))
+            x = self._layer(layers, x, lambda r, m, xr, drop: _attend(
+                m.attention.self, xr, biases[r], False, drop), generator)
         return x
 
-    def encode(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """``SAM4C.encode`` (deterministic), on home."""
+    def encode(self, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """``SAM4C.encode`` on home; dropout draws from ``generator`` (None:
+        none)."""
         home = self.shards[0]
-        obj_mmt_in, ocr_mmt_in = home.encode_regions(batch)
-        text = self._text_bert(batch["question_indices"], batch["question_mask"])
+        obj_mmt_in, ocr_mmt_in = home.encode_regions(batch, generator)
+        text = self._text_bert(batch["question_indices"], batch["question_mask"], generator)
         if home.text_bert_out_linear is not None:
             text = home.text_bert_out_linear(text)
         return {"text_bert_emb": text, "obj_mmt_in": obj_mmt_in, "ocr_mmt_in": ocr_mmt_in}
@@ -166,7 +257,7 @@ class TPSAM4C:
     def answer_tables(self, dtype) -> List[torch.Tensor]:
         """The layernormed answer embeddings (the classifier's rows in
         ``dtype``), each part on the shard that holds its rows; the
-        LayerNorm is shard 0's."""
+        LayerNorm is home's."""
         ln = self.shards[0].mmt.prev_pred_embeddings.ans_layer_norm
         return [layer_norm_tf(w.to(dtype), ln.weight.to(w.device), ln.bias.to(w.device), ln.eps)
                 for w in self.parts["classifier.weight"]]
@@ -192,8 +283,8 @@ class TPSAM4C:
 
     # ----- teacher-forced forward -----
 
-    def _prev_pred_embeddings(self, ocr_emb, prev_inds):
-        """``mmt.PrevPredEmbeddings`` (deterministic)."""
+    def _prev_pred_embeddings(self, ocr_emb, prev_inds, generator=None):
+        """``mmt.PrevPredEmbeddings``."""
         pp = self.shards[0].mmt.prev_pred_embeddings
         dtype = ocr_emb.dtype
         ans_num = self.num_answers
@@ -208,14 +299,23 @@ class TPSAM4C:
         token_type = (prev >= ans_num).long()
         emb = (pp.position_embeddings.weight[None, :prev.shape[1]]
                + pp.token_type_embeddings.weight[token_type]).to(dtype)
-        return raw + pp.emb_layer_norm(emb)
+        return raw + dropout(pp.emb_layer_norm(emb), pp.hidden_dropout_prob, generator)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """``SAM4C.forward`` (deterministic, teacher-forced on
-        ``train_prev_inds``): the MMT outputs and ``scores``, on home."""
+    def __call__(self, *args, **kwargs):
+        return self.forward(*args, **kwargs)
+
+    def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """``SAM4C.forward``, teacher-forced on ``train_prev_inds``: the MMT
+        outputs and ``scores``, on home. With ``deterministic=False`` every
+        dropout site draws from ``generator`` (on home) the one-device
+        model's masks; the spatial layers then take the plain attention, as
+        ``SAM4C`` does (the kernel has no backward)."""
         cfg = self.params_cfg.mmt
-        enc = self.encode(batch)
-        dec_emb = self._prev_pred_embeddings(enc["ocr_mmt_in"], batch["train_prev_inds"])
+        home = self.shards[0]
+        g = dropout_generator(deterministic, generator, home._dropout_rates())
+        enc = self.encode(batch, g)
+        dec_emb = self._prev_pred_embeddings(enc["ocr_mmt_in"], batch["train_prev_inds"], g)
         x = torch.cat([enc["text_bert_emb"], enc["obj_mmt_in"], enc["ocr_mmt_in"], dec_emb], 1)
         b, dec_len = x.shape[0], dec_emb.shape[1]
         classes = batch["spatial_classes"]
@@ -229,26 +329,35 @@ class TPSAM4C:
         base = broadcast(torch.where(base_ok, 0.0, MASK_BIAS), self.devices)
         masks, classes_r = broadcast(col_mask, self.devices), broadcast(classes, self.devices)
         spatial_args: List[Dict[str, dict]] = [{} for _ in self.devices]
+        kernel = deterministic and home.mmt.attention_backend == "kernel"
 
         def spatial(r, key, h):
             if key not in spatial_args[r]:
                 lut = _device_lut(key, r * h, h, self.devices[r])
-                if self.shards[r].mmt.attention_backend == "kernel":
+                if kernel:
                     spatial_args[r][key] = {"kernel_ctx": dict(
                         classes=classes_r[r].contiguous(), lut=lut, col_mask=masks[r],
                         spatial=True, **perm)}
                 else:
-                    spatial_args[r][key] = {"combined_ok": combined_permission(
-                        classes_r[r], lut, masks[r], spatial=True, num_heads=h, **perm)}
+                    spatial_args[r][key] = {"bias": torch.where(combined_permission(
+                        classes_r[r], lut, masks[r], spatial=True, num_heads=h, **perm),
+                        0.0, MASK_BIAS)}
             return spatial_args[r][key]
+
+        def attend_spatial(key):
+            def attend(r, m, xr, drop):
+                args = spatial(r, key, m.attention.self.num_heads)
+                if "kernel_ctx" in args:
+                    return m.attention.self(xr, kernel_ctx=args["kernel_ctx"])
+                return _attend(m.attention.self, xr, args["bias"], True, drop)
+            return attend
 
         for layer_type, mix, layers in self._mmt_layers():
             if layer_type == "n":
-                x = self._layer(layers, x, lambda r, m, xr: m.attention.self(xr, base[r]))
+                x = self._layer(layers, x, lambda r, m, xr, drop: _attend(
+                    m.attention.self, xr, base[r], False, drop), g)
             else:
-                key = MATRIX_TYPE_MAP[mix]
-                x = self._layer(layers, x, lambda r, m, xr: m.attention.self(
-                    xr, **spatial(r, key, m.attention.self.num_heads)))
+                x = self._layer(layers, x, attend_spatial(MATRIX_TYPE_MAP[mix]), g)
 
         ocr_begin = q_len + cfg.max_obj_num
         dec_out = x[:, -dec_len:]
@@ -285,7 +394,7 @@ class TPSAM4C:
         spatial_bias: List[Dict[str, torch.Tensor]] = [{} for _ in self.devices]
         for li, (layer_type, mix, layers) in enumerate(self._mmt_layers()):
             key = MATRIX_TYPE_MAP[mix]
-            x = self._layer(layers, x, lambda r, m, xr: _cache_attention(
+            x = self._layer(layers, x, lambda r, m, xr, drop: _cache_attention(
                 m.attention.self, layer_type, key, xr, k_all[r][li], v_all[r][li], biases[r],
                 masks[r], classes[r], cfg, attention_backend, r * m.attention.self.num_heads,
                 spatial_bias[r]))
@@ -293,6 +402,12 @@ class TPSAM4C:
         return [MMTCache(k_enc=k, v_enc=v, enc_out=x, enc_bias_cols=bias,
                          ocr_mmt_in=enc["ocr_mmt_in"], spatial_dec_masked=masked)
                 for k, v, bias in zip(k_all, v_all, biases)]
+
+
+def home_device(model) -> torch.device:
+    """Where a model's inputs and outputs live: a :class:`TPSAM4C`'s home,
+    else its parameters' device."""
+    return model.home if isinstance(model, TPSAM4C) else next(model.parameters()).device
 
 
 def decode_tensor_parallel(model: TPSAM4C, batch, bos_idx: int, backend: str,
@@ -335,7 +450,7 @@ def decode_tensor_parallel(model: TPSAM4C, batch, bos_idx: int, backend: str,
             col_bias = [_dec_col_bias(cfg, t, dev) for dev in devices]
             x = x[:, None]
             for li, (layer_type, _, layers) in enumerate(model._mmt_layers()):
-                x = model._layer(layers, x, lambda r, m, xr: _one_row_context(
+                x = model._layer(layers, x, lambda r, m, xr, drop: _one_row_context(
                     m.attention.self, layer_type, cfg, caches[r], li, xr, dec_kv[r][li], t,
                     col_bias[r]))
             return x[:, 0]

@@ -10,16 +10,20 @@ process assembles only its own rows of every global batch
 the one a single process computes on the whole global batch
 (``training/step.py``).
 
-One device per process for training: :func:`init_distributed` calls
-``torch.cuda.set_device`` before any CUDA work and :func:`wrap_model`
-refuses a model on another device.
+One device per process for data-parallel training: :func:`init_distributed`
+calls ``torch.cuda.set_device`` before any CUDA work and :func:`wrap_model`
+refuses a model on another device. Under tensor parallelism
+(``train --model_parallel M``) a process holds one tensor-parallel group
+of M devices instead (``models/tensor_parallel.py:TPSAM4C``), joins the
+group with its first, and the train step sums the gradients over the
+ranks with :func:`all_reduce_grads_` (DDP takes an ``nn.Module``, which a
+``TPSAM4C`` is not): dp across processes x tp within one.
 
-Serving runs in one process over a list of devices instead
+Serving runs in one process over a list of devices
 (``serving/engine.py``): :func:`make_mesh` lays them out as the JAX
 package's (data, model) grid, and the Megatron rules of
 :data:`TP_RULES` / :func:`shard_axis` say which weights a tensor-parallel
 group cuts (``parallel/tensor.py``, ``models/tensor_parallel.py``).
-Tensor-parallel training is ROADMAP queue 1, item 9c.
 """
 
 from __future__ import annotations
@@ -112,6 +116,22 @@ def wrap_model(model: torch.nn.Module, ctx: DistContext) -> DistributedDataParal
                          "made current by init_distributed")
     return DistributedDataParallel(model, device_ids=[device.index] if device.type == "cuda"
                                    else None)
+
+
+@torch.no_grad()
+def all_reduce_grads_(grads: Sequence[torch.Tensor], device) -> None:
+    """Sum ``grads`` over the ranks of the process group, in place, as one
+    flat buffer on ``device`` (the device the process joined the group
+    with): a rank's tensor-parallel shards hold their gradients on their
+    own devices, and each is staged through ``device``, so shard r's
+    gradients meet the other ranks' shard r in the same slots. Every rank
+    must pass its gradients in the same order and shapes."""
+    flat = torch.cat([g.reshape(-1).to(device) for g in grads])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
 
 
 def barrier() -> None:

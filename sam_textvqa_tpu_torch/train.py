@@ -8,6 +8,9 @@ JAX package's root ``train.py``; reference train.py:28-47)::
     python -m sam_textvqa_tpu_torch.train --config ... --tag syn --synthetic 480
     torchrun --standalone --nproc_per_node 8 -m sam_textvqa_tpu_torch.train \\
         --config ... --tag dp8 --multihost
+    python -m sam_textvqa_tpu_torch.train --config ... --tag tp2 --model_parallel 2
+    torchrun --standalone --nproc_per_node 4 -m sam_textvqa_tpu_torch.train \\
+        --config ... --tag dp4xtp2 --multihost --model_parallel 2
 
 Writes ``command.txt``, ``best_model``, ``last_state`` and
 ``evalai_{val,test}.json`` under ``<output_dir>/<tag>`` (``output_dir`` from
@@ -33,6 +36,17 @@ on the CPU over gloo): each process assembles its ``batch_size / world``
 rows of every global batch and DDP all-reduces the gradients, so an update
 is the global batch's. Every rank validates; rank 0 alone writes
 ``command.txt``, the checkpoints and the evaluation files.
+
+``--model_parallel M`` trains a Megatron tensor-parallel model over M
+devices in each process (``models/tensor_parallel.py:TPSAM4C``; ``--device
+a,b`` lists them, a device may repeat; by default ``cuda:0`` .. ``cuda:M-1``,
+under ``--multihost`` the M cards from ``cuda:<LOCAL_RANK * M>``), with
+``--multihost`` one group per process: dp across processes x tp within one.
+Each update equals the one-device model's, validation decodes the shards
+(``auto`` = ``fused``; ``mega`` is refused), and the checkpoints hold the
+whole model, so they resume under any ``--model_parallel`` and load into
+one device. A device list longer than M is refused: data parallelism runs
+across processes.
 JAX flags that this port does not cover yet are refused with the ROADMAP
 item that covers them.
 """
@@ -56,9 +70,11 @@ from .data.features import open_feature_source
 from .data.processors import FastTextProcessor, SimpleWordpieceTokenizer, load_bert_tokenizer
 from .data.synthetic import SyntheticDataset
 from .evaluation.evaluator import Evaluator
-from .parallel.mesh import (barrier, check_batch, env_world_size, init_distributed,
-                            missing_torchrun_env)
-from .serve import build_model, build_vocab
+from .models.fast_decode import MEGA_TP_REFUSAL
+from .models.tensor_parallel import TPSAM4C
+from .parallel.mesh import (barrier, check_batch, check_tensor_parallel, env_world_size,
+                            init_distributed, missing_torchrun_env)
+from .serve import build_model, build_vocab, parse_devices
 from .training.loop import train
 from .utils.checkpoint import init_text_bert_from_bert_base, restore_checkpoint
 from .utils.device import resolve_device
@@ -70,7 +86,6 @@ UNPORTED = (
     ("beam_size", 1, "item 5, beam search"),
     ("ocr_bucket", None, "item 7, the evaluator's width ladders"),
     ("obj_bucket", None, "item 7, the evaluator's width ladders"),
-    ("model_parallel", 1, "item 9c, tensor-parallel training, item 9b's second half"),
     ("dropout_reuse", False, "item 1, dropout_mask_reuse"),
     ("compile_cache", None, "item 11, the compile cache"),
 )
@@ -105,15 +120,19 @@ def _parser() -> argparse.ArgumentParser:
                    help="spatial attention of deterministic full forwards (the train "
                         "steps run the plain one with dropout, and the greedy decode "
                         "follows --decode_backend)")
-    p.add_argument("--device", default=None,
-                   help="default: cuda (cuda:<LOCAL_RANK> with --multihost)")
+    p.add_argument("--device", default=None, metavar="DEV[,DEV...]",
+                   help="default: cuda (cuda:<LOCAL_RANK> with --multihost); with "
+                        "--model_parallel M, this process's M devices, comma-separated (a "
+                        "device may repeat; default cuda:0.., with --multihost "
+                        "cuda:<LOCAL_RANK*M>..)")
     p.add_argument("--multihost", action="store_true",
                    help="data-parallel training in each process torchrun starts")
+    p.add_argument("--model_parallel", type=int, default=1, metavar="M",
+                   help="Megatron tensor parallelism over M devices in each process")
     # JAX flags refused unless left at their defaults (UNPORTED)
     p.add_argument("--beam_size", type=int, default=1)
     p.add_argument("--ocr_bucket", type=_ladder, default=None, metavar="N[,N...]")
     p.add_argument("--obj_bucket", type=_ladder, default=None, metavar="N[,N...]")
-    p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--dropout_reuse", action="store_true")
     p.add_argument("--compile_cache", default=None, metavar="DIR")
     return p
@@ -135,7 +154,42 @@ def get_args(argv=None):
     if not args.multihost and env_world_size() > 1:
         parser.error(f"WORLD_SIZE is {env_world_size()}: pass --multihost, or each process "
                      "would train alone and write the same output directory")
+    tp = args.model_parallel
+    if tp < 1:
+        parser.error(f"--model_parallel {tp} must be at least 1")
+    if tp > 1 and args.decode_backend == "mega":
+        parser.error(f"--decode_backend mega under --model_parallel is not ported yet: "
+                     f"{MEGA_TP_REFUSAL}")
+    n = len(parse_devices(args.device)) if args.device else 0
+    if n % tp:
+        parser.error(f"--model_parallel {tp} must divide the {n} available devices")
+    if n > tp and args.multihost:
+        parser.error(f"--device lists {n} devices: under --multihost it names this process's "
+                     f"{tp} (or none: cuda:<LOCAL_RANK * {tp}> onward)")
+    if n > tp:
+        parser.error(f"--device lists {n} devices for --model_parallel {tp}: data parallelism "
+                     f"runs across processes, one tensor-parallel group each (JAX's in-process "
+                     f"dp x tp mesh is not ported): launch torchrun --nproc_per_node {n // tp} "
+                     f"... --multihost, each process with its {tp} devices")
     return args
+
+
+def plan_devices(args) -> list:
+    """This process's devices: ``--device``'s list, or ``args.model_parallel``
+    cards from ``cuda:<LOCAL_RANK * M>`` (``cuda:0`` without ``--multihost``).
+    With no GPU and no list this raises; it never drops to the CPU by
+    itself."""
+    tp = args.model_parallel
+    if args.device:
+        return parse_devices(args.device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu,cpu,... to run on "
+                           "the CPU")
+    first = int(os.environ.get("LOCAL_RANK", "0")) * tp if args.multihost else 0
+    if first + tp > torch.cuda.device_count():
+        raise SystemExit(f"--model_parallel {tp} needs cuda:{first}..cuda:{first + tp - 1}; "
+                         f"only {torch.cuda.device_count()} cards are visible: pass --device")
+    return [torch.device("cuda", first + r) for r in range(tp)]
 
 
 def load_eval_gt(task_cfg, split):
@@ -282,11 +336,19 @@ def main(argv=None) -> dict:
     task_cfg = load_task_config(args.config)
     world = env_world_size() if args.multihost else 1
     check_batch(args.batch_size or task_cfg.batch_size, world, args.grad_accum)
-    ctx = init_distributed(args.device) if args.multihost else None
+    devices = None
+    if args.model_parallel > 1:
+        try:
+            check_tensor_parallel(task_cfg, args.model_parallel)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        devices = plan_devices(args)
+    ctx = (init_distributed(args.device if devices is None else devices[0])
+           if args.multihost else None)
     logging.basicConfig(format="%(asctime)s - %(levelname)s - %(name)s - %(message)s",
                         level=logging.INFO if ctx is None or ctx.is_main else logging.WARNING)
     try:
-        result = _run(args, task_cfg, ctx)
+        result = _run(args, task_cfg, ctx, devices)
         barrier()  # the ranks leave together, after rank 0's evaluation
         return result
     finally:
@@ -294,8 +356,12 @@ def main(argv=None) -> dict:
             dist.destroy_process_group()
 
 
-def _run(args, task_cfg, ctx) -> dict:
-    device = resolve_device(args.device) if ctx is None else ctx.device
+def _run(args, task_cfg, ctx, devices) -> dict:
+    tp = args.model_parallel
+    if tp > 1:  # the shards are copied from a model built on the CPU
+        device = torch.device("cpu")
+    else:
+        device = resolve_device(args.device) if ctx is None else ctx.device
     main_rank = ctx is None or ctx.is_main
     seed = args.seed if args.seed is not None else task_cfg.seed
     if seed != task_cfg.seed:
@@ -315,8 +381,9 @@ def _run(args, task_cfg, ctx) -> dict:
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     model = build_model(task_cfg, len(vocab), dtype, seed, device)
     model.mmt.attention_backend = args.attention_backend
-    logger.info("device %s, world %d, training parameters: %d", device,
-                1 if ctx is None else ctx.world, sum(p.numel() for p in model.parameters()))
+    logger.info("device %s, world %d, model_parallel %d, training parameters: %d",
+                device if tp == 1 else [str(d) for d in devices],
+                1 if ctx is None else ctx.world, tp, sum(p.numel() for p in model.parameters()))
 
     if task_cfg.mmt.frcn_encoder_type == "finetune_faster_rcnn_fpn_fc7":
         wf, bf = task_cfg.mmt.detectron_weights_file, task_cfg.mmt.detectron_bias_file
@@ -334,8 +401,9 @@ def _run(args, task_cfg, ctx) -> dict:
             and not will_resume):
         _init_text_bert(task_cfg, model)
 
-    evaluator = Evaluator(model, vocab, metric=task_cfg.metric,
-                          decode_backend=args.decode_backend)
+    def evaluator(m):
+        return Evaluator(m, vocab, metric=task_cfg.metric, decode_backend=args.decode_backend)
+
     eval_batchers = [(s, b) for s, b in (("test", test_batcher), ("val", val_batcher)) if b]
     if args.pretrained_eval:
         if not main_rank:
@@ -343,7 +411,8 @@ def _run(args, task_cfg, ctx) -> dict:
         restored = restore_checkpoint(args.pretrained_eval, map_location=device)
         model.load_state_dict(restored["model_state_dict"], strict=True)
         out_dir = os.path.dirname(args.pretrained_eval.rstrip("/"))
-        return {"eval": _evaluate(evaluator, eval_batchers, task_cfg, out_dir)}
+        evaluated = model if tp == 1 else TPSAM4C(model, devices)
+        return {"eval": _evaluate(evaluator(evaluated), eval_batchers, task_cfg, out_dir)}
 
     history = []
     state = train(
@@ -351,11 +420,12 @@ def _run(args, task_cfg, ctx) -> dict:
         num_epochs=args.num_train_epochs, seed=seed, resume=args.resume,
         max_steps=args.max_steps, grad_accum=args.grad_accum,
         decode_backend=args.decode_backend, history=history, ctx=ctx,
+        devices=devices, model_parallel=tp,
     )
     # final eval with the trained weights (reference train.py:215-225)
     return {"state": state, "history": history,
-            "eval": _evaluate(evaluator, eval_batchers, task_cfg, save_path) if main_rank
-            else {}}
+            "eval": _evaluate(evaluator(state.model), eval_batchers, task_cfg, save_path)
+            if main_rank else {}}
 
 
 if __name__ == "__main__":

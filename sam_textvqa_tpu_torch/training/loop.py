@@ -1,5 +1,5 @@
 """The train loop: epochs, per-epoch validation, best-model save,
-resume (JAX package ``training/loop.py``, single device).
+resume (JAX package ``training/loop.py``).
 
 Reference: the train loop in train.py:122-192 (epoch/iter loops, loss/acc
 window logging every 20 steps, per-epoch greedy val, best-val checkpoint).
@@ -21,7 +21,10 @@ As in the JAX package:
 With a process group (``ctx``, the counterpart of the JAX loop's mesh
 branch, its ``training/loop.py:111-150, 203-230``) every rank runs this
 loop on its slice of each global batch under DDP; only rank 0 writes, and
-every rank takes the same decisions (checkpoints, best model, stop).
+every rank takes the same decisions (checkpoints, best model, stop). With
+``model_parallel`` > 1 each process trains one tensor-parallel group of
+devices (the JAX mesh's ``model`` axis); data parallelism stays across
+processes.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import os
 import signal
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,6 +45,7 @@ from ..data.dataset import EpochBatcher
 from ..data.prefetch import prefetch_to_device
 from ..evaluation.evaluator import Evaluator
 from ..evaluation.metrics import decode_predictions
+from ..models.tensor_parallel import TPSAM4C, home_device
 from ..ops import cuda_build
 from ..parallel.mesh import (DistContext, all_reduce_scalars, barrier, broadcast_scalar,
                              wrap_model)
@@ -154,6 +158,8 @@ def train(
     decode_backend: str = "auto",
     history: Optional[List[Dict]] = None,
     ctx: Optional[DistContext] = None,
+    devices: Optional[Sequence] = None,
+    model_parallel: int = 1,
 ) -> TrainState:
     """Train ``model`` (on its parameters' device) for ``num_epochs`` epochs,
     validating after each through the :class:`Evaluator` (``decode_backend``)
@@ -176,8 +182,29 @@ def train(
     rank 0 saves (a barrier follows each save), and a SIGTERM/SIGINT to any
     rank stops every rank after the same step. ``history`` then counts the
     samples of all ranks and records the world size; its
-    ``val_accuracy`` is this rank's own."""
-    device = next(model.parameters()).device
+    ``val_accuracy`` is this rank's own.
+
+    ``model_parallel=M`` > 1 trains a Megatron ``TPSAM4C`` cut from
+    ``model`` over ``devices`` (M of them, a device may repeat; the first
+    is home, where batches, losses and the residual stream live, and with
+    ``ctx`` the device the process joined the group with): every update is
+    the one-device model's, the validation decodes the shards (``auto`` =
+    ``fused`` on the card: K1 and K2 on each shard's heads), and the
+    checkpoints hold the whole model (they load into one device). The
+    returned state's ``model`` is the ``TPSAM4C``; ``model`` itself is not
+    trained. With ``ctx`` this is dp across processes x tp within one."""
+    if model_parallel > 1:
+        devices = list(devices or ())
+        if len(devices) != model_parallel:
+            raise ValueError(f"model_parallel {model_parallel} needs as many devices, "
+                             f"not {devices}")
+        model = TPSAM4C(model, devices)
+    device = home_device(model)
+    if ctx is not None and model_parallel > 1 and device != ctx.device:
+        raise ValueError(f"the model's home is {device}, this process's device {ctx.device}")
+    logger.info("training over dp=%d x tp=%d (devices %s)", 1 if ctx is None else ctx.world,
+                model_parallel, [str(d) for d in (model.devices if model_parallel > 1
+                                                  else [device])])
     if ctx is not None:
         sliced = (getattr(train_batcher, "process_index", 0),
                   getattr(train_batcher, "process_count", 1))
@@ -208,7 +235,7 @@ def train(
         logger.info("resumed from %s at step %d epoch %d batch %d", resume_path, state.step,
                     start_epoch, skip)
 
-    net = model if ctx is None else wrap_model(model, ctx)
+    net = model if ctx is None or model_parallel > 1 else wrap_model(model, ctx)
     train_step = make_train_step(net, optimizer, grad_accum=grad_accum, ctx=ctx)
     generator = torch.Generator().manual_seed(seed)
     evaluator = Evaluator(model, answer_vocab, metric=task_cfg.metric,
@@ -241,7 +268,8 @@ def train(
 
     try:
         for epoch_id in range(start_epoch, num_epochs):
-            record = {"epoch": epoch_id, "world": 1 if ctx is None else ctx.world}
+            record = {"epoch": epoch_id, "world": 1 if ctx is None else ctx.world,
+                      "model_parallel": model_parallel}
             launches = cuda_build.launch_counts()
             t_epoch = t_window = time.monotonic()
             losses, epoch_losses, samples, samples_window, steps = [], [], 0, 0, 0

@@ -12,13 +12,14 @@ kernel when the backend is ``"kernel"``.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..models.sa_m4c import SAM4C
-from ..parallel.mesh import DistContext, all_reduce_scalars
+from ..models.tensor_parallel import TPSAM4C
+from ..parallel.mesh import DistContext, all_reduce_grads_, all_reduce_scalars
 from .loss import m4c_decoding_bce_sum, m4c_decoding_bce_with_mask
 from .optimizer import Optimizer
 
@@ -30,11 +31,11 @@ class TrainState(NamedTuple):
     state with ``step + 1``."""
 
     step: int
-    model: SAM4C
+    model: Union[SAM4C, TPSAM4C]
     optimizer: Optimizer
 
 
-def create_train_state(model: SAM4C, optimizer: Optimizer) -> TrainState:
+def create_train_state(model, optimizer: Optimizer) -> TrainState:
     return TrainState(step=0, model=model, optimizer=optimizer)
 
 
@@ -61,7 +62,7 @@ def _pred_ids(scores: torch.Tensor) -> torch.Tensor:
     return scores.detach().argmax(-1).to(torch.int32)
 
 
-def make_train_step(model: torch.nn.Module, optimizer: Optimizer, grad_accum: int = 1,
+def make_train_step(model, optimizer: Optimizer, grad_accum: int = 1,
                     ctx: Optional[DistContext] = None) -> Callable:
     """Returns ``train_step(state, batch, generator) -> (state, metrics)``;
     metrics hold the loss, the argmax ids (B, T) int32 and the global
@@ -84,9 +85,19 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, grad_accum: in
     are divided by ``count / world``, which for a power-of-two world is
     exactly the division of the summed gradients by the count.
     ``metrics["loss"]`` is then the global loss, the same on every rank;
-    ``pred_ids`` are this rank's rows."""
+    ``pred_ids`` are this rank's rows.
+
+    ``model`` may be a tensor-parallel ``TPSAM4C`` (its forward draws the
+    one-device masks, so the step is the one-device step): the loss,
+    ``pred_ids`` and ``grad_norm`` come back on its home device. With
+    ``ctx`` it is not wrapped in DDP: after the last microbatch the
+    gradients are summed over the ranks (``parallel.mesh.all_reduce_grads_``,
+    shard r's with the other ranks' shard r) and divided by the global
+    count."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be at least 1, not {grad_accum}")
+    tensor_parallel = isinstance(model, TPSAM4C)
+    ddp = ctx is not None and not tensor_parallel
 
     def forward(batch, generator):
         return model(batch, deterministic=False, generator=generator)["scores"]
@@ -98,7 +109,7 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, grad_accum: in
         for i in range(n):
             micro = {k: v[i::n] for k, v in batch.items()}
             # DDP all-reduces the accumulated gradients in the last backward
-            sync = ctx is None or i == n - 1
+            sync = not ddp or i == n - 1
             with contextlib.nullcontext() if sync else model.no_sync():
                 scores = forward(micro, g)
                 part, part_count = m4c_decoding_bce_sum(scores, micro["targets"],
@@ -120,9 +131,12 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, grad_accum: in
         optimizer.zero_grad()
         if ctx is not None:
             total, count, pred_ids = accumulate(batch, g, n)
+            if tensor_parallel:
+                all_reduce_grads_(optimizer.grads(), ctx.device)
             total, count = all_reduce_scalars([total, count], total.device)
             denom = torch.clamp(count, min=1.0)
-            torch._foreach_div_(optimizer.grads(), denom / ctx.world)
+            # DDP averaged the gradients over the ranks; the TP sum did not
+            optimizer.divide_grads_(denom if tensor_parallel else denom / ctx.world)
             loss = total / denom
         elif n == 1:
             scores = forward(batch, g)
@@ -133,7 +147,7 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, grad_accum: in
         else:
             total, count, pred_ids = accumulate(batch, g, n)
             denom = torch.clamp(count, min=1.0)
-            torch._foreach_div_(optimizer.grads(), denom)
+            optimizer.divide_grads_(denom)
             loss = total / denom
         grad_norm = optimizer.step()
         metrics = {"loss": loss.detach(), "pred_ids": pred_ids, "grad_norm": grad_norm}

@@ -157,16 +157,18 @@ def save_checkpoint(path: str, state, *, epoch_id: int, val_score: float,
     previous checkpoint whole. Returns its size in bytes.
 
     A ``DistributedDataParallel`` model is saved as its inner module, with
-    no ``module.`` prefix, so data-parallel and single-process checkpoints
-    stand in for each other. In a process group only rank 0 may save: on
-    any other rank this raises."""
+    no ``module.`` prefix, and a tensor-parallel ``TPSAM4C`` as the whole
+    model's ``state_dict`` with Adam's moments in the one-device layout
+    (``Optimizer.state_dict``), so data-parallel, tensor-parallel and
+    single-device checkpoints stand in for each other. In a process group
+    only rank 0 may save: on any other rank this raises."""
     if dist.is_available() and dist.is_initialized() and dist.get_rank() != 0:
         raise RuntimeError(f"rank {dist.get_rank()} may not write {path}: only rank 0 saves")
     payload = {
         "format": CHECKPOINT_FORMAT,
         "step": int(state.step),
         "model_state_dict": _inner(state.model).state_dict(),
-        "optimizer_state_dict": state.optimizer.adam.state_dict(),
+        "optimizer_state_dict": state.optimizer.state_dict(),
         "scheduler_state_dict": state.optimizer.scheduler.state_dict(),
         "meta": {"epoch_id": int(epoch_id), "val_score": float(val_score),
                  "batches_done": int(batches_done)},
@@ -187,9 +189,9 @@ def restore_checkpoint(path: str, state=None, map_location: Any = "cpu") -> Dict
     ``map_location``.
 
     With ``state`` (a ``TrainState``), a checkpoint of :func:`save_checkpoint`
-    is also loaded into it: the model with ``strict=True``, the optimizer
-    and the schedule; the result then holds ``state``, the given one with
-    the restored step."""
+    is also loaded into it: the model with ``strict=True`` (a ``TPSAM4C``
+    cuts it into its shards), the optimizer and the schedule; the result
+    then holds ``state``, the given one with the restored step."""
     payload = torch.load(path, map_location=map_location, weights_only=True)
     sd = {k[len("module."):] if k.startswith("module.") else k: v
           for k, v in payload["model_state_dict"].items()}
@@ -201,14 +203,7 @@ def restore_checkpoint(path: str, state=None, map_location: Any = "cpu") -> Dict
             raise ValueError(f"{path} holds no optimizer state to resume from "
                              "(a reference checkpoint restores the model only)")
         _inner(state.model).load_state_dict(sd, strict=True)
-        adam = state.optimizer.adam
-        # the implementation flags follow this optimizer's device, not the
-        # saving one's (fused Adam on the card, another on the CPU)
-        flags = [{k: g[k] for k in ("fused", "foreach", "capturable") if k in g}
-                 for g in adam.param_groups]
-        adam.load_state_dict(payload["optimizer_state_dict"])
-        for group, own in zip(adam.param_groups, flags):
-            group.update(own)
+        state.optimizer.load_state_dict(payload["optimizer_state_dict"])
         state.optimizer.scheduler.load_state_dict(payload["scheduler_state_dict"])
         out["state"] = state._replace(step=payload["step"])
     return out

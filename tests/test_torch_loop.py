@@ -386,7 +386,7 @@ def test_cli_train_resume_and_pretrained_eval(cli_config):
     (["--beam_size", "2"], "item 5"),
     (["--ocr_bucket", "20,50"], "item 7"),
     (["--obj_bucket", "50"], "item 7"),
-    (["--model_parallel", "2"], "item 9b"),
+    (["--model_parallel", "2", "--decode_backend", "mega"], "item 9e"),
     (["--multihost"], "torchrun"),  # ported: refused without torchrun's environment
     (["--dropout_reuse"], "item 1"),
     (["--compile_cache", "cache"], "item 11"),

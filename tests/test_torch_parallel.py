@@ -11,7 +11,9 @@
   elements, differing by at most twice as much, as JAX's own
   grad-accumulating and full-batch steps after three steps: 2667, 1.2e-4);
   ``grad_accum`` 2 against the port's single-process step, the same way
-  (gradient norm rtol 1e-4). The ranks' parameters are bit-identical after
+  (gradient norm rtol 1e-4); and dp 2 x tp 2, each rank a tensor-parallel
+  model over ``cpu,cpu`` whose gradients are summed over the ranks shard
+  by shard, against the single-process step at ``grad_accum`` 1 and 2. The ranks' parameters are bit-identical after
   every step; their dropout masks differ, and at world 1 they are the
   single-process ones.
 * ``training.loop.train`` on 2 ranks, 2 epochs with validation: only rank
@@ -53,6 +55,7 @@ from sam_textvqa_tpu_torch.data.synthetic import SyntheticDataset, device_batch 
 from sam_textvqa_tpu_torch.data.vocab import VocabDict  # noqa: E402
 from sam_textvqa_tpu_torch.models.layers import dropout  # noqa: E402
 from sam_textvqa_tpu_torch.models.sa_m4c import SAM4C, SAM4CParams  # noqa: E402
+from sam_textvqa_tpu_torch.models.tensor_parallel import TPSAM4C  # noqa: E402
 from sam_textvqa_tpu_torch.parallel import mesh  # noqa: E402
 from sam_textvqa_tpu_torch.training.loop import train  # noqa: E402
 from sam_textvqa_tpu_torch.training.optimizer import make_optimizer  # noqa: E402
@@ -86,12 +89,18 @@ def _fresh_model(task, weights, device):
     return model.to(device)
 
 
-def _steps(task, weights, batch, ctx, accum):
-    """STEPS DDP steps on this rank's rows of ``batch``: losses, gradient
-    norms, pred ids and the parameters' digest after each step."""
+def _steps(task, weights, batch, ctx, accum, tp=1):
+    """STEPS DDP steps on this rank's rows of ``batch`` (with ``tp`` > 1,
+    of a tensor-parallel model over ``tp`` entries of this rank's device):
+    losses, gradient norms, pred ids and the parameters' digest after each
+    step."""
     model = _fresh_model(task, weights, ctx.device)
+    if tp > 1:
+        model = net = TPSAM4C(model, [ctx.device] * tp)
+    else:
+        net = mesh.wrap_model(model, ctx)
     optimizer = make_optimizer(model, task)
-    step = make_train_step(mesh.wrap_model(model, ctx), optimizer, grad_accum=accum, ctx=ctx)
+    step = make_train_step(net, optimizer, grad_accum=accum, ctx=ctx)
     state = create_train_state(model, optimizer)
     per = batch["targets"].shape[0] // ctx.world
     local = {k: v[ctx.rank * per:(ctx.rank + 1) * per] for k, v in batch.items()}
@@ -187,10 +196,12 @@ def worker(spec_path: str) -> int:
         batch = device_batch({k: z[k] for k in z.files}, ctx.device)
     out.update(rank=ctx.rank, world=ctx.world)
 
-    for accum in spec["accum"]:
-        out[f"accum{accum}"], model = _steps(task, weights, batch, ctx, accum)
+    runs = [(f"accum{a}", a, 1) for a in spec["accum"]]
+    runs += [(f"tp_accum{a}", a, 2) for a in spec.get("tp_accum", [])]
+    for name, accum, tp in runs:
+        out[name], model = _steps(task, weights, batch, ctx, accum, tp)
         if ctx.is_main:
-            np.savez(root / f"params_accum{accum}_rank0.npz",
+            np.savez(root / f"params_{name}_rank0.npz",
                      **{k: v.detach().cpu().numpy() for k, v in model.state_dict().items()})
     if "dropout" in parts:
         g = step_generator(torch.Generator().manual_seed(11), 0, "cpu", ctx)
@@ -508,7 +519,8 @@ def suite(tmp_path_factory):
                                           output_dir=str(root / "runs" / "cli"))))
     cli_argv = ["--config", str(config), "--tag", "ddp", "--synthetic", "16", "--device", "cpu",
                 "--dtype", "f32", "--num_train_epochs", "1", "--multihost"]
-    proc = run_workers(dict(raw=raw, device="cpu", accum=[1, 2], cli_argv=cli_argv,
+    proc = run_workers(dict(raw=raw, device="cpu", accum=[1, 2], tp_accum=[1, 2],
+                            cli_argv=cli_argv,
                             parts=["cli", "dropout", "loop", "failures"]), root)
     try:
         jax_ref = _jax_steps(pair, jax_batch)
@@ -550,6 +562,26 @@ def test_ddp_grad_accum_matches_single_process(suite):
         np.testing.assert_allclose(r["accum2"]["losses"], losses, **LOSS_TOL)
         np.testing.assert_allclose(r["accum2"]["norms"], norms, rtol=1e-4)
     count, worst = _beyond_tol(_npz(suite["root"] / "params_accum2_rank0.npz"), params)
+    assert count <= 2 * ENVELOPE[0] and worst <= 2 * ENVELOPE[1], (count, worst)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_dp_by_tp_step_matches_one_process_on_the_global_batch(suite, accum):
+    """dp 2 x tp 2: each rank a tensor-parallel model over ``cpu,cpu`` on
+    its 4 rows, the gradients summed over the ranks shard by shard, against
+    one process's one-device step on the global batch of 8 (the bars of
+    :func:`test_ddp_grad_accum_matches_single_process`); the ranks stay
+    bit-identical."""
+    from test_torch_loop import ENVELOPE, _beyond_tol
+    from test_torch_training import LOSS_TOL
+
+    losses, norms, params, _ = suite["single"]
+    r0, r1 = (r[f"tp_accum{accum}"] for r in suite["ranks"])
+    for r in (r0, r1):
+        np.testing.assert_allclose(r["losses"], losses, **LOSS_TOL)
+        np.testing.assert_allclose(r["norms"], norms, rtol=1e-4)
+    assert r0["digests"] == r1["digests"] and r0["norms"] == r1["norms"]
+    count, worst = _beyond_tol(_npz(suite["root"] / f"params_tp_accum{accum}_rank0.npz"), params)
     assert count <= 2 * ENVELOPE[0] and worst <= 2 * ENVELOPE[1], (count, worst)
 
 
@@ -666,7 +698,7 @@ def cli_config(tmp_path):
     ({"WORLD_SIZE": "2"}, ["--grad_accum", "3"], ValueError, "multiple of 6"),
     (None, [], SystemExit, "torchrun"),
     ({"WORLD_SIZE": "2", "drop": "--multihost"}, [], SystemExit, "pass --multihost"),
-    ({}, ["--model_parallel", "2"], SystemExit, "item 9b"),
+    ({}, ["--model_parallel", "2"], SystemExit, "must divide the 1 available devices"),
 ])
 def test_cli_refuses_misuse(cli_config, monkeypatch, capsys, env, flags, error, match):
     """Each exits before any process group or model exists, naming the
