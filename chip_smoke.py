@@ -174,17 +174,45 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    tp 2 best model in f32 on one device and on tp 2, the answers identical;
    K1 on shard 1's heads and K2 384 wide against their plain versions at
    the validation's batch;
+11. beam search and the evaluator's width ladders at full c3 width with
+   K = 5, before phase 4 too, on 64 raw requests (phase 7's kind, seed 11)
+   and phase 7's weights (std 0.1). 11a: fast beams of staged batches at
+   B = 8 and 32 in f32 with ``auto`` (= the K1 cache pass): K1 launched 4
+   times, K2 and K3 never; the same seqs as the plain cache pass (scores
+   within 1e-4), ``early_exit`` bit-identical, K = 1 equal to greedy
+   ``mega`` up to each row's first EOS, and at B = 8 the slow beams (the
+   full forward with K1 at L = 182 per step, 48 launches) with the same
+   seqs; bf16 agreement with f32 printed; at B = 32 in bf16 a fixed-step
+   decode under ``set_sync_debug_mode("error")``, its eager time, the
+   replay time of its CUDA graph and of the greedy ``mega`` decode's. The
+   evaluator in f32 on the requests cut by quarters (batches of 8 routed to
+   four cells of obj (50) x OCR (10, 25)): ``run_split_beam`` and
+   ``run_split`` through the ladders against full width, the same
+   selections (beam scores within 1e-5). 11b: ``--pretrained_eval`` of
+   phase 5's best model (c3, batch 96, 240 test and val samples) with
+   ``--beam_size 5``, the ladders, and both, in bf16 and f32 (and greedy
+   at full width in f32): each run's decode samples/s and launches (K1
+   only with beams; K1 and K3 greedy), the f32 ladder runs' answers equal
+   to full width's. 11c: ``ServingEngine(beam_size=5)`` in f32 with one
+   CUDA graph per (bucket x cell) over buckets (1, 8, 32) and those
+   ladders: the 64 requests (cut by quarters) from 8 threads, answers equal
+   to ``run_split_beam``'s best beams, K1 through the replays (equal to
+   recorded x replays) and no K2 or K3, samples/s, p50/p95, graphs, capture
+   seconds, pool bytes. 11d: ``serve --beam_size 5 --model_parallel 2`` on
+   ``cuda:0,cuda:0`` must exit nonzero naming ROADMAP item 5b;
 4. after every timed phase, ``torch.profiler`` device time by kernel of one
    spatial-attention call (code pass and attention), of one bf16 decode
    step at batch 32 (its kernels by name with launch counts, so launches
    per step read off), of one bf16 ``mega`` decode of the batch (with
-   the card's idle share), of one bf16 train step at batch 96 and of one
-   replay of phase 7's full-width B=32 bf16 graph (its idle share); then in
+   the card's idle share), of one bf16 train step at batch 96, of one
+   replay of phase 7's full-width B=32 bf16 graph and of phase 11's B=32
+   K=5 beam graph (their idle shares); then in
    f32 the three backends must give identical ids and the full forward
    with the kernel attention must match the plain one;
 then JSON lines of the training path, of the train CLI, of the real-data
 run, of the server, of data parallelism, of multi-device serving, of
-tensor-parallel training and of the kernels, and the result line
+tensor-parallel training, of beams and ladders and of the kernels, and the
+result line
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --resume-check CONFIG DIR [DEVICE [MODE]]`` is that child
@@ -200,6 +228,7 @@ It imports nothing of JAX, and exits nonzero without a CUDA device.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import hashlib
@@ -228,13 +257,15 @@ from sam_textvqa_tpu_torch.data import dataset, fasttext_bin, features, lmdb_io,
 from sam_textvqa_tpu_torch.data.dataset import EpochBatcher
 from sam_textvqa_tpu_torch.data.synthetic import SyntheticDataset, device_batch, make_batch
 from sam_textvqa_tpu_torch.data.vocab import VocabDict
-from sam_textvqa_tpu_torch.evaluation.evaluator import needed_width
+from sam_textvqa_tpu_torch.evaluation.evaluator import Evaluator, needed_width
 from sam_textvqa_tpu_torch.evaluation.metrics import decode_predictions
+from sam_textvqa_tpu_torch.models.beam_search import beam_search_decode
 from sam_textvqa_tpu_torch.models.bert import split_heads
 from sam_textvqa_tpu_torch.models.sa_m4c import SAM4C, SAM4CParams
 from sam_textvqa_tpu_torch.models.tensor_parallel import TPSAM4C
 from sam_textvqa_tpu_torch.models.fast_decode import (_mega_step_consts, _seg_lens,
-                                                      build_mmt_cache, greedy_decode_fast)
+                                                      beam_search_decode_fast, build_mmt_cache,
+                                                      greedy_decode_fast)
 from sam_textvqa_tpu_torch.ops import cuda_build
 from sam_textvqa_tpu_torch.ops.batcher import cast_bf16
 from sam_textvqa_tpu_torch.ops.decode_attention import (decode_attention,
@@ -1095,11 +1126,12 @@ def parity_b96(task, model, batch, gen) -> dict:
     return out
 
 
-def train_cli_path(task, vocab, model, bare_step, gen, dev=torch.device("cuda")) -> dict:
+def train_cli_path(task, vocab, model, bare_step, gen, dev=torch.device("cuda"),
+                   keep_best: Path = None) -> dict:
     """Phase 5: the train CLI at full c3 width (see the module docstring).
     ``bare_step`` is phase 3b's train-step result, printed beside the
     loop's rate; ``model`` the phase 3 model, whose weights K3's B=96
-    check uses."""
+    check uses. ``keep_best``: where the best model is copied for phase 11."""
     import yaml
 
     out = {}
@@ -1179,6 +1211,8 @@ def train_cli_path(task, vocab, model, bare_step, gen, dev=torch.device("cuda"))
         out["best_model_f32_ids"] = f32_best_model_ids(task, vocab, best_model, dev)
         log(f"  best model, f32 greedy ids over the val split: "
             f"{json.dumps(out['best_model_f32_ids'])}")
+        if keep_best is not None:
+            shutil.copy(best_model, keep_best)
         shutil.rmtree(tmp / "full")
         out["resume"] = resume_check(config, tmp, dev)
         out["resume_default"] = resume_check(config, tmp, dev, deterministic=False)
@@ -2869,6 +2903,324 @@ def tp_training_path(task, vocab, gen, dev=torch.device("cuda")):
     return out, call
 
 
+# ---------------------------------------------------------------- phase 11
+
+BEAM = 5  # the README's beam (--beam_size 5)
+BEAM_REQUESTS = 64
+BEAM_BATCHES = (8, 32)
+# f32 beam scores of the kernel and the plain encoder-cache pass: the same
+# selections; the scores are sums of 12 log-sigmoids after reductions taken
+# in another order
+BEAM_SCORE_TOL = 1e-4
+# a narrower width cell moves a beam score by an ulp and no selection (the
+# JAX package's rule, its tests/test_evaluator.py)
+CELL_SCORE_TOL = 1e-5
+# the requests' real (obj, OCR) rows cut by quarters, so that the
+# evaluator's batches of 8 route to four cells of obj (50) x OCR (10, 25)
+LADDER_CUTS = ((50, 10), (50, 25), (None, 25), (None, None))
+BEAM_CLI_RUNS = {"beam5": ("--beam_size", str(BEAM)),
+                 "ladders": ("--ocr_bucket", "10,25", "--obj_bucket", "50"),
+                 "beam5_ladders": ("--beam_size", str(BEAM), "--ocr_bucket", "10,25",
+                                   "--obj_bucket", "50"),
+                 "full": ()}
+
+
+def cut_rows(sample, obj_w, ocr_w):
+    """``sample`` with its real obj / OCR rows cut to the widths (None:
+    kept)."""
+    return cut(sample, obj_w or sample["pad_obj_mask"].shape[0],
+               ocr_w or sample["pad_ocr_mask"].shape[0])
+
+
+def host_batches(samples, b: int) -> list:
+    """Evaluator host batches of ``b`` requests (the last repeat-padded),
+    question ids their positions, no ground truth."""
+    out = []
+    for i in range(0, len(samples), b):
+        rows = samples[i:i + b]
+        real = len(rows)
+        rows = rows + [rows[0]] * (b - real)
+        batch = {k: np.stack([s[k] for s in rows]) for k in SAMPLE_KEYS}
+        batch.update(question_id=np.arange(i, i + b), _ocr_tokens=[s["ocr_tokens"] for s in rows],
+                     _answers=[[] for _ in rows], _real_count=real)
+        out.append(batch)
+    return out
+
+
+def beam_is_greedy(one, greedy, eos: int) -> bool:
+    """K = 1 tokens (B, T - 1) against greedy ids (B, T): equal up to each
+    row's first EOS, and EOS after it (a done beam only appends EOS)."""
+    for row, ref in zip(one.tolist(), greedy[:, :-1].tolist()):
+        stop = ref.index(eos) + 1 if eos in ref else len(ref)
+        if row[:stop] != ref[:stop] or any(t != eos for t in row[stop:]):
+            return False
+    return True
+
+
+def beam_decodes(task, vocab, model, samples, dev) -> dict:
+    """11a: fast beams of staged batches at B = 8 and 32 (see the module
+    docstring), then the bf16 times at B = 32."""
+    sp = vocab.special_ids()
+    bos, eos = sp.bos, sp.eos
+    n_spatial = task.mmt.layer_type_list.count("s")
+    steps = task.mmt.num_decoding_steps
+    out = {}
+    for b in BEAM_BATCHES:
+        batch = stack(samples[:b], dev)
+        model.dtype = torch.float32
+        cuda_build.reset_launch_counts()
+        seqs, scores = beam_search_decode_fast(model, batch, BEAM, bos, eos)  # auto = mega
+        torch.cuda.synchronize()
+        res = {"launches": cuda_build.launch_counts()}
+        if res["launches"] != {"spatial_attention": n_spatial, "decode_attention": 0,
+                               "decode_step": 0}:
+            raise AssertionError(f"fast beam B={b} launched {res['launches']}: K1 {n_spatial} "
+                                 f"times in the cache pass and nothing in the steps expected")
+        plain = beam_search_decode_fast(model, batch, BEAM, bos, eos, backend="plain")
+        res["kernel_vs_plain_cache_pass_max_abs_err"] = max_err(scores, plain[1])
+        if not torch.equal(seqs, plain[0]) or \
+                res["kernel_vs_plain_cache_pass_max_abs_err"] > BEAM_SCORE_TOL:
+            raise AssertionError(f"f32 beams B={b}: the K1 cache pass differs from plain: {res}")
+        early = beam_search_decode_fast(model, batch, BEAM, bos, eos, early_exit=True)
+        res["early_exit_bit_identical"] = torch.equal(early[0], seqs) and torch.equal(early[1],
+                                                                                      scores)
+        one = beam_search_decode_fast(model, batch, 1, bos, eos)[0][:, 0, 1:]
+        res["k1_equals_greedy_mega"] = beam_is_greedy(
+            one, greedy_decode_fast(model, batch, bos, backend="mega")[1], eos)
+        if not (res["early_exit_bit_identical"] and res["k1_equals_greedy_mega"]):
+            raise AssertionError(f"f32 beams B={b}: {res}")
+        if b == BEAM_BATCHES[0]:  # the slow path: the full forward per step, K1 at L = 182
+            model.mmt.attention_backend = "kernel"
+            cuda_build.reset_launch_counts()
+            try:
+                slow = beam_search_decode(model, batch, BEAM, bos, eos)
+            finally:
+                model.mmt.attention_backend = "plain"
+            torch.cuda.synchronize()
+            res["slow_launches"] = cuda_build.launch_counts()
+            res["slow_vs_fast_max_abs_err"] = max_err(slow[1], scores)
+            if res["slow_launches"]["spatial_attention"] != steps * n_spatial or \
+                    not torch.equal(slow[0], seqs):
+                raise AssertionError(f"f32 slow beams B={b} differ from fast: {res}")
+        res["distinct_best_beams"] = len({tuple(r) for r in seqs[:, 0].tolist()})
+        model.dtype = torch.bfloat16
+        bf16 = beam_search_decode_fast(model, batch, BEAM, bos, eos)[0]
+        res["bf16_best_beam_agreement_with_f32"] = (
+            (bf16[:, 0] == seqs[:, 0]).all(-1).float().mean().item())
+        res["bf16_token_agreement_with_f32"] = (bf16 == seqs).float().mean().item()
+        log(f"  B={b}: {json.dumps(res)}")
+        out[b] = res
+    if out[BEAM_BATCHES[-1]]["distinct_best_beams"] < 2:
+        raise AssertionError("every request got the same best beam: the comparisons cannot bite")
+
+    # bf16 at B = 32, the serving dtype: no sync in a fixed-step decode, times
+    batch = stack(samples[:BEAM_BATCHES[-1]], dev)
+
+    def beam():
+        return beam_search_decode_fast(model, batch, BEAM, bos, eos)
+
+    beam()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        beam()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    consts = _mega_step_consts(model.mmt, model.dtype)
+    gc.collect()
+    graph = torch.cuda.CUDAGraph()  # one decode, kept for phase 4's profile
+    with torch.cuda.graph(graph):
+        beam()
+    out["b32_bf16"] = dict(
+        sync_free="no synchronizing call",
+        beam_eager_ms=cuda_ms(beam, iters=5, warmup=1),
+        beam_graph_replay_ms=cuda_ms(graph.replay, iters=10, warmup=3),
+        greedy_mega_graph_replay_ms=graph_ms(lambda: greedy_decode_fast(
+            model, batch, bos, backend="mega", check_masks=False, consts=consts),
+            calls=1, replays=10))
+    log(f"  B=32 bf16: {json.dumps(out['b32_bf16'])}")
+    return out, (graph, batch)  # the graph reads the batch: it lives as long
+
+
+def eval_ladders(task, vocab, model, samples) -> dict:
+    """11a, the evaluator: the requests cut by ``LADDER_CUTS`` in batches of
+    8, f32, ``run_split_beam`` and ``run_split`` at full width and through
+    the ladders obj (50) x OCR (10, 25): the same selections (scores within
+    ``CELL_SCORE_TOL``), K1 per batch in each cell."""
+    model.dtype = torch.float32
+    quarter = len(samples) // len(LADDER_CUTS)
+    cut_samples = [cut_rows(s, *LADDER_CUTS[i // quarter]) for i, s in enumerate(samples)]
+    batches = host_batches(cut_samples, 8)
+    ev = Evaluator(model, vocab)
+    ladders = dict(obj_bucket=OBJ_LADDER, ocr_bucket=OCR_LADDER)
+    grid = ev._width_grid(OBJ_LADDER, OCR_LADDER)
+    cells = [ev._route_widths(b, *grid)[1].params_cfg.mmt for b in batches]
+    out = {"cells": [[c.max_obj_num, c.max_ocr_num] for c in cells]}
+    runs = {}
+    for name, kw in (("beam_full", {}), ("beam_ladders", ladders)):
+        cuda_build.reset_launch_counts()
+        t0 = time.monotonic()
+        runs[name] = ev.run_split_beam(batches, BEAM, **kw)
+        out[f"{name}_launches"] = cuda_build.launch_counts()
+        out[f"{name}_s"] = time.monotonic() - t0
+    full, lad = (runs[k]["predictions"] for k in ("beam_full", "beam_ladders"))
+    same = all(a["best_beam"] == b["best_beam"] and a["pred_answer"] == b["pred_answer"]
+               and [x["pred_ids"] for x in a["beams"]] == [x["pred_ids"] for x in b["beams"]]
+               for a, b in zip(full, lad))
+    out["beam_ladders_vs_full_max_abs_score_err"] = max(
+        abs(x["topkscore"] - y["topkscore"]) for a, b in zip(full, lad)
+        for x, y in zip(a["beams"], b["beams"]))
+    for name, kw in (("greedy_full", {}), ("greedy_ladders", ladders)):
+        cuda_build.reset_launch_counts()
+        runs[name] = ev.run_split(batches, **kw)
+        out[f"{name}_launches"] = cuda_build.launch_counts()
+    out["identical_selections"] = same and runs["greedy_full"] == runs["greedy_ladders"]
+    log(f"  evaluator ladders: {json.dumps(out)}")
+    if len({tuple(c) for c in out["cells"]}) < 3 or not out["identical_selections"] or \
+            out["beam_ladders_vs_full_max_abs_score_err"] > CELL_SCORE_TOL:
+        raise AssertionError(f"the evaluator's ladders: {out}")
+    n_spatial = task.mmt.layer_type_list.count("s")
+    if out["beam_ladders_launches"]["spatial_attention"] != n_spatial * len(batches):
+        raise AssertionError(f"K1 per ladder batch: {out['beam_ladders_launches']}")
+    return out
+
+
+def beam_cli_path(task, vocab, best_model: Path, dev) -> dict:
+    """11b: ``--pretrained_eval`` of ``best_model`` (phase 5's) with beams,
+    ladders and both, in bf16 and f32 (and full-width greedy in f32): each
+    run's samples/s (test and val, 240 samples), launches and accuracy; the
+    f32 ladder runs' answers equal the full-width runs'."""
+    import yaml
+
+    raw = yaml.safe_load(CONFIG.read_text())
+    raw["output_dir"] = str(best_model.parent)
+    config = best_model.parent / "c3.yml"
+    config.write_text(yaml.safe_dump(raw))
+    out, answers, timed = {}, {}, {}
+    evaluate = train_cli._evaluate
+
+    def timed_evaluate(*args, **kwargs):  # the decode of the splits, without the CLI's set-up
+        t0 = time.monotonic()
+        result = evaluate(*args, **kwargs)
+        torch.cuda.synchronize()
+        timed["eval_s"] = time.monotonic() - t0
+        return result
+
+    train_cli._evaluate = timed_evaluate
+    try:
+        _beam_cli_runs(best_model, config, dev, out, answers, timed)
+    finally:
+        train_cli._evaluate = evaluate
+    for narrow, full in (("ladders", "full"), ("beam5_ladders", "beam5")):
+        if answers["f32", narrow] != answers["f32", full]:
+            raise AssertionError(f"f32 --pretrained_eval answers: {narrow} differ from {full}")
+    out["f32_ladder_answers_equal_full_width"] = True
+    return out
+
+
+def _beam_cli_runs(best_model: Path, config: Path, dev, out: dict, answers: dict, timed: dict):
+    for dtype in ("bf16", "f32"):
+        for name, flags in BEAM_CLI_RUNS.items():
+            if name == "full" and dtype == "bf16":
+                continue  # phase 5 ran it
+            cuda_build.reset_launch_counts()
+            t0 = time.monotonic()
+            res = train_cli.main(cli_args(str(config), f"beam_{name}", "--pretrained_eval",
+                                          str(best_model), *flags, "--dtype", dtype, dev=dev))
+            torch.cuda.synchronize()
+            seconds = time.monotonic() - t0
+            launches = cuda_build.launch_counts()
+            beams = "--beam_size" in flags
+            need = ("spatial_attention",) if beams else ("spatial_attention", "decode_step")
+            require_launched(launches, need, f"--pretrained_eval {' '.join(flags)} ({dtype})")
+            if beams and (launches["decode_step"] or launches["decode_attention"]):
+                raise AssertionError(f"the beam steps launched K2/K3: {launches}")
+            dumped = best_model.parent / (f"evalai_val_beam_{BEAM}.json" if beams
+                                          else "evalai_val.json")
+            val = res["eval"]["val"]
+            if len(json.loads(dumped.read_text())) != len(val["predictions"]):
+                raise AssertionError(f"{dumped} does not hold the val predictions")
+            n = sum(len(r["predictions"]) for r in res["eval"].values())
+            answers[dtype, name] = {s: [p["pred_answer"] for p in r["predictions"]]
+                                    for s, r in res["eval"].items()}
+            out[f"{name}_{dtype}"] = dict(eval_samples_per_s=n / timed["eval_s"],
+                                          eval_s=timed["eval_s"], cli_s=seconds, samples=n,
+                                          launches=launches, val_accuracy=val["accuracy"],
+                                          val_anls=val.get("anls"))
+            log(f"  --pretrained_eval {' '.join(flags) or '(greedy, full width)'} {dtype}: "
+                f"{json.dumps(out[f'{name}_{dtype}'])}")
+
+
+def beam_engine_path(task, vocab, model, samples, dev) -> dict:
+    """11c: ``ServingEngine(beam_size=5)`` in f32 over buckets (1, 8, 32)
+    and the ladders obj (50) x OCR (10, 25): one graph per cell, the 64
+    requests (cut by ``LADDER_CUTS``, every fourth alike) from 8 threads,
+    answers equal to the evaluator's best beams, K1 through the replays
+    and no K2 or K3."""
+    model.dtype = torch.float32
+    samples = [cut_rows(s, *LADDER_CUTS[i % len(LADDER_CUTS)]) for i, s in enumerate(samples)]
+    want = [p["pred_answer"] for p in Evaluator(model, vocab).run_split_beam(
+        host_batches(samples, 8), BEAM)["predictions"]]
+    engine = ServingEngine(model, vocab, buckets=SERVER_BUCKETS, obj_buckets=OBJ_LADDER,
+                           ocr_buckets=OCR_LADDER, device=dev, beam_size=BEAM)
+    try:
+        t0 = time.monotonic()
+        engine.warmup()
+        out = dict(warmup_s=time.monotonic() - t0, **engine.graph_counts())
+        before = out.pop("launches")
+        cuda_build.reset_launch_counts()
+        results, wall = flood(engine, samples)
+        torch.cuda.synchronize()
+        launches = cuda_build.launch_counts()
+        after = engine.graph_counts()["launches"]
+        stats = engine.stats.summary()
+    finally:
+        engine.close()
+    replayed = {k: after.get(k, 0) - before.get(k, 0) for k in launches}
+    answers = [r["answer"] for r in results]
+    out.update(samples_per_s=len(samples) / wall, wall_s=wall, launches=launches,
+               answers_equal_offline_best_beam=answers == want,
+               distinct_answers=len(set(answers)),
+               **{k: stats.get(k) for k in ("latency_ms_p50", "latency_ms_p95", "occupancy",
+                                            "obj_width_occupancy", "ocr_width_occupancy")})
+    log(f"  beam engine f32: {json.dumps(out)}")
+    require_launched(launches, ("spatial_attention",), "beam engine replay")
+    if launches != replayed or launches["decode_step"] or launches["decode_attention"]:
+        raise AssertionError(f"beam engine launches {launches}, recorded x replays {replayed}")
+    if not out["answers_equal_offline_best_beam"]:
+        raise AssertionError("the beam engine's f32 answers differ from run_split_beam's")
+    return out
+
+
+def beam_path(task, vocab, best_model: Path, dev=torch.device("cuda")) -> dict:
+    """Phase 11 (see the module docstring). Returns the result and the
+    CUDA graph of one B=32 bf16 beam decode with its batch, which phase 4
+    profiles."""
+    t11 = time.monotonic()
+    ft = processors.FastTextProcessor()
+    samples = [build_sample(task, **r, fasttext=ft)
+               for r in raw_requests(task, BEAM_REQUESTS, seed=11)]
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, len(vocab)))
+    model.init_weights(torch.Generator().manual_seed(0), std=SERVE_STD)
+    model = model.to(dev).eval()
+    out = {}
+    out["decodes"], graph = beam_decodes(task, vocab, model, samples, dev)
+    out["eval_ladders"] = eval_ladders(task, vocab, model, samples)
+    out["cli"] = beam_cli_path(task, vocab, best_model, dev)
+    out["engine"] = beam_engine_path(task, vocab, model, samples, dev)
+    code, _, err = run_cli([sys.executable, "-m", "sam_textvqa_tpu_torch.serve", "--config",
+                            str(CONFIG), "--device", "cuda:0,cuda:0", "--model_parallel", "2",
+                            "--beam_size", str(BEAM), "--demo", "8"], 120)()
+    if code == 0 or "item 5b" not in err:
+        raise AssertionError(f"serve --beam_size {BEAM} --model_parallel 2 exited {code}: "
+                             f"{err[-2000:]}")
+    out["refusal"] = dict(exit=code, message=err.strip().splitlines()[-1])
+    log(f"  refusal: {json.dumps(out['refusal'])}")
+    out["seconds"] = time.monotonic() - t11
+    return out, graph
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2928,7 +3280,10 @@ def main() -> int:
     training["train"], trained, train_batch, train_call = train_path(task, vocab)
     training["eval"] = trained_checks(task, vocab, trained, train_batch)
     log("== phase 5: the train CLI (c3, bf16, batch 96, --synthetic 480)")
-    cli = train_cli_path(task, vocab, model, training["train"], gen)
+    beam_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_beam_"))  # phase 11's checkpoint
+    atexit.register(shutil.rmtree, beam_dir, True)
+    cli = train_cli_path(task, vocab, model, training["train"], gen,
+                         keep_best=beam_dir / "best_model")
     log("== phase 6: the train CLI on real-format files (c3, bf16, batch 96, 1 epoch)")
     real = real_data_path(task, vocab, model, cli, training["train"], gen)
     log("== phase 7: the server (c3, obj ladder 50, OCR ladder 10,25, one CUDA graph per cell; "
@@ -2946,6 +3301,9 @@ def main() -> int:
     log("== phase 10: tensor-parallel training on the repeated card (10a: f32 tp 2 vs one "
         "device, dp 2 x tp 2 over gloo, bf16 step; 10b: the train CLI --model_parallel 2)")
     tp_training, tp_call = tp_training_path(task, vocab, gen)
+    log("== phase 11: beams and the evaluator's width ladders (11a: fast and slow beams, "
+        "evaluator ladders; 11b: the train CLI; 11c: the beam engine; 11d: refusal)")
+    beam, beam_graph = beam_path(task, vocab, beam_dir / "best_model")
     # profiles come after every timed phase, so that no timing runs after
     # the profiler has been started in this process
     log("== phase 4: device profiles (K1 call, K3 step at B=32, B=32 bf16 mega decode, "
@@ -2980,6 +3338,9 @@ def main() -> int:
     log(f"  tp 2 bf16 train step: idle share "
         f"{tp_training['train_step_bf16']['tp2']['profile'].get('idle_share')}")
     del tp_call
+    beam["decodes"]["b32_bf16"]["profile_graph_replay"] = device_profile(beam_graph[0].replay)
+    log(f"  B=32 K=5 bf16 beam graph replay: idle share "
+        f"{beam['decodes']['b32_bf16']['profile_graph_replay'].get('idle_share')}")
     server["bfloat16"]["profile_graph_replay_b32"] = device_profile(
         served._routing.grid[(None, None)].graphs[0][BATCH].graph.replay)
     log(f"  B=32 bf16 graph replay: idle share "
@@ -3013,6 +3374,12 @@ def main() -> int:
             "tp_pretrained_eval_f32_launches": tp_training["cli"]["pretrained_eval_f32"]["tp2"][
                 "launches"][name],
             "tp_train_step_launches": tp_training["train_step_bf16"]["launches"][name],
+            "beam_fast_launches_per_batch": beam["decodes"][BATCH]["launches"][name],
+            "beam_slow_launches_b8": beam["decodes"][BEAM_BATCHES[0]]["slow_launches"][name],
+            "beam_eval_ladder_launches": beam["eval_ladders"]["beam_ladders_launches"][name],
+            "beam_cli_launches": {k: v["launches"][name] for k, v in beam["cli"].items()
+                                  if isinstance(v, dict)},
+            "beam_engine_launches": beam["engine"]["launches"][name],
             "parity": "ok", **res,
         })
         for key, shard in mesh["shard_kernels"].items():
@@ -3025,6 +3392,7 @@ def main() -> int:
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"tp_training": tp_training}), flush=True)
+    print(json.dumps({"beam": beam}), flush=True)
     log(f"total seconds: {time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

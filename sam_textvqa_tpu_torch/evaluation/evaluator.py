@@ -1,18 +1,25 @@
-"""Evaluation: greedy decode over a split, EvalAI-format prediction
+"""Evaluation: greedy or beam decode over a split, EvalAI-format prediction
 dumps, VQA / ST-VQA / OCR-VQA / ANLS accuracy (JAX package
 ``evaluation/evaluator.py``).
 
 Reference: evaluator.py (run_model_no_beam :162-176, evaluate_no_beam
-:52-63) and the metric dispatch in task_utils.py:60-67. String work stays
-on the host, keyed by batch position. Each batch decodes through
-:func:`..models.fast_decode.greedy_decode_fast` with the evaluator's backend
-(``auto`` is ``mega`` on the card: the spatial-attention kernel in the
-encoder-cache pass, the decode-step kernel per step; for a tensor-parallel
+:52-63, the beam path :67-160) and the metric dispatch in
+task_utils.py:60-67. String work stays on the host, keyed by batch
+position. Each batch decodes through
+:func:`..models.fast_decode.greedy_decode_fast` (or, for beams,
+``beam_search_decode_fast``) with the evaluator's backend (``auto`` is
+``mega`` on the card: the spatial-attention kernel in the encoder-cache
+pass, the decode-step kernel per greedy step; for a tensor-parallel
 ``TPSAM4C`` it is ``fused``: K1 and the decode-attention kernel on each
-shard's heads, its stacked weights made anew in every decode from the
-weights as they are then). Beam search and the
-evaluator's obj/OCR width ladders are not ported yet (ROADMAP queue 1,
-items 5 and 7); the width helpers the serving engine routes with are here.
+shard's heads). The kernel backends' stacked weights are made anew in every
+decode, from the weights as they are then. ``fast_decode=False`` decodes
+with the full-recompute paths instead (``sa_m4c.greedy_decode``,
+``beam_search.beam_search_decode``).
+
+Width ladders (``ocr_bucket`` / ``obj_bucket``): each batch runs at the
+narrowest (obj, OCR) cell of the ladders' grid that holds every real token
+of the batch, with the same parameters (``sa_m4c.with_widths``) and the
+same selections as full width.
 """
 
 from __future__ import annotations
@@ -25,13 +32,17 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.prefetch import cast_features_for_transfer
 from ..data.vocab import VocabDict
-from ..models.fast_decode import (MASK_KEYS, check_prefix_masks, greedy_decode_fast,
-                                  resolve_backend)
-from ..models.tensor_parallel import home_device
+from ..models.beam_search import BEAM_TP_REFUSAL, beam_search_decode
+from ..models.fast_decode import (MASK_KEYS, beam_search_decode_fast, check_prefix_masks,
+                                  greedy_decode_fast, resolve_backend)
+from ..models.sa_m4c import greedy_decode, with_widths
+from ..models.tensor_parallel import TPSAM4C, home_device
 from ..serving.engine import SAMPLE_KEYS
+from ..serving.ladder import normalize_ladder
 from .metrics import (
     OCRVQAAccuracyEvaluator,
     STVQAAccuracyEvaluator,
@@ -127,11 +138,12 @@ def _pipelined(batches, dispatch, consume):
 
 class Evaluator:
     def __init__(self, model, answer_vocab: VocabDict, metric: str = "textvqa",
-                 decode_backend: str = "auto"):
+                 fast_decode: bool = True, decode_backend: str = "auto"):
         self.model = model
         self.answer_vocab = answer_vocab
         self.special = answer_vocab.special_ids()
         self.metric_evaluator = METRIC_EVALUATORS[metric]()
+        self.fast_decode = fast_decode
         self.decode_backend = decode_backend
 
     def _transfer_batch(self, batch, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -143,6 +155,92 @@ class Evaluator:
         if device.type != "cuda":
             return {k: v.to(device) for k, v in picked.items()}
         return {k: v.pin_memory().to(device, non_blocking=True) for k, v in picked.items()}
+
+    @staticmethod
+    def _normalize_ladder(bucket, max_width: int, axis: str):
+        """``bucket`` (None, an int or ints) as an ascending tuple of rungs
+        below ``max_width`` (``serving/ladder.py:normalize_ladder``, the one
+        normalizer the serving engine shares)."""
+        return normalize_ladder(bucket, max_width, axis)
+
+    def _width_grid(self, obj_bucket, ocr_bucket):
+        """The two ladders and the grid of (obj width, OCR width) -> the
+        model at those widths (None: full on that axis; the full-width cell
+        is ``self.model`` itself). Single process only: routing reads the
+        process-local pad masks, so ranks of a process group could route
+        the same step to different cells."""
+        mmt = self.model.params_cfg.mmt
+        obj_l = self._normalize_ladder(obj_bucket, mmt.max_obj_num, "obj")
+        ocr_l = self._normalize_ladder(ocr_bucket, mmt.max_ocr_num, "ocr")
+        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        if (obj_l or ocr_l) and world > 1:
+            raise ValueError("width ladders route on host-local pad masks and need a single "
+                             f"process; the process group has world size {world}")
+        grid = {(ow, cw): with_widths(self.model, n_obj=ow, n_ocr=cw)
+                for ow in (*obj_l, None) for cw in (*ocr_l, None)}
+        return obj_l, ocr_l, grid
+
+    def _route_widths(self, batch, obj_l, ocr_l, grid):
+        """The narrowest grid cell holding every real token of ``batch``:
+        (the batch shrunk to it, the cell's model)."""
+        n_obj = self.model.params_cfg.mmt.max_obj_num
+
+        def pick(ladder, mask_key):
+            need = needed_width(batch[mask_key]) if ladder else None
+            return next((w for w in ladder if need <= w), None)
+
+        obj_w, ocr_w = pick(obj_l, "pad_obj_mask"), pick(ocr_l, "pad_ocr_mask")
+        if ocr_w is not None:
+            batch = shrink_ocr_batch(batch, n_obj, ocr_w)
+        if obj_w is not None:
+            batch = shrink_obj_batch(batch, n_obj, obj_w)
+        return batch, grid[(obj_w, ocr_w)]
+
+    def _run(self, batches, decode, record, ocr_bucket, obj_bucket):
+        """Decode every batch with ``decode(model, device batch)`` (a tuple
+        of tensors) at its grid cell, with one batch in flight: batch i's
+        outputs are copied to pinned host memory behind an event, and
+        ``record(outputs as numpy, host-only fields, qids)`` reads them once
+        batch i+1 is dispatched."""
+        device = home_device(self.model)
+        backend = resolve_backend(self.decode_backend, self.model.params_cfg.mmt, device,
+                                  getattr(self.model, "tp", 1))
+        obj_l, ocr_l, grid = self._width_grid(obj_bucket, ocr_bucket)
+
+        def dispatch(batch):
+            host_only = {k: v for k, v in batch.items() if k.startswith("_")}
+            qids = _batch_qids(batch, host_only)
+            batch, model = self._route_widths(batch, obj_l, ocr_l, grid)
+            # the kernel backends' mask check runs here, on the host arrays,
+            # so that the decode never waits for the device
+            if backend != "plain":
+                check_prefix_masks(batch[k] for k in MASK_KEYS)
+            with torch.no_grad():
+                outs = decode(model, self._transfer_batch(batch, device), backend)
+            fetched = None
+            if device.type == "cuda":
+                hosts = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs)
+                for host, out in zip(hosts, outs):
+                    host.copy_(out, non_blocking=True)
+                fetched = torch.cuda.Event()
+                fetched.record()
+                outs = hosts
+            return outs, fetched, host_only, qids
+
+        def consume(item):
+            outs, fetched, host_only, qids = item
+            if fetched is not None:
+                fetched.synchronize()
+            record(tuple(o.numpy() for o in outs), host_only, qids)
+
+        _pipelined(batches, dispatch, consume)
+
+    @staticmethod
+    def _ground_truth(host_only, i: int, qid, gt_answers_by_qid):
+        gt = host_only["_answers"][i]
+        if not gt and gt_answers_by_qid:
+            gt = gt_answers_by_qid.get(qid, [])
+        return list(gt)
 
     def run_split(
         self,
@@ -158,43 +256,22 @@ class Evaluator:
         ``_answers``, ``question_id`` and optionally ``_real_count``).
         ``gt_answers_by_qid`` supplies ground truth where the split carries
         none, the analogue of the reference's eval_df join (reference
-        evaluator.py:67-93, 304-356). Decoding runs under
-        ``torch.no_grad()``, so a model in training mode with parameters
-        that require grad can be evaluated."""
-        if ocr_bucket is not None or obj_bucket is not None:
-            raise NotImplementedError(
-                "obj/OCR width ladders are not ported yet (ROADMAP queue 1, item 7)")
-        device = home_device(self.model)
-        backend = resolve_backend(self.decode_backend, self.model.params_cfg.mmt, device,
-                                  getattr(self.model, "tp", 1))
+        evaluator.py:67-93, 304-356). ``ocr_bucket`` / ``obj_bucket``: an
+        int or a ladder of widths per axis (module docstring). Decoding runs
+        under ``torch.no_grad()``, so a model in training mode with
+        parameters that require grad can be evaluated."""
         all_preds: List[Dict] = []
         scored_preds: List[Dict] = []
+        bos = self.special.bos
 
-        def dispatch(batch):
-            host_only = {k: v for k, v in batch.items() if k.startswith("_")}
-            qids = _batch_qids(batch, host_only)
-            # the kernel backends' mask check runs here, on the host arrays,
-            # so that the decode never waits for the device
-            if backend != "plain":
-                check_prefix_masks(batch[k] for k in MASK_KEYS)
-            with torch.no_grad():
-                _, pred_ids = greedy_decode_fast(
-                    self.model, self._transfer_batch(batch, device), self.special.bos,
-                    backend=backend, check_masks=False)
-            fetched = None
-            if device.type == "cuda":
-                host = torch.empty(pred_ids.shape, dtype=pred_ids.dtype, pin_memory=True)
-                host.copy_(pred_ids, non_blocking=True)
-                fetched = torch.cuda.Event()
-                fetched.record()
-                pred_ids = host
-            return pred_ids, fetched, host_only, qids
+        def decode(model, batch, backend):
+            if not self.fast_decode:
+                return (greedy_decode(model, batch, bos)[1],)
+            return (greedy_decode_fast(model, batch, bos, backend=backend,
+                                       check_masks=False)[1],)
 
-        def consume(item):
-            pred_ids, fetched, host_only, qids = item
-            if fetched is not None:
-                fetched.synchronize()
-            pred_ids = pred_ids.numpy()
+        def record(outs, host_only, qids):
+            (pred_ids,) = outs
             decoded = decode_predictions(
                 pred_ids, host_only["_ocr_tokens"], self.answer_vocab.word_list,
                 self.special.eos,
@@ -206,15 +283,12 @@ class Evaluator:
                     "pred_answer": decoded[i]["pred_answer"],
                     "belongs_to": decoded[i]["belongs_to"],
                 }
-                gt = host_only["_answers"][i]
-                if not gt and gt_answers_by_qid:
-                    gt = gt_answers_by_qid.get(qids[i], [])
+                gt = self._ground_truth(host_only, i, qids[i], gt_answers_by_qid)
                 if gt:
-                    scored_preds.append({**entry, "gt_answers": list(gt)})
+                    scored_preds.append({**entry, "gt_answers": gt})
                 all_preds.append(entry)
 
-        _pipelined(batches, dispatch, consume)
-
+        self._run(batches, decode, record, ocr_bucket, obj_bucket)
         accuracy = None
         if scored_preds:
             accuracy, _ = self.metric_evaluator.eval_pred_list(scored_preds)
@@ -224,8 +298,86 @@ class Evaluator:
             "num_scored": len(scored_preds),
         }
 
-    def run_split_beam(self, *args, **kwargs) -> Dict:
-        raise NotImplementedError("beam search is not ported yet (ROADMAP queue 1, item 5)")
+    def run_split_beam(
+        self,
+        batches,
+        beam_size: int,
+        gt_answers_by_qid: Optional[Dict[int, List[str]]] = None,
+        early_exit: bool = False,
+        ocr_bucket=None,
+        obj_bucket=None,
+    ) -> Dict:
+        """Beam-search decode with the reference's result schema. Every
+        beam is decoded and, where ground truth exists, scored (the
+        reference's ``accuracies_df``, one row per beam, evaluator.py:
+        312-340, as each beam's ``accuracy``); the best beam by
+        ``topkscore`` gives the headline answer (``best_result_df``,
+        :344-351); VQA accuracy and ANLS are both reported (:88-93).
+        ``beams[*].pred_ids`` include BOS.
+
+        ``early_exit`` (fast path only): stop a batch's steps once all its
+        beams are done, with bit-identical outputs. ``ocr_bucket`` /
+        ``obj_bucket`` as in :meth:`run_split`."""
+        if beam_size < 1:
+            raise ValueError(f"beam_size must be >= 1, got {beam_size}")
+        if isinstance(self.model, TPSAM4C):
+            raise ValueError(BEAM_TP_REFUSAL)
+        bos, eos = self.special.bos, self.special.eos
+        all_preds: List[Dict] = []
+        scored_preds: List[Dict] = []
+
+        def decode(model, batch, backend):
+            if not self.fast_decode:
+                return beam_search_decode(model, batch, beam_size, bos, eos)
+            return beam_search_decode_fast(model, batch, beam_size, bos, eos,
+                                           early_exit=early_exit, backend=backend)
+
+        def record(outs, host_only, qids):
+            seqs, scores = outs  # (B, K, T) with BOS at 0, (B, K)
+            best = np.argmax(scores, axis=1)
+            real = host_only.get("_real_count", seqs.shape[0])
+            k = seqs.shape[1]
+            for i in range(real):
+                # every beam, BOS dropped (reference :333)
+                decoded = decode_predictions(seqs[i, :, 1:], [host_only["_ocr_tokens"][i]] * k,
+                                             self.answer_vocab.word_list, eos)
+                beams = [{"pred_answer": decoded[b]["pred_answer"],
+                          "belongs_to": decoded[b]["belongs_to"],
+                          "topkscore": float(scores[i, b]),
+                          "pred_ids": seqs[i, b].tolist()} for b in range(k)]
+                bi = int(best[i])
+                entry = {
+                    "question_id": qids[i],
+                    "pred_answer": beams[bi]["pred_answer"],
+                    "topkscore": beams[bi]["topkscore"],
+                    "best_beam": bi,
+                    "beams": beams,
+                }
+                gt = self._ground_truth(host_only, i, qids[i], gt_answers_by_qid)
+                if gt:
+                    scored_preds.append({**entry, "gt_answers": gt})
+                all_preds.append(entry)
+
+        self._run(batches, decode, record, ocr_bucket, obj_bucket)
+        accuracy = anls = None
+        if scored_preds:
+            accuracy, _ = self.metric_evaluator.eval_pred_list(scored_preds)
+            anls, _ = STVQAANLSEvaluator().eval_pred_list(scored_preds)
+            # per-beam accuracies (the reference accuracies_df's column); a
+            # scored entry shares its beams with its prediction
+            flat = [{"pred_answer": b["pred_answer"], "gt_answers": p["gt_answers"]}
+                    for p in scored_preds for b in p["beams"]]
+            _, flat_scores = self.metric_evaluator.eval_pred_list(flat)
+            it = iter(flat_scores)
+            for p in scored_preds:
+                for b in p["beams"]:
+                    b["accuracy"] = next(it)
+        return {
+            "accuracy": accuracy,
+            "anls": anls,
+            "predictions": all_preds,
+            "num_scored": len(scored_preds),
+        }
 
     def dump_evalai(self, result: Dict, out_path: str) -> str:
         """EvalAI-format JSON dump (reference evaluator.py:52-63)."""

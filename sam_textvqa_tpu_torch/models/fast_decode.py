@@ -23,6 +23,13 @@ A tensor-parallel model (``models/tensor_parallel.py``) decodes through the
 same functions, each shard on its own heads: ``plain`` and ``fused`` (its
 ``auto`` on CUDA), never ``mega``, whose one launch runs every layer while
 tensor parallelism sums two products inside each.
+
+:func:`beam_search_decode_fast` is the beam search on the same cache: K
+decoder rows per sample against the untiled encoder K/V, per-beam decoder
+K/V reordered after every step. Its steps are PyTorch calls whatever the
+backend (as JAX computes them outside any Pallas kernel); a backend other
+than ``plain`` runs the encoder-cache pass through the spatial-attention
+kernel.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from ..ops.decode_step import WEIGHT_NAMES, decode_step_fused
 from ..ops.fused_attention import spatial_attention
 from ..ops.spatial_graph import build_spatial_allowed, relation_head_lut
 from ..parallel.tensor import reduce_sum
+from .beam_search import BEAM_TP_REFUSAL, beam_step, init_beams
 from .bert import merge_heads, split_heads
 from .layers import MASK_BIAS, gelu_erf, layer_norm_tf, row_alive_from_bias
 
@@ -179,17 +187,19 @@ def _prev_pred_tables(mmt, classifier_weight, ocr_mmt_in):
 
 
 def _dec_row_embedding(pp, vocab_rows, ocr_emb, ans_num: int, token, t: int):
-    """PrevPredEmbeddings ``pp`` for ONE decoder row at position ``t``:
-    (B, D). ``vocab_rows(ids)`` looks up the layernormed answer
-    embeddings."""
+    """PrevPredEmbeddings ``pp`` for ONE decoder row at position ``t`` of
+    the previous tokens ``token``, (B,) or, one per beam, (B, K): (B, D) or
+    (B, K, D), each OCR token taken from its sample's (B, OCR, D) table.
+    ``vocab_rows(ids)`` looks up the layernormed answer embeddings."""
     prev = token.long()
     is_vocab = prev < ans_num
     from_vocab = vocab_rows(torch.where(is_vocab, prev, 0))
-    rows = torch.arange(prev.shape[0], device=prev.device)
-    from_ocr = ocr_emb[rows, torch.where(is_vocab, 0, prev - ans_num)]
-    raw = torch.where(is_vocab[:, None], from_vocab, from_ocr)
+    b, d = ocr_emb.shape[0], ocr_emb.shape[-1]
+    slot = torch.where(is_vocab, 0, prev - ans_num).reshape(b, -1, 1).expand(-1, -1, d)
+    from_ocr = ocr_emb.gather(1, slot).reshape(from_vocab.shape)
+    raw = torch.where(is_vocab[..., None], from_vocab, from_ocr)
     token_type = (prev >= ans_num).long()
-    emb = pp.position_embeddings.weight[t][None] + pp.token_type_embeddings.weight[token_type]
+    emb = pp.position_embeddings.weight[t] + pp.token_type_embeddings.weight[token_type]
     return raw + pp.emb_layer_norm(emb).to(raw.dtype)
 
 
@@ -204,12 +214,16 @@ def _ptr_keys(model, cfg: MMTConfig, cache: MMTCache, ocr_mask, dtype):
 
 
 def _output_head(model, ptr_keys, x):
-    """Classifier + OCR pointer-net scores for decoder rows ``x`` (B, D)."""
+    """Classifier + OCR pointer-net scores for decoder rows ``x``, (B, D)
+    or, the beams riding the row axis against their sample's keys,
+    (B, K, D)."""
     fixed = model.classifier(x)
     qd = model.ocr_ptr_net.query(x)
     kd, ocr_bias = ptr_keys
-    dyn = torch.matmul(kd, qd[:, :, None])[:, :, 0] / math.sqrt(qd.shape[-1])
-    return torch.cat([fixed, dyn + ocr_bias], dim=-1)
+    rows = (1,) * (x.dim() - 2)  # the beam axis, broadcast
+    kd = kd.view(kd.shape[0], *rows, *kd.shape[1:])
+    dyn = torch.matmul(kd, qd[..., None])[..., 0] / math.sqrt(qd.shape[-1])
+    return torch.cat([fixed, dyn + ocr_bias.view(ocr_bias.shape[0], *rows, -1)], dim=-1)
 
 
 def _one_row_context(ap, layer_type: str, cfg: MMTConfig, cache: MMTCache, li: int, x,
@@ -218,7 +232,6 @@ def _one_row_context(ap, layer_type: str, cfg: MMTConfig, cache: MMTCache, li: i
     heads against the cached encoder K/V of layer ``li`` and the decoder
     K/V buffers ``dec_kv`` (k, v) of shape (B, H, T, hd), row t written in
     place. Returns the merged context (B, 1, H * hd)."""
-    b = x.shape[0]
     h = ap.num_heads
     le = cache.k_enc.shape[2]
     q = split_heads(ap.query(x), h)  # (B, H, 1, hd)
@@ -235,17 +248,24 @@ def _one_row_context(ap, layer_type: str, cfg: MMTConfig, cache: MMTCache, li: i
         qe, qd = (torch.from_numpy(a).to(x.device) for a in _dec_quadrant_bias(cfg, layer_type, h))
         enc_bias = torch.minimum(enc_bias, qe[None, :, None, :])
         dec_bias = torch.minimum(dec_bias, qd[None, :, None, :])
-    scores = torch.cat([scores_enc + enc_bias.to(q.dtype),
-                        scores_dec + dec_bias.to(q.dtype)], dim=-1)
-    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-    if cache.spatial_dec_masked[li]:
-        # under quadrants 7/8/9 a spatial head's row can be fully masked:
-        # zero it like the reference (sa_m4c.py:574-584)
-        full_bias = torch.cat([enc_bias.expand(b, h, 1, le),
-                               dec_bias.expand(b, h, 1, dec_bias.shape[-1])], dim=-1)
-        probs = probs * row_alive_from_bias(full_bias).to(probs.dtype)
+    probs = _row_probs(scores_enc, scores_dec, enc_bias, dec_bias, cache.spatial_dec_masked[li])
     ctx = torch.matmul(probs[..., :le], v_enc) + torch.matmul(probs[..., le:], v_buf)
     return _with_head_bias(ap, merge_heads(ctx))
+
+
+def _row_probs(scores_enc, scores_dec, enc_bias, dec_bias, zero_fully_masked: bool):
+    """Softmax in f32 over [encoder ; decoder] columns of decoder-row
+    scores under additive biases that broadcast to them; under quadrants
+    7/8/9 a spatial head's row can be fully masked: ``zero_fully_masked``
+    zeroes it like the reference (sa_m4c.py:574-584)."""
+    dtype = scores_enc.dtype
+    scores = torch.cat([scores_enc + enc_bias.to(dtype), scores_dec + dec_bias.to(dtype)], dim=-1)
+    probs = torch.softmax(scores.float(), dim=-1).to(dtype)
+    if zero_fully_masked:
+        full_bias = torch.cat([enc_bias.expand_as(scores_enc), dec_bias.expand_as(scores_dec)],
+                              dim=-1)
+        probs = probs * row_alive_from_bias(full_bias).to(probs.dtype)
+    return probs
 
 
 def _dec_col_bias(cfg: MMTConfig, t: int, device):
@@ -262,6 +282,44 @@ def _decode_one_row(mmt, cfg: MMTConfig, cache: MMTCache, x, dec_kv, t: int):
     for li, (layer_type, _, layer) in enumerate(mmt.iter_layers()):
         ctx = _one_row_context(layer.attention.self, layer_type, cfg, cache, li, x,
                                dec_kv[li], t, dec_col_bias)
+        x = layer.ffn(layer.attention.output(ctx, x))
+    return x
+
+
+def _decode_one_row_beams(mmt, cfg: MMTConfig, cache: MMTCache, x, dec_kv, t: int):
+    """One decoder row per beam, ``x`` (B, K, D), through all layers (plain
+    PyTorch). The K beams of a sample ride the query dimension against its
+    cached encoder K/V, viewed per head and never tiled (tiling would read
+    it K times per step); ``dec_kv`` holds per layer the beams' own decoder
+    K/V (k, v) of shape (B, K, H, T, hd), row t written in place. Spatial
+    layers take the quadrant 7/8/9 cuts and zero fully masked rows as
+    :func:`_one_row_context` does. Returns (B, K, D)."""
+    b, k, d = x.shape
+    le = cache.k_enc.shape[2]
+    dec_col_bias = _dec_col_bias(cfg, t, x.device)
+    for li, (layer_type, _, layer) in enumerate(mmt.iter_layers()):
+        ap = layer.attention.self
+        h = ap.num_heads
+        q = ap.query(x).view(b, k, h, d // h)
+        k_buf, v_buf = dec_kv[li]
+        k_buf[:, :, :, t] = ap.key(x).view(b, k, h, d // h)
+        v_buf[:, :, :, t] = ap.value(x).view(b, k, h, d // h)
+        k_enc = split_heads(cache.k_enc[li], h)  # (B, H, Le, hd)
+        v_enc = split_heads(cache.v_enc[li], h)
+        scale = 1.0 / math.sqrt(d // h)
+        scores_enc = torch.einsum("bkhd,bhld->bkhl", q, k_enc) * scale
+        scores_dec = torch.einsum("bkhd,bkhtd->bkht", q, k_buf) * scale
+        enc_bias, dec_bias = cache.enc_bias_cols, dec_col_bias  # broadcast over (K, H)
+        if cache.spatial_dec_masked[li]:
+            qe, qd = (torch.from_numpy(a).to(x.device)
+                      for a in _dec_quadrant_bias(cfg, layer_type, h))
+            enc_bias = torch.minimum(enc_bias, qe[None, None])
+            dec_bias = torch.minimum(dec_bias, qd[None, None])
+        probs = _row_probs(scores_enc, scores_dec, enc_bias, dec_bias,
+                           cache.spatial_dec_masked[li])
+        ctx = (torch.einsum("bkhl,bhld->bkhd", probs[..., :le], v_enc)
+               + torch.einsum("bkht,bkhtd->bkhd", probs[..., le:], v_buf))
+        ctx = _with_head_bias(ap, ctx.reshape(b, k, d))
         x = layer.ffn(layer.attention.output(ctx, x))
     return x
 
@@ -457,6 +515,44 @@ def _greedy_steps(cfg: MMTConfig, b: int, device, bos_idx: int, embed, head, ste
     return scores, scores.argmax(-1)
 
 
+def _checked_backend(backend: str, cfg: MMTConfig, device: torch.device, tp: int = 1) -> str:
+    """:func:`resolve_backend`, raising ValueError when a kernel backend
+    cannot run ``cfg``."""
+    backend = resolve_backend(backend, cfg, device, tp)
+    if backend != "plain":
+        problems = _kernel_violations(cfg, uniform=backend == "mega", tp=tp)
+        if problems:
+            raise ValueError(f"decode backend {backend!r} unsupported: {'; '.join(problems)}")
+    return backend
+
+
+def _encoder_pass(model, batch, backend: str):
+    """The step-invariant part of a one-device decode: the encoder cache
+    (through the spatial-attention kernel unless ``backend`` is ``plain``),
+    ``embed(tokens, t)``, the row embeddings of the previous tokens in the
+    compute dtype, and ``head(x)``, the scores of final-layer rows."""
+    cfg, dtype = model.params_cfg.mmt, model.dtype
+    enc = model.encode(batch)
+    cache = build_mmt_cache(
+        model.mmt, enc["text_bert_emb"], enc["obj_mmt_in"], enc["ocr_mmt_in"],
+        batch["question_mask"], batch["pad_obj_mask"], batch["pad_ocr_mask"],
+        batch["spatial_classes"],
+        attention_backend="plain" if backend == "plain" else "kernel",
+    )
+    ans_emb, ocr_emb = _prev_pred_tables(model.mmt, model.classifier.weight, cache.ocr_mmt_in)
+    ptr_keys = _ptr_keys(model, cfg, cache, batch["pad_ocr_mask"], dtype)
+    ans_num = model.classifier.weight.shape[0]
+
+    def embed(tokens, t):
+        return _dec_row_embedding(model.mmt.prev_pred_embeddings, ans_emb.__getitem__,
+                                  ocr_emb, ans_num, tokens, t).to(dtype)
+
+    def head(x):
+        return _output_head(model, ptr_keys, x)
+
+    return cache, embed, head
+
+
 @torch.no_grad()
 def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
                        check_masks: bool = True, consts=None):
@@ -486,33 +582,13 @@ def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
     cfg = model.params_cfg.mmt
     device = batch["question_indices"].device
     tp = model.tp if isinstance(model, TPSAM4C) else 1
-    backend = resolve_backend(backend, cfg, device, tp)
-    if backend != "plain":
-        problems = _kernel_violations(cfg, uniform=backend == "mega", tp=tp)
-        if problems:
-            raise ValueError(f"decode backend {backend!r} unsupported: {'; '.join(problems)}")
+    backend = _checked_backend(backend, cfg, device, tp)
     if tp > 1:
         return decode_tensor_parallel(model, batch, bos_idx, backend, check_masks, consts)
     dtype = model.dtype
-    enc = model.encode(batch)
-    cache = build_mmt_cache(
-        model.mmt, enc["text_bert_emb"], enc["obj_mmt_in"], enc["ocr_mmt_in"],
-        batch["question_mask"], batch["pad_obj_mask"], batch["pad_ocr_mask"],
-        batch["spatial_classes"],
-        attention_backend="plain" if backend == "plain" else "kernel",
-    )
-    ans_emb, ocr_emb = _prev_pred_tables(model.mmt, model.classifier.weight, cache.ocr_mmt_in)
-    ptr_keys = _ptr_keys(model, cfg, cache, batch["pad_ocr_mask"], dtype)
+    cache, embed, head = _encoder_pass(model, batch, backend)
     b, t_max, d = cache.enc_out.shape[0], cfg.num_decoding_steps, cfg.hidden_size
     n_layers = len(cfg.layer_type_list)
-    ans_num = model.classifier.weight.shape[0]
-
-    def embed(token, t):
-        return _dec_row_embedding(model.mmt.prev_pred_embeddings, ans_emb.__getitem__,
-                                  ocr_emb, ans_num, token, t).to(dtype)
-
-    def head(x):
-        return _output_head(model, ptr_keys, x)
 
     if backend == "plain":
         dec_kv = []
@@ -547,3 +623,53 @@ def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
             )
 
     return _greedy_steps(cfg, b, device, bos_idx, embed, head, step)
+
+
+@torch.no_grad()
+def beam_search_decode_fast(model, batch, beam_size: int, bos_idx: int, eos_idx: int,
+                            early_exit: bool = False, backend: str = "auto"):
+    """Beam search on the encoder cache: the cache once per sample, then
+    one decoder row per beam per step (:func:`_decode_one_row_beams`), the
+    beams' decoder K/V reordered by the chosen beams after every step, and
+    ``beam_search.beam_step``'s rule. Same outputs as
+    ``beam_search.beam_search_decode``: (seqs (B, K, T) with BOS at 0,
+    scores (B, K) best first).
+
+    ``backend``: any but ``plain`` (resolved as :func:`greedy_decode_fast`
+    resolves it, and refused where it refuses it) runs the encoder-cache
+    pass through the spatial-attention kernel; the steps are PyTorch calls.
+
+    ``early_exit``: stop once every beam of every sample is done (a host
+    read of ``done`` per step, so a CUDA graph cannot hold it) and fill the
+    positions after the last written one with EOS. Bit-identical to the
+    fixed steps: a done beam only appends EOS at an unchanged total, and
+    with every beam done the top-k keeps the beams in place (ties go to the
+    lowest index)."""
+    from .tensor_parallel import TPSAM4C  # it imports this module
+
+    if isinstance(model, TPSAM4C):
+        raise ValueError(BEAM_TP_REFUSAL)
+    if beam_size < 1:
+        raise ValueError(f"beam_size must be >= 1, got {beam_size}")
+    cfg = model.params_cfg.mmt
+    device = batch["question_indices"].device
+    cache, embed, head = _encoder_pass(model, batch, _checked_backend(backend, cfg, device))
+    b, k, t_max, d = cache.enc_out.shape[0], beam_size, cfg.num_decoding_steps, cfg.hidden_size
+    dec_kv = []
+    for lt in cfg.layer_type_list:
+        h = _layer_heads(cfg, lt)
+        dec_kv.append(tuple(cache.k_enc.new_zeros(b, k, h, t_max, d // h) for _ in range(2)))
+    seqs, scores, done = init_beams(b, k, t_max, bos_idx, device)
+    t_final = t_max
+    for t in range(t_max):
+        x = _decode_one_row_beams(model.mmt, cfg, cache, embed(seqs[:, :, t], t), dec_kv, t)
+        seqs, scores, done, prev_beam = beam_step(head(x), scores, done, seqs, t, eos_idx)
+        # the surviving beams' decoder histories follow them
+        rows = prev_beam[:, :, None, None, None]
+        dec_kv = [tuple(buf.gather(1, rows.expand_as(buf)) for buf in kv) for kv in dec_kv]
+        if early_exit and bool(done.all()):
+            t_final = t + 1
+            break
+    if t_final < t_max:  # step t writes position t + 1
+        seqs[:, :, t_final + 1:].fill_(eos_idx)
+    return seqs, scores

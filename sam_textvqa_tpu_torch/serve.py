@@ -1,4 +1,4 @@
-"""Online serving CLI for SA-M4C greedy decoding (PyTorch port; JAX
+"""Online serving CLI for SA-M4C greedy or beam decoding (PyTorch port; JAX
 ``serve.py``).
 
 Builds the model from the task YAML with the weights of ``--checkpoint`` (a
@@ -8,7 +8,7 @@ the engine (one CUDA graph per bucket and width cell on the card), then:
 
   # synthetic load test: N requests from C client threads, one JSON line
   python -m sam_textvqa_tpu_torch.serve \\
-      --config configs/train-tvqa-eval-tvqa-c3.yml --demo 256 [--rate QPS]
+      --config configs/train-tvqa-eval-tvqa-c3.yml --demo 256 [--rate QPS] [--beam_size 5]
 
   # JSON-lines TCP server, the JAX server's protocol: one request per line
   #   {"id": 1, "npz": "/path/sample.npz"}  -> {"id": 1, "answer": "...", ...}
@@ -55,6 +55,7 @@ import torch
 from .config import TaskConfig, load_task_config
 from .data.synthetic import make_batch
 from .data.vocab import VocabDict, synthetic_vocab
+from .models.beam_search import BEAM_TP_REFUSAL
 from .models.fast_decode import MEGA_TP_REFUSAL
 from .models.sa_m4c import SAM4C, SAM4CParams
 from .parallel.mesh import check_tensor_parallel
@@ -65,7 +66,6 @@ logger = logging.getLogger("serve")
 
 #: JAX flags not ported yet: (flag, its default, the ROADMAP queue 1 item)
 UNPORTED = (
-    ("beam_size", 1, "item 5, beam search"),
     ("artifact", None, "item 10, AOT artifacts"),
     ("compile_cache", None, "item 11, the compile cache"),
 )
@@ -119,8 +119,9 @@ def get_args(argv=None):
                         "device left over after --model_parallel when TP is on, else one "
                         "device. Buckets must divide by N")
     p.add_argument("--seed", type=int, default=0, help="weights and demo requests")
+    p.add_argument("--beam_size", type=int, default=1, metavar="K",
+                   help="answer with the best of K beams (1: greedy)")
     # JAX flags refused unless left at their defaults (UNPORTED)
-    p.add_argument("--beam_size", type=int, default=1)
     p.add_argument("--artifact", default=None, metavar="DIR")
     p.add_argument("--compile_cache", default=None, metavar="DIR")
     args = p.parse_args(argv)
@@ -130,6 +131,11 @@ def get_args(argv=None):
     if args.decode_backend in UNPORTED_DECODE_BACKENDS:
         p.error(f"--decode_backend {args.decode_backend} is not ported yet "
                 f"(ROADMAP queue 1, {UNPORTED_DECODE_BACKENDS[args.decode_backend]})")
+    if args.beam_size < 1:
+        p.error(f"--beam_size {args.beam_size} must be at least 1")
+    if args.beam_size > 1 and args.model_parallel > 1:
+        p.error(f"--beam_size {args.beam_size} with --model_parallel {args.model_parallel}: "
+                f"{BEAM_TP_REFUSAL}")
     if not args.config:
         p.error("--config is required")
     if not args.demo and args.port is None:
@@ -380,7 +386,7 @@ def main(argv=None):
         model, vocab, buckets=buckets, max_wait_ms=args.max_wait_ms,
         decode_backend=args.decode_backend, devices=devices, model_parallel=tp,
         ocr_buckets=args.ocr_bucket, obj_buckets=args.obj_bucket,
-        auto_tune_every=args.auto_tune,
+        auto_tune_every=args.auto_tune, beam_size=args.beam_size,
     )
     t0 = time.monotonic()
     engine.warmup()
@@ -396,6 +402,7 @@ def main(argv=None):
             stats["device"] = (str(devices[0]) if devices[0].type != "cuda"
                                else torch.cuda.get_device_name(devices[0]))
             stats["mesh"] = {"data": dp, "model": tp}
+            stats["beam_size"] = engine.beam_size
             print(json.dumps(stats), flush=True)
         if args.port is not None:
             run_server(engine, args.host, args.port)

@@ -1,5 +1,5 @@
-"""Dynamic-batching serving engine for SA-M4C greedy decoding (JAX package
-``serving/engine.py``).
+"""Dynamic-batching serving engine for SA-M4C greedy or beam decoding (JAX
+package ``serving/engine.py``).
 
 * **Fixed batch buckets.** Each coalesced group of requests is padded up to
   the nearest bucket size (default 1/8/32). Pad rows replicate row 0 (a
@@ -45,6 +45,13 @@
   coalesced with it.
 * **Transfer diet.** Feature arrays are cast to the model's compute dtype
   at ``submit``, on the caller's thread (``data/prefetch.py``).
+* **Beams** (``beam_size`` > 1): each batch runs
+  ``beam_search_decode_fast`` and is reduced on the device to the best
+  beam's tokens without BOS, so the consumer is the same for both modes.
+  The decode runs its fixed steps: JAX's engine stops once every beam is
+  done (``early_exit``, bit-identical), but that test reads the device from
+  the host at every step, which a CUDA graph cannot hold. dp replicas serve
+  beams; a tensor-parallel group does not yet (ROADMAP queue 1, item 5b).
 
 The reference has no serving layer (offline batch eval only, reference
 evaluator.py:52-63); :func:`build_sample` mirrors its dataset-time
@@ -71,8 +78,9 @@ import torch
 from ..data.prefetch import cast_features_for_transfer
 from ..data.vocab import VocabDict
 from ..evaluation.metrics import decode_predictions
-from ..models.fast_decode import (MASK_KEYS, _mega_step_consts, check_prefix_masks,
-                                  greedy_decode_fast, resolve_backend)
+from ..models.beam_search import BEAM_TP_REFUSAL
+from ..models.fast_decode import (MASK_KEYS, _mega_step_consts, beam_search_decode_fast,
+                                  check_prefix_masks, greedy_decode_fast, resolve_backend)
 from ..models.sa_m4c import with_widths
 from ..models.tensor_parallel import TPSAM4C
 from ..ops import cuda_build
@@ -322,6 +330,8 @@ class ServingEngine:
         routing swaps. Adoptions are logged to ``stats.autotune``.
       max_executables: the tuner's budget on len(buckets) x (1 + obj rungs)
         x (1 + OCR rungs) (explicit ladders are not held to it).
+      beam_size: 1 decodes greedily; K > 1 answers with the best of K beams
+        (see the module docstring).
     """
 
     #: lifetime cap on routing swaps: a planner flapping between near-equal
@@ -335,9 +345,14 @@ class ServingEngine:
                  obj_buckets: Optional[Sequence[int]] = None,
                  auto_tune_every: int = 0, auto_tune_min_speedup: float = 1.05,
                  max_executables: int = 48, devices: Optional[Sequence] = None,
-                 model_parallel: int = 1):
+                 model_parallel: int = 1, beam_size: int = 1):
         if not buckets or any(int(b) <= 0 for b in buckets):
             raise ValueError(f"buckets must be positive ints, got {buckets}")
+        if beam_size < 1:
+            raise ValueError(f"beam_size must be >= 1, got {beam_size}")
+        if beam_size > 1 and model_parallel > 1:
+            raise ValueError(BEAM_TP_REFUSAL)
+        self.beam_size = int(beam_size)
         if auto_tune_every < 0:
             raise ValueError(f"auto_tune_every must be >= 0, got {auto_tune_every}")
         if devices is None:
@@ -403,7 +418,8 @@ class ServingEngine:
         else:
             replica = (model if g == 0 else copy.deepcopy(model)).to(devices[0])
         consts = None
-        if self.decode_backend != "plain":  # stacked once: the weights are frozen
+        # stacked once (the weights are frozen), for the greedy kernel steps
+        if self.decode_backend != "plain" and self.beam_size == 1:
             consts = (replica.decode_consts() if len(devices) > 1
                       else _mega_step_consts(replica.mmt, replica.dtype))
         return _Replica(replica, devices, consts, self._graphs_on)
@@ -484,6 +500,12 @@ class ServingEngine:
         return out
 
     def _decode(self, model, batch: Dict[str, torch.Tensor], consts=None) -> torch.Tensor:
+        if self.beam_size > 1:
+            seqs, scores = beam_search_decode_fast(model, batch, self.beam_size,
+                                                   self.special.bos, self.special.eos,
+                                                   backend=self.decode_backend)
+            best = scores.argmax(1)[:, None, None].expand(-1, 1, seqs.shape[-1])
+            return seqs.gather(1, best)[:, 0, 1:]  # the best beam, BOS dropped
         # the masks were checked on the host in _validate: the decode never
         # waits for the device
         _, pred_ids = greedy_decode_fast(model, batch, self.special.bos,

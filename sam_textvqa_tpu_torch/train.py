@@ -4,7 +4,7 @@ JAX package's root ``train.py``; reference train.py:28-47)::
     python -m sam_textvqa_tpu_torch.train --config configs/train-tvqa-eval-tvqa-c3.yml \\
         --tag run1 --num_train_epochs 100
     python -m sam_textvqa_tpu_torch.train --config ... --tag run1 \\
-        --pretrained_eval save/run1/best_model
+        --pretrained_eval save/run1/best_model [--beam_size 5] [--ocr_bucket 10,25]
     python -m sam_textvqa_tpu_torch.train --config ... --tag syn --synthetic 480
     torchrun --standalone --nproc_per_node 8 -m sam_textvqa_tpu_torch.train \\
         --config ... --tag dp8 --multihost
@@ -16,7 +16,10 @@ Writes ``command.txt``, ``best_model``, ``last_state`` and
 ``evalai_{val,test}.json`` under ``<output_dir>/<tag>`` (``output_dir`` from
 the YAML); ``--pretrained_eval CKPT`` evaluates a checkpoint of this package
 or a reference ``best_model.tar`` and writes ``evalai_{split}.json`` beside
-it. Runs on the GPU unless given ``--device cpu``.
+it, or with ``--beam_size K`` (K > 1) beam-searches and writes
+``evalai_{split}_beam_{K}.json``; ``--ocr_bucket`` / ``--obj_bucket`` run
+each of its batches at the narrowest width cell that holds it. Runs on the
+GPU unless given ``--device cpu``.
 
 Without ``--synthetic`` it reads the configured files: the imdb ``.npy`` of
 each split of ``train_on`` / ``val_on`` / ``test_on`` (a missing val or test
@@ -70,6 +73,7 @@ from .data.features import open_feature_source
 from .data.processors import FastTextProcessor, SimpleWordpieceTokenizer, load_bert_tokenizer
 from .data.synthetic import SyntheticDataset
 from .evaluation.evaluator import Evaluator
+from .models.beam_search import BEAM_TP_REFUSAL
 from .models.fast_decode import MEGA_TP_REFUSAL
 from .models.tensor_parallel import TPSAM4C
 from .parallel.mesh import (barrier, check_batch, check_tensor_parallel, env_world_size,
@@ -83,9 +87,6 @@ logger = logging.getLogger("train")
 
 #: JAX flags not ported yet: (flag, its default, the ROADMAP queue 1 item)
 UNPORTED = (
-    ("beam_size", 1, "item 5, beam search"),
-    ("ocr_bucket", None, "item 7, the evaluator's width ladders"),
-    ("obj_bucket", None, "item 7, the evaluator's width ladders"),
     ("dropout_reuse", False, "item 1, dropout_mask_reuse"),
     ("compile_cache", None, "item 11, the compile cache"),
 )
@@ -129,10 +130,14 @@ def _parser() -> argparse.ArgumentParser:
                    help="data-parallel training in each process torchrun starts")
     p.add_argument("--model_parallel", type=int, default=1, metavar="M",
                    help="Megatron tensor parallelism over M devices in each process")
+    p.add_argument("--beam_size", type=int, default=1, metavar="K",
+                   help="--pretrained_eval: beam search over K beams (1: greedy)")
+    p.add_argument("--ocr_bucket", type=_ladder, default=None, metavar="N[,N...]",
+                   help="--pretrained_eval: OCR-width ladder, each batch at the narrowest "
+                        "rung that holds its real OCR tokens (the same answers)")
+    p.add_argument("--obj_bucket", type=_ladder, default=None, metavar="N[,N...]",
+                   help="--pretrained_eval: the obj-width ladder; with --ocr_bucket a grid")
     # JAX flags refused unless left at their defaults (UNPORTED)
-    p.add_argument("--beam_size", type=int, default=1)
-    p.add_argument("--ocr_bucket", type=_ladder, default=None, metavar="N[,N...]")
-    p.add_argument("--obj_bucket", type=_ladder, default=None, metavar="N[,N...]")
     p.add_argument("--dropout_reuse", action="store_true")
     p.add_argument("--compile_cache", default=None, metavar="DIR")
     return p
@@ -157,6 +162,11 @@ def get_args(argv=None):
     tp = args.model_parallel
     if tp < 1:
         parser.error(f"--model_parallel {tp} must be at least 1")
+    if args.beam_size < 1:
+        parser.error(f"--beam_size {args.beam_size} must be at least 1")
+    if tp > 1 and args.beam_size > 1:
+        parser.error(f"--beam_size {args.beam_size} with --model_parallel {tp}: "
+                     f"{BEAM_TP_REFUSAL}")
     if tp > 1 and args.decode_backend == "mega":
         parser.error(f"--decode_backend mega under --model_parallel is not ported yet: "
                      f"{MEGA_TP_REFUSAL}")
@@ -315,14 +325,27 @@ def _init_text_bert(task_cfg, model):
         logger.warning("text_bert weights without a bert-base source: %s", missing)
 
 
-def _evaluate(evaluator, batchers, task_cfg, out_dir):
+def _evaluate(evaluator, batchers, task_cfg, out_dir, beam_size: int = 1, ocr_bucket=None,
+              obj_bucket=None):
+    """Decode each split (beam search when ``beam_size`` > 1, through the
+    width ladders) and dump its EvalAI file (JAX ``train.py:405-435``)."""
     results = {}
     for split, batcher in batchers:
-        result = evaluator.run_split(batcher.epoch_batches(),
-                                     gt_answers_by_qid=load_eval_gt(task_cfg, split))
-        evaluator.dump_evalai(result, os.path.join(out_dir, f"evalai_{split}.json"))
+        gt = load_eval_gt(task_cfg, split)
+        if beam_size > 1:
+            result = evaluator.run_split_beam(batcher.epoch_batches(), beam_size,
+                                              gt_answers_by_qid=gt, ocr_bucket=ocr_bucket,
+                                              obj_bucket=obj_bucket)
+            name = f"evalai_{split}_beam_{beam_size}.json"
+        else:
+            result = evaluator.run_split(batcher.epoch_batches(), gt_answers_by_qid=gt,
+                                         ocr_bucket=ocr_bucket, obj_bucket=obj_bucket)
+            name = f"evalai_{split}.json"
+        evaluator.dump_evalai(result, os.path.join(out_dir, name))
         if result["accuracy"] is not None:
             logger.info("%s accuracy: %.4f", split, result["accuracy"])
+        if result.get("anls") is not None:
+            logger.info("%s anls: %.4f", split, result["anls"])
         results[split] = result
     return results
 
@@ -412,7 +435,8 @@ def _run(args, task_cfg, ctx, devices) -> dict:
         model.load_state_dict(restored["model_state_dict"], strict=True)
         out_dir = os.path.dirname(args.pretrained_eval.rstrip("/"))
         evaluated = model if tp == 1 else TPSAM4C(model, devices)
-        return {"eval": _evaluate(evaluator(evaluated), eval_batchers, task_cfg, out_dir)}
+        return {"eval": _evaluate(evaluator(evaluated), eval_batchers, task_cfg, out_dir,
+                                  args.beam_size, args.ocr_bucket, args.obj_bucket)}
 
     history = []
     state = train(

@@ -47,6 +47,7 @@ from sam_textvqa_tpu_torch.data.vocab import VocabDict
 from sam_textvqa_tpu_torch.evaluation import metrics
 from sam_textvqa_tpu_torch.evaluation.evaluator import METRIC_EVALUATORS, Evaluator
 from sam_textvqa_tpu_torch.models.sa_m4c import SAM4C, SAM4CParams
+from sam_textvqa_tpu_torch.models.tensor_parallel import TPSAM4C
 from sam_textvqa_tpu_torch.utils.checkpoint import state_dict_from_jax
 from test_torch_model import tiny_raw
 from test_torch_model import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -389,9 +390,13 @@ def test_dump_evalai_and_unported_options(eval_pair, jax_run, tmp_path):
     ref = jax_evaluator.Evaluator(eval_pair.jax_model, JaxVocabDict(WORDS)).dump_evalai(
         result, str(tmp_path / "ref.json"))
     assert json.loads(open(path).read()) == json.loads(open(ref).read())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ev.run_split([], ocr_bucket=[4])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ev.run_split([], obj_bucket=4)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ev.run_split_beam([], beam_size=2)
+    # beams and the width ladders are ported (tests/test_torch_beam_eval.py);
+    # beams of a tensor-parallel model are not, and rungs must lie below
+    # full width
+    with pytest.raises(ValueError, match="item 5b"):
+        Evaluator(TPSAM4C(eval_pair.model(), ["cpu", "cpu"]),
+                  VocabDict(WORDS)).run_split_beam([], beam_size=2)
+    with pytest.raises(ValueError, match="out of range"):
+        ev.run_split([], ocr_bucket=[4, 6])
+    with pytest.raises(ValueError, match="beam_size"):
+        ev.run_split_beam([], beam_size=0)

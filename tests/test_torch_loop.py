@@ -15,8 +15,9 @@
   reference-style ``.tar`` restores; TextBERT from a synthetic bert-base
   file equals JAX's ``init_text_bert_from_bert_base``.
 * The CLI: a subprocess run of ``python -m sam_textvqa_tpu_torch.train``,
-  then resume, ``--pretrained_eval``, ``serve --checkpoint`` and the
-  refusal of every unported flag.
+  then resume, ``--pretrained_eval`` (greedy, and with beams and width
+  ladders), ``serve --checkpoint`` (greedy and beams) and the refusal of
+  every unported flag.
 
 Sizes follow ``tests/test_training.py``: hidden 48, TextBERT 1 layer, MMT
 ``[n, s]``, 3 steps per epoch. The batch is 11: the test process's 8 virtual CPU devices
@@ -380,12 +381,33 @@ def test_cli_train_resume_and_pretrained_eval(cli_config):
                         "f32", "--buckets", "1,4", "--device", "cpu", "--checkpoint",
                         str(run / "best_model")])
     assert stats["requests"] == 3 and stats["errors"] == []
+    # beams and width ladders (ported): evalai_{split}_beam_{K}.json, then the
+    # same ladders greedily, whose answers are full width's; the server's beams
+    beamed = train_cli.main([*common, "--pretrained_eval", str(run / "best_model"),
+                             "--beam_size", "2", "--ocr_bucket", "2,4", "--obj_bucket", "4"])
+    for split in ("val", "test"):
+        dumped = json.loads((run / f"evalai_{split}_beam_2.json").read_text())
+        preds = beamed["eval"][split]["predictions"]
+        assert [p["answer"] for p in dumped] == [p["pred_answer"] for p in preds]
+        assert all(len(p["beams"]) == 2 for p in preds)
+    assert beamed["eval"]["val"]["anls"] is not None
+    laddered = train_cli.main([*common, "--pretrained_eval", str(run / "best_model"),
+                               "--ocr_bucket", "2,4", "--obj_bucket", "4"])
+    assert laddered["eval"]["val"] == val
+    stats = serve.main(["--config", config, "--demo", "3", "--concurrency", "1", "--dtype",
+                        "f32", "--buckets", "1,4", "--device", "cpu", "--checkpoint",
+                        str(run / "best_model"), "--beam_size", "2"])
+    assert stats["requests"] == 3 and stats["errors"] == [] and stats["beam_size"] == 2
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--beam_size", "2"], "item 5"),
-    (["--ocr_bucket", "20,50"], "item 7"),
-    (["--obj_bucket", "50"], "item 7"),
+    # beams and the width ladders are ported; beams under tensor parallelism
+    # are not, with or without the ladders and in --pretrained_eval
+    (["--beam_size", "2", "--model_parallel", "2"], "item 5b"),
+    (["--beam_size", "2", "--model_parallel", "2", "--ocr_bucket", "2,4", "--obj_bucket", "4"],
+     "item 5b"),
+    (["--beam_size", "5", "--model_parallel", "2", "--pretrained_eval", "best_model"],
+     "item 5b"),
     (["--model_parallel", "2", "--decode_backend", "mega"], "item 9e"),
     (["--multihost"], "torchrun"),  # ported: refused without torchrun's environment
     (["--dropout_reuse"], "item 1"),

@@ -189,6 +189,12 @@ def worker(spec_path: str) -> int:
         # a second group over torchrun's store would find the first one's
         # keys there: the checks below join over a store of their own
         os.environ.update(MASTER_PORT=str(spec["port"]), TORCHELASTIC_USE_AGENT_STORE="False")
+    if spec.get("ready"):  # the parent writes the weights and batch while the workers start
+        deadline = time.monotonic() + WORKER_TIMEOUT
+        while not (root / spec["ready"]).exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{spec['ready']} never appeared in {root}")
+            time.sleep(0.05)
     ctx = mesh.init_distributed(spec["device"], backend="gloo", timeout_s=60)
     task = task_config_from_dict(spec["raw"])
     weights = torch.load(root / "weights.pt", weights_only=True)
@@ -452,7 +458,8 @@ def test_every_parameter_gets_a_gradient(config):
 # ------------------------------------------------------------ 2 ranks over gloo
 
 
-FAST_COMPILE = dict(xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True)
+FAST_COMPILE = dict(xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True,
+                    xla_cpu_use_fusion_emitters=False)
 
 
 def _jax_steps(pair, jax_batch):
@@ -496,33 +503,37 @@ def _port_steps(pair, batch):
 @pytest.fixture(scope="module")
 def suite(tmp_path_factory):
     """One launch of 2 workers under ``torch.distributed.run`` (the train
-    CLI, then steps, dropout, loops, checkpoints and failures) while this
-    process runs the JAX and single-process references."""
+    CLI, then steps, dropout, loops, checkpoints and failures). They start
+    first: while they import and run the CLI, this process writes the
+    weights, the batch and the single-process checkpoint they read next
+    (then ``ready``), and runs the JAX and single-process references."""
     import jax.numpy as jnp
     import yaml
     from test_torch_training import build_pair
 
     root = tmp_path_factory.mktemp("ddp")
     raw = loop_raw()
-    pair = build_pair(raw, batch_size=GLOBAL)
-    # uneven masked counts: rank 1's rows keep only their first decoding step
-    mask = pair.batch["train_loss_mask"].clone()
-    mask[GLOBAL // WORLD:, 1:] = 0
-    batch = dict(pair.batch, train_loss_mask=mask)
-    jax_batch = dict(pair.jax_batch, train_loss_mask=jnp.asarray(mask.numpy()))
-    torch.save(pair.state_dict, root / "weights.pt")
-    np.savez(root / "batch.npz", **{k: v.numpy() for k, v in batch.items()})
-    single = _port_steps(pair, batch)
-    save_checkpoint(str(root / "single_process"), single[3], epoch_id=0, val_score=0.0)
     config = root / "tiny.yml"
     config.write_text(yaml.safe_dump(dict(raw, batch_size=GLOBAL, num_workers=0,
                                           output_dir=str(root / "runs" / "cli"))))
     cli_argv = ["--config", str(config), "--tag", "ddp", "--synthetic", "16", "--device", "cpu",
                 "--dtype", "f32", "--num_train_epochs", "1", "--multihost"]
     proc = run_workers(dict(raw=raw, device="cpu", accum=[1, 2], tp_accum=[1, 2],
-                            cli_argv=cli_argv,
+                            cli_argv=cli_argv, ready="ready",
                             parts=["cli", "dropout", "loop", "failures"]), root)
     try:
+        pair = build_pair(raw, batch_size=GLOBAL)
+        # uneven masked counts: rank 1's rows keep only their first decoding step
+        mask = pair.batch["train_loss_mask"].clone()
+        mask[GLOBAL // WORLD:, 1:] = 0
+        batch = dict(pair.batch, train_loss_mask=mask)
+        jax_batch = dict(pair.jax_batch, train_loss_mask=jnp.asarray(mask.numpy()))
+        torch.save(pair.state_dict, root / "weights.pt")
+        np.savez(root / "batch.npz", **{k: v.numpy() for k, v in batch.items()})
+        single = _port_steps(pair, batch)
+        save_checkpoint(str(root / "single_process"), single[3], epoch_id=0, val_score=0.0)
+        (root / "ready.tmp").write_text("")
+        os.replace(root / "ready.tmp", root / "ready")
         jax_ref = _jax_steps(pair, jax_batch)
     finally:
         ranks, err = wait_workers(proc, root)

@@ -94,27 +94,31 @@ def test_entry_points_need_cuda_unless_told_cpu(tiny, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ServingEngine(model, vocab)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve.main(["--config", str(ROOT / "configs" / "train-tvqa-eval-tvqa-c3.yml"),
-                    "--demo", "1"])
+    for beams in (1, 2):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ServingEngine(model, vocab, beam_size=beams)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--config", str(ROOT / "configs" / "train-tvqa-eval-tvqa-c3.yml"),
+                        "--demo", "1", "--beam_size", str(beams)])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, load without JAX."""
+    """Every module of the port, chip_smoke.py and the port's ladder advisor
+    load without JAX."""
     script = textwrap.dedent("""
-        import importlib, pkgutil, sys
+        import importlib, importlib.util, pkgutil, sys
         import sam_textvqa_tpu_torch as pkg
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
         import chip_smoke
+        spec = importlib.util.spec_from_file_location("advisor", "tools/torch_suggest_ladder.py")
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                      or m == "sam_textvqa_tpu" or m.startswith("sam_textvqa_tpu."))
         assert not bad, bad
-        assert len(names) >= 44, names
+        assert len(names) >= 45, names
         print("ok", len(names))
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

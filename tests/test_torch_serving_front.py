@@ -546,7 +546,8 @@ def test_server_cli_drains_on_sigterm(env, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--beam_size", "3"], "item 5"),
+    # ported since (beams): refused only under tensor parallelism
+    pytest.param(["--beam_size", "2", "--model_parallel", "2"], "item 5b", id="flags0-item 5b"),
     (["--decode_backend", "policy"], "item 4"),
     (["--decode_backend", "xla_early"], "item 4"),
     (["--decode_backend", "xla_flat"], "item 4"),

@@ -2,11 +2,13 @@
 the JAX package's, on the CPU with a repeated device (``cpu,cpu``), the way
 one card runs it (``cuda:0,cuda:0``).
 
-The tiny pair of ``test_torch_serving_front.py`` (hidden 128, FFN 256, MMT
-``[n, n, s, s]``, one TextBERT layer, 8 obj and 6 OCR slots, JAX weights
-from ``eval_shape`` and numpy at std 0.1), with 4 heads in every layer so
-that a tp 2 shard holds 2 and the head slice of each dropout mask bites;
-lr 1e-3 after 2 warm-up steps, batch 4. Tolerances, each where it is used:
+The tiny pair of ``test_torch_serving_front.py`` (hidden 128, FFN 256, one
+TextBERT layer, 8 obj and 6 OCR slots, JAX weights from ``eval_shape`` and
+numpy at std 0.1) with an MMT of ``[n, s]``: each layer is sharded on its
+own, so one of each type covers the rules, and the JAX oracle's compile
+time grows with the depth. 4 heads in every layer, so that a tp 2 shard
+holds 2 and the head slice of each dropout mask bites; lr 1e-3 after 2
+warm-up steps, batch 4. Tolerances, each where it is used:
 
 * (i) three tp 2 steps at dropout 0 against JAX ``make_train_step`` jitted
   over ``make_mesh(2, model_parallel=2)`` with ``shard_params`` (the oracle
@@ -75,19 +77,21 @@ from sam_textvqa_tpu_torch.utils.checkpoint import (restore_checkpoint, save_che
                                                     state_dict_from_jax)
 from test_torch_model import BOS, NUM_ANSWERS, tiny_raw
 from test_torch_model import one_torch_thread  # noqa: F401 (autouse fixture)
-from test_torch_serving_front import MMT, _init_leaf
+from test_torch_serving_front import _init_leaf
 
 CPU2 = ["cpu", "cpu"]
 BATCH = 4
 STEPS = 3
-FAST_COMPILE = dict(xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True)
+FAST_COMPILE = dict(xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True,
+                    xla_cpu_use_fusion_emitters=False)
 
 
 def tp_raw(dropout: float = 0.0, **top) -> dict:
-    """The tiny pair's raw config with 4 heads per layer and every dropout
-    rate at ``dropout``."""
+    """The tiny pair's raw config with an MMT of ``[n, s]``, 4 heads per
+    layer and every dropout rate at ``dropout``."""
     rates = dict(hidden_dropout_prob=dropout, attention_probs_dropout_prob=dropout)
-    raw = tiny_raw(**MMT, num_attention_heads=4, num_spatial_relations=4, obj_drop=dropout,
+    raw = tiny_raw(layer_type_list=["n", "s"], mix_list=["none", "share3"],
+                   num_attention_heads=4, num_spatial_relations=4, obj_drop=dropout,
                    ocr_drop=dropout, **rates)
     raw["TextBERT"].update(num_attention_heads=4, **rates)
     raw.update(lr=1e-3, warmup_iters=2, **top)
