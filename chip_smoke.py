@@ -200,6 +200,38 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    recorded x replays) and no K2 or K3, samples/s, p50/p95, graphs, capture
    seconds, pool bytes. 11d: ``serve --beam_size 5 --model_parallel 2`` on
    ``cuda:0,cuda:0`` must exit nonzero naming ROADMAP item 5b;
+12. early exit, the ``policy`` engine and implicit layers, before phase 4
+   too. 12a: phase 7's kind of weights (c3, std 0.1, seed 0) on 64 raw
+   requests (seed 12) at B = 1, 8 and 32 in f32 and bf16, under three EOS
+   classifier biases: none, +1e4 (every first token EOS) and one found
+   from the B = 32 batch's EOS margins under which rows stop at different
+   steps. ``xla_early`` (K1 in the cache pass, 4 launches, no K2 or K3)
+   against the fixed ``plain`` steps over the same K1 cache: the scores of
+   the steps run bit-equal, the ids equal up to each row's first EOS, EOS
+   after the exit; in f32 also the ids of ``plain`` (its own plain cache
+   pass) up to each first EOS, and one step run under +1e4; the steps run,
+   and in bf16 the eager ``xla_early`` and ``plain`` ms beside the ``auto``
+   (= ``mega``) graph replay ms. ``xla_flat`` (the port's ``plain``):
+   f32 ids equal ``plain``'s at B = 8 and 32, no launch, its bf16 eager
+   ms. 12b: ``policy`` and ``xla_early`` engines against ``auto`` over
+   buckets (1, 8, 32) with the staggered-EOS weights, in f32 and bf16: 4
+   requests alone, then 60 from 8 threads; ``policy`` on the card is
+   ``auto`` (one graph per bucket, K3 12 and K1 4 launches per batch), the
+   ``xla_early`` engine holds no graph and launches K1 only (4 per batch);
+   f32 answers equal ``auto``'s; samples/s and p50/p95 of all three. 12c: c3 with MMT ``[n, n, s, s, i, i]``,
+   12 implicit relations (24 heads of 32) and the aux head, its weights
+   drawn under the JAX package's parameter names and carried in by
+   ``state_dict_from_jax``: the f32 forward with K1 (on the 2 spatial
+   layers only) against the plain one (max abs < 1e-2, argmax agreement
+   1.0), ``spatial_head_out`` (32, 150, 150, 12) and finite; f32 greedy
+   ids of ``fused`` (K1 2, K2 72 launches) equal ``plain``'s; ``mega``
+   refused with its reason and ``auto`` logging ``plain``; K2 at head dim
+   32 against its plain version in f32 and bf16 at phase 2's bars, with
+   its times, bound and SDPA's time; 3 + 5 bf16 train steps at batch 96
+   with dropout 0.1 (ms, peak memory, losses finite and falling, no
+   launch); the train CLI on a generated YAML of the config (bf16, batch
+   96, ``--synthetic 192``, 1 epoch, validation with ``fused``: K1 and K2
+   launched, K3 not);
 4. after every timed phase, ``torch.profiler`` device time by kernel of one
    spatial-attention call (code pass and attention), of one bf16 decode
    step at batch 32 (its kernels by name with launch counts, so launches
@@ -211,8 +243,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    with the kernel attention must match the plain one;
 then JSON lines of the training path, of the train CLI, of the real-data
 run, of the server, of data parallelism, of multi-device serving, of
-tensor-parallel training, of beams and ladders and of the kernels, and the
-result line
+tensor-parallel training, of beams and ladders, of phase 12 and of the
+kernels, and the result line
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --resume-check CONFIG DIR [DEVICE [MODE]]`` is that child
@@ -233,6 +265,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import logging
 import os
 import re
 import shutil
@@ -263,9 +296,11 @@ from sam_textvqa_tpu_torch.models.beam_search import beam_search_decode
 from sam_textvqa_tpu_torch.models.bert import split_heads
 from sam_textvqa_tpu_torch.models.sa_m4c import SAM4C, SAM4CParams
 from sam_textvqa_tpu_torch.models.tensor_parallel import TPSAM4C
-from sam_textvqa_tpu_torch.models.fast_decode import (_mega_step_consts, _seg_lens,
+from sam_textvqa_tpu_torch.models import fast_decode
+from sam_textvqa_tpu_torch.models.fast_decode import (_greedy_decode, _mega_step_consts, _seg_lens,
                                                       beam_search_decode_fast, build_mmt_cache,
-                                                      greedy_decode_fast)
+                                                      greedy_decode_fast, resolve_backend)
+from sam_textvqa_tpu_torch.models.layers import LayerNormTF
 from sam_textvqa_tpu_torch.ops import cuda_build
 from sam_textvqa_tpu_torch.ops.batcher import cast_bf16
 from sam_textvqa_tpu_torch.ops.decode_attention import (decode_attention,
@@ -286,7 +321,8 @@ from sam_textvqa_tpu_torch.training.loop import train
 from sam_textvqa_tpu_torch.training.optimizer import lr_factor_schedule, make_optimizer
 from sam_textvqa_tpu_torch.training.step import (create_train_state, make_eval_step,
                                                  make_train_step)
-from sam_textvqa_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from sam_textvqa_tpu_torch.utils.checkpoint import (reference_name_map, restore_checkpoint,
+                                                    save_checkpoint, state_dict_from_jax)
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "train-tvqa-eval-tvqa-c3.yml"
@@ -553,11 +589,12 @@ def _n_valid(seg, t):
     return int(seg.sum().item()) + seg.shape[0] * (t + 1)
 
 
-def bench_decode_attention(task, seg, gen, d: int = None) -> dict:
+def bench_decode_attention(task, seg, gen, d: int = None, hd: int = None) -> dict:
     """K2 at c3's width, or at a tensor-parallel shard's ``d`` columns
-    (phase 9a), in heads of c3's head dim."""
+    (phase 9a), in heads of c3's head dim or of ``hd`` (phase 12c: the 24
+    heads of 32 of an implicit layer)."""
     mmt = task.mmt
-    hd = mmt.hidden_size // mmt.num_attention_heads
+    hd = hd or mmt.hidden_size // mmt.num_attention_heads
     d, t_max = d or mmt.hidden_size, mmt.num_decoding_steps
     q_len, n_obj = mmt.max_seq_length, mmt.max_obj_num
     le = q_len + n_obj + mmt.max_ocr_num
@@ -3221,6 +3258,430 @@ def beam_path(task, vocab, best_model: Path, dev=torch.device("cuda")) -> dict:
     return out, graph
 
 
+# ---------------------------------------------------------------- phase 12
+
+EARLY_REQUESTS = 64
+EARLY_BATCHES = (1, 8, 32)
+# 12c: c3 with its last two spatial layers implicit (ROADMAP item 3), 12
+# implicit relations (24 heads of 32 there) and the aux relation head
+IMPLICIT_MMT = dict(layer_type_list=("n", "n", "s", "s", "i", "i"),
+                    mix_list=("none", "none", "share3", "share3", "share3", "share3"),
+                    num_implicit_relations=12, use_aux_heads=True, aux_spatial_fusion="mul")
+IMPLICIT_SYNTHETIC = 192  # 2 train steps at 96, 48 validation samples
+IMPLICIT_WARMUP, IMPLICIT_TIMED = 3, 5
+# the kernel forward against the plain one in f32: phase 2's bar of the
+# full forward (f32_checks)
+FORWARD_TOL = 1e-2
+
+
+@torch.no_grad()
+def fixed_twin(model, batch, bos: int):
+    """The fixed ``plain`` steps over ``xla_early``'s encoder cache (the
+    spatial-attention kernel's): (scores, ids, steps run). The steps
+    ``xla_early`` runs must give its scores bit for bit."""
+    cfg = model.params_cfg.mmt
+    cache, embed, head = fast_decode._encoder_pass(model, batch, "xla_early")
+    b = cache.enc_out.shape[0]
+    dec_kv = fast_decode._row_kv(cfg, cache.k_enc, b)
+
+    def step(x, t):
+        return fast_decode._decode_one_row(model.mmt, cfg, cache, x[:, None], dec_kv, t)[:, 0]
+
+    return fast_decode._greedy_steps(cfg, b, batch["question_indices"].device, bos, embed, head,
+                                     step)
+
+
+def first_eos(ids, eos: int) -> list:
+    """Each row's first EOS step (T where it has none)."""
+    return [row.index(eos) if eos in row else len(row) for row in ids.tolist()]
+
+
+def equal_up_to_first_eos(ids, ref, eos: int) -> bool:
+    """``ids`` equal ``ref`` up to and with each row's first EOS in ``ref``."""
+    return all(row[:stop + 1] == want[:stop + 1] for row, want, stop in
+               zip(ids.tolist(), ref.tolist(), first_eos(ref, eos)))
+
+
+def some_eos_bias(model, batch, bos: int, eos: int) -> float:
+    """An EOS classifier bias under which the rows of ``batch`` (f32) stop at
+    different steps: from the rows' smallest margin of the best score over
+    EOS's in an unbiased decode, the first of (median, 3rd quartile, max) +
+    1e-3 under which every row exits before the last step at two or more
+    distinct steps, else the one with the most distinct exits."""
+    t_max = model.params_cfg.mmt.num_decoding_steps
+    scores, _ = greedy_decode_fast(model, batch, bos, backend="plain")
+    margin = (scores.max(-1).values - scores[..., eos]).min(-1).values.float().cpu().numpy()
+    best = None
+    for bias in (np.median(margin), np.quantile(margin, 0.75), margin.max()):
+        bias = float(bias) + 1e-3
+        with torch.no_grad():
+            model.classifier.bias[eos] += bias
+        _, ids, steps = _greedy_decode(model, batch, bos, backend="xla_early", eos_idx=eos)
+        with torch.no_grad():
+            model.classifier.bias[eos] -= bias
+        distinct = len(set(first_eos(ids, eos)))
+        if steps < t_max and distinct >= 2:
+            return bias
+        if best is None or distinct > best[0]:
+            best = (distinct, bias)
+    return best[1]
+
+
+def early_exit_decodes(task, vocab, model, samples, dev) -> dict:
+    """12a (see the module docstring)."""
+    sp = vocab.special_ids()
+    bos, eos = sp.bos, sp.eos
+    t_max = task.mmt.num_decoding_steps
+    k1_only = {"spatial_attention": task.mmt.layer_type_list.count("s"), "decode_attention": 0,
+               "decode_step": 0}
+    batches = {b: stack(samples[:b], dev) for b in EARLY_BATCHES}
+    model.dtype = torch.float32
+    zero = model.classifier.bias.detach().clone()
+    biases = {"none": 0.0, "all": 1e4,
+              "some": some_eos_bias(model, batches[EARLY_BATCHES[-1]], bos, eos)}
+    out = {"eos_biases": biases}
+    for regime, bias in biases.items():
+        with torch.no_grad():
+            model.classifier.bias.copy_(zero)
+            model.classifier.bias[eos] += bias
+        out[regime] = {}
+        for b, batch in batches.items():
+            res = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                model.dtype = dtype
+                name = str(dtype)[6:]
+                _, ids_plain = greedy_decode_fast(model, batch, bos, backend="plain")
+                cuda_build.reset_launch_counts()
+                scores, ids, steps = _greedy_decode(model, batch, bos, backend="xla_early",
+                                                    eos_idx=eos)
+                torch.cuda.synchronize()
+                launches = cuda_build.launch_counts()
+                twin_scores, twin_ids, _ = fixed_twin(model, batch, bos)
+                r = dict(steps_run=steps, first_eos=first_eos(ids, eos), launches=launches,
+                         scores_bit_equal_fixed_steps=torch.equal(scores[:, :steps],
+                                                                  twin_scores[:, :steps]),
+                         ids_equal_fixed_steps_to_first_eos=equal_up_to_first_eos(
+                             ids, twin_ids, eos),
+                         eos_after_exit=bool((ids[:, steps:] == eos).all()),
+                         ids_equal_plain_to_first_eos=equal_up_to_first_eos(ids, ids_plain,
+                                                                            eos),
+                         token_agreement_with_plain=(ids == ids_plain).float().mean().item(),
+                         scores_max_abs_err_vs_plain_steps_run=max_err(
+                             scores[:, :steps], greedy_decode_fast(
+                                 model, batch, bos, backend="plain")[0][:, :steps]))
+                res[name] = r
+                if launches != k1_only:
+                    raise AssertionError(f"xla_early {regime} B={b} {name} launched {launches}, "
+                                         f"expected {k1_only}")
+                must = ["scores_bit_equal_fixed_steps", "ids_equal_fixed_steps_to_first_eos",
+                        "eos_after_exit"]
+                if dtype == torch.float32:
+                    must.append("ids_equal_plain_to_first_eos")
+                if not all(r[k] for k in must) or (regime == "all" and steps != 1):
+                    raise AssertionError(f"xla_early {regime} B={b} {name}: {r}")
+            model.dtype = torch.bfloat16
+            consts = _mega_step_consts(model.mmt, model.dtype)
+            res["times_bf16"] = dict(
+                xla_early_eager_ms=cuda_ms(lambda: _greedy_decode(
+                    model, batch, bos, backend="xla_early", eos_idx=eos), iters=5, warmup=1),
+                plain_eager_ms=cuda_ms(lambda: greedy_decode_fast(
+                    model, batch, bos, backend="plain"), iters=5, warmup=1),
+                auto_mega_graph_replay_ms=graph_ms(lambda: greedy_decode_fast(
+                    model, batch, bos, backend="mega", check_masks=False, consts=consts),
+                    calls=1, replays=10))
+            log(f"  {regime} B={b}: steps run f32 {res['float32']['steps_run']} bf16 "
+                f"{res['bfloat16']['steps_run']}, bf16 agreement with plain "
+                f"{res['bfloat16']['token_agreement_with_plain']:.3f}; bf16 ms "
+                f"{json.dumps(res['times_bf16'])}")
+            out[regime][b] = res
+    with torch.no_grad():
+        model.classifier.bias.copy_(zero)
+    some = out["some"][EARLY_BATCHES[-1]]["float32"]
+    if some["steps_run"] == t_max or len(set(some["first_eos"])) < 2:
+        raise AssertionError(f"the 'some' bias {biases['some']} does not stop the rows early "
+                             f"at different steps: {some['steps_run']} steps, first EOS "
+                             f"{some['first_eos']}")
+
+    flat = {}
+    for b in EARLY_BATCHES[1:]:
+        batch = batches[b]
+        model.dtype = torch.float32
+        _, ids_plain = greedy_decode_fast(model, batch, bos, backend="plain")
+        cuda_build.reset_launch_counts()
+        _, ids = greedy_decode_fast(model, batch, bos, backend="xla_flat")
+        torch.cuda.synchronize()
+        launches = cuda_build.launch_counts()
+        model.dtype = torch.bfloat16
+        flat[b] = dict(ids_equal_plain_f32=torch.equal(ids, ids_plain), launches=launches,
+                       xla_flat_eager_ms_bf16=cuda_ms(lambda: greedy_decode_fast(
+                           model, batch, bos, backend="xla_flat"), iters=5, warmup=1))
+        # the port runs JAX's head-flat backend as plain (fast_decode), no kernel
+        if not flat[b]["ids_equal_plain_f32"] or any(launches.values()):
+            raise AssertionError(f"xla_flat B={b}: {flat[b]}")
+    out["xla_flat"] = flat
+    log(f"  xla_flat: {json.dumps(flat)}")
+    return out
+
+
+def policy_engine_path(task, vocab, model, samples, dev) -> dict:
+    """12b: ``policy`` and ``xla_early`` engines against ``auto`` over buckets
+    (1, 8, 32), in f32 and bf16: 4 requests alone (bucket 1), then the other
+    60 from 8 threads. On the card ``policy`` is ``auto`` (its graphs, K3 on
+    every batch); the ``xla_early`` engine captures no graph and runs K1
+    only."""
+    steps = task.mmt.num_decoding_steps
+    n_spatial = task.mmt.layer_type_list.count("s")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model.dtype = dtype
+        runs = {}
+        for backend in ("auto", "policy", "xla_early"):
+            engine = ServingEngine(model, vocab, buckets=SERVER_BUCKETS, decode_backend=backend,
+                                   device=dev)
+            try:
+                t0 = time.monotonic()
+                engine.warmup()
+                warm = dict(warmup_s=time.monotonic() - t0, **engine.graph_counts())
+                warm.pop("launches")
+                cuda_build.reset_launch_counts()
+                alone = [engine.submit(s).result(timeout=SOCKET_TIMEOUT) for s in samples[:4]]
+                results, wall = flood(engine, samples[4:])
+                torch.cuda.synchronize()
+                launches = cuda_build.launch_counts()
+                stats = engine.stats.summary()
+                occupancy = dict(engine.stats.occupancy)
+            finally:
+                engine.close()
+            runs[backend] = dict(
+                warm, answers=[r["answer"] for r in alone + results], launches=launches,
+                occupancy=occupancy, flood_samples_per_s=(len(samples) - 4) / wall,
+                **{k: stats.get(k) for k in ("latency_ms_p50", "latency_ms_p95")})
+        auto = runs["auto"]
+        res = dict(
+            answers_equal_auto={b: runs[b]["answers"] == auto["answers"]
+                                for b in ("policy", "xla_early")},
+            distinct_answers=len(set(auto["answers"])),
+            **{backend: {k: v for k, v in r.items() if k != "answers"}
+               for backend, r in runs.items()})
+        log(f"  {str(dtype)[6:]}: {json.dumps(res)}")
+        for backend, graphs, k3_per_step in (("auto", len(SERVER_BUCKETS), steps),
+                                             ("policy", len(SERVER_BUCKETS), steps),
+                                             ("xla_early", 0, 0)):
+            r = runs[backend]
+            batches = sum(r["occupancy"].values())
+            want = {"spatial_attention": n_spatial * batches, "decode_attention": 0,
+                    "decode_step": k3_per_step * batches}
+            if r["graphs"] != graphs or r["launches"] != want or r["occupancy"].get(1, 0) == 0:
+                raise AssertionError(f"{backend}: {r['graphs']} graphs ({graphs} expected), "
+                                     f"launches {r['launches']} ({want} expected over "
+                                     f"occupancy {r['occupancy']})")
+        if dtype == torch.float32 and not all(res["answers_equal_auto"].values()):
+            raise AssertionError(f"f32 answers differ from auto's: {res['answers_equal_auto']}")
+        out[str(dtype)[6:]] = res
+    return out
+
+
+def implicit_task(task):
+    mmt = dataclasses.replace(task.mmt, **IMPLICIT_MMT)
+    return dataclasses.replace(task, mmt=mmt, mix_list=mmt.mix_list)
+
+
+def jax_named_model(task, num_answers: int, std: float, seed: int, dtype, dev) -> SAM4C:
+    """A model of ``task`` whose weights numpy draws from ``seed`` under the
+    JAX package's parameter names (LayerNorms at identity, biases 0, the
+    rest normal(0, ``std``)), carried in by ``state_dict_from_jax`` and
+    loaded strictly."""
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, num_answers), dtype=dtype)
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    types = list(task.mmt.layer_type_list)
+    rng = np.random.RandomState(seed)
+    tree: dict = {}
+    for path, name in reference_name_map(types, task.text_bert.num_hidden_layers).items():
+        if name not in shapes:
+            continue
+        owner, _, leaf = name.rpartition(".")
+        if isinstance(model.get_submodule(owner), LayerNormTF) or leaf == "bias":
+            value = np.full(shapes[name], float(leaf == "weight"), np.float32)
+        else:
+            value = (std * rng.randn(*shapes[name])).astype(np.float32)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    sd, unmapped = state_dict_from_jax(tree, types, task.text_bert.num_hidden_layers)
+    if unmapped or set(sd) != set(shapes):
+        raise AssertionError(f"JAX names: unmapped {unmapped}, missing "
+                             f"{sorted(set(shapes) - set(sd))}")
+    model.load_state_dict(sd, strict=True)
+    return model.to(dev).eval()
+
+
+def implicit_path(task, vocab, seg, gen, dev) -> dict:
+    """12c (see the module docstring)."""
+    itask = implicit_task(task)
+    sp = vocab.special_ids()
+    n_answers = len(vocab)
+    n_spatial = itask.mmt.layer_type_list.count("s")
+    steps = itask.mmt.num_decoding_steps
+    out = {"config": {k: list(v) if isinstance(v, tuple) else v for k, v in IMPLICIT_MMT.items()}}
+    model = jax_named_model(itask, n_answers, SERVE_STD, 12, torch.float32, dev)
+    batch = device_batch(make_batch(itask, BATCH, seed=12, num_answers_vocab=n_answers), dev)
+
+    with torch.no_grad():
+        plain = model(batch)
+        model.mmt.attention_backend = "kernel"
+        cuda_build.reset_launch_counts()
+        kernel = model(batch)
+        torch.cuda.synchronize()
+        launches = cuda_build.launch_counts()
+        model.mmt.attention_backend = "plain"
+    aux = kernel["spatial_head_out"]
+    out["forward_f32"] = dict(
+        kernel_launches=launches, scores_max_abs_err=max_err(kernel["scores"], plain["scores"]),
+        argmax_agreement=(kernel["scores"].argmax(-1) == plain["scores"].argmax(-1)
+                          ).float().mean().item(),
+        spatial_head_out_shape=list(aux.shape), spatial_head_out_finite=bool(
+            torch.isfinite(aux).all()),
+        spatial_head_out_max_abs_err=max_err(aux, plain["spatial_head_out"]))
+    log(f"  forward f32: {json.dumps(out['forward_f32'])}")
+    f = out["forward_f32"]
+    if launches != {"spatial_attention": n_spatial, "decode_attention": 0, "decode_step": 0} \
+            or not f["scores_max_abs_err"] < FORWARD_TOL or f["argmax_agreement"] != 1.0 \
+            or f["spatial_head_out_shape"] != [BATCH, 150, 150, 12] \
+            or not f["spatial_head_out_finite"]:
+        raise AssertionError(f"implicit forward: {f}")
+
+    _, ids_plain = greedy_decode_fast(model, batch, sp.bos, backend="plain")
+    cuda_build.reset_launch_counts()
+    _, ids_fused = greedy_decode_fast(model, batch, sp.bos, backend="fused")
+    torch.cuda.synchronize()
+    launches = cuda_build.launch_counts()
+    want = {"spatial_attention": n_spatial,
+            "decode_attention": steps * len(itask.mmt.layer_type_list), "decode_step": 0}
+    out["greedy_f32"] = dict(ids_fused_equal_plain=torch.equal(ids_fused, ids_plain),
+                             fused_launches=launches,
+                             distinct_answers=len({tuple(r) for r in ids_plain.tolist()}))
+    try:
+        greedy_decode_fast(model, batch, sp.bos, backend="mega")
+        mega = None
+    except ValueError as e:
+        mega = str(e)
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    fast_decode.logger.addHandler(handler)
+    level = fast_decode.logger.level
+    fast_decode.logger.setLevel(logging.INFO)
+    try:
+        auto = resolve_backend("auto", itask.mmt, dev)
+    finally:
+        fast_decode.logger.removeHandler(handler)
+        fast_decode.logger.setLevel(level)
+    out["greedy_f32"].update(mega_refused=mega, auto=auto, auto_log=messages)
+    log(f"  greedy f32: {json.dumps(out['greedy_f32'])}")
+    g = out["greedy_f32"]
+    if not g["ids_fused_equal_plain"] or launches != want or mega is None \
+            or "head counts differ" not in mega or auto != "plain" \
+            or not any("auto -> plain" in m for m in messages):
+        raise AssertionError(f"implicit greedy: {g}")
+
+    out["decode_attention_hd32"] = bench_decode_attention(itask, seg, gen, hd=32)
+    log(f"  K2 at head dim 32 (24 heads): {json.dumps(out['decode_attention_hd32'])}")
+    del model, plain, kernel, aux
+    out["train_step_bf16"] = implicit_train_steps(itask, n_answers, dev)
+    out["train_cli"] = implicit_train_cli(itask, dev)
+    return out
+
+
+def implicit_train_steps(itask, n_answers: int, dev) -> dict:
+    """12c: bf16 train steps of the implicit config at batch 96 with dropout
+    as configured, IMPLICIT_WARMUP + IMPLICIT_TIMED on one batch."""
+    model = jax_named_model(itask, n_answers, 0.02, 0, torch.bfloat16, dev)
+    optimizer = make_optimizer(model, itask)
+    state = create_train_state(model, optimizer)
+    step = make_train_step(model, optimizer)
+    batch = device_batch(make_batch(itask, TRAIN_BATCH, seed=3, num_answers_vocab=n_answers), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(IMPLICIT_WARMUP + IMPLICIT_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch, gen)
+        end.record()
+        end.synchronize()
+        losses.append(metrics["loss"].item())
+        if i >= IMPLICIT_WARMUP:
+            step_ms.append(start.elapsed_time(end))
+    launches = cuda_build.launch_counts()
+    median = float(np.median(step_ms))
+    out = dict(batch=TRAIN_BATCH, dropout=itask.mmt.hidden_dropout_prob, step_ms=step_ms,
+               step_ms_median=median, samples_per_s=TRAIN_BATCH / (median / 1e3),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(), losses=losses,
+               launches=launches)
+    log(f"  train steps bf16 B={TRAIN_BATCH}: {json.dumps(out)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or any(launches.values()):
+        raise AssertionError(f"implicit train steps: {out}")
+    return out
+
+
+def implicit_train_cli(itask, dev) -> dict:
+    """12c: the train CLI on a generated YAML of the implicit config (bf16,
+    batch 96, ``--synthetic 192``, 1 epoch, validation with ``fused``)."""
+    import yaml
+
+    raw = yaml.safe_load(CONFIG.read_text())
+    raw["SA-M4C"].update({k: list(v) if isinstance(v, tuple) else v
+                          for k, v in IMPLICIT_MMT.items()})
+    raw["mix_list"] = list(IMPLICIT_MMT["mix_list"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_implicit_") as tmp:
+        raw["output_dir"] = tmp
+        config = Path(tmp) / "implicit.yml"
+        config.write_text(yaml.safe_dump(raw))
+        t0 = time.monotonic()
+        run = train_cli.main(["--config", str(config), "--tag", "implicit", "--synthetic",
+                              str(IMPLICIT_SYNTHETIC), "--batch_size", str(TRAIN_BATCH),
+                              "--device", dev.type, "--dtype", "bf16", "--num_train_epochs", "1",
+                              "--decode_backend", "fused"])
+        wall = time.monotonic() - t0
+    cfg = run["state"].model.params_cfg.mmt
+    h = run["history"][0]
+    out = {k: h.get(k) for k in ("steps", "loss", "samples_per_s", "val_accuracy",
+                                 "val_samples", "val_samples_per_s", "val_launches",
+                                 "train_launches")}
+    out.update(wall_s=wall, layer_type_list=list(cfg.layer_type_list),
+               num_implicit_relations=cfg.num_implicit_relations)
+    log(f"  train CLI: {json.dumps(out)}")
+    require_launched(h["val_launches"], ("spatial_attention", "decode_attention"),
+                     "implicit train CLI validation")
+    if h["val_launches"]["decode_step"] or any(h["train_launches"].values()) \
+            or not np.isfinite(h["loss"]) or cfg.layer_type_list != IMPLICIT_MMT["layer_type_list"]:
+        raise AssertionError(f"implicit train CLI: {out}")
+    return out
+
+
+def early_exit_path(task, vocab, seg, gen, dev=torch.device("cuda")) -> dict:
+    """Phase 12 (see the module docstring)."""
+    t12 = time.monotonic()
+    ft = processors.FastTextProcessor()
+    samples = [build_sample(task, **r, fasttext=ft)
+               for r in raw_requests(task, EARLY_REQUESTS, seed=12)]
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, len(vocab)))
+    model.init_weights(torch.Generator().manual_seed(0), std=SERVE_STD)
+    model = model.to(dev).eval()
+    out = {"decodes": early_exit_decodes(task, vocab, model, samples, dev)}
+    with torch.no_grad():  # 12b serves the weights under which rows stop apart
+        model.classifier.bias[vocab.special_ids().eos] += out["decodes"]["eos_biases"]["some"]
+    out["policy"] = policy_engine_path(task, vocab, model, samples, dev)
+    del model
+    out["implicit"] = implicit_path(task, vocab, seg, gen, dev)
+    out["seconds"] = time.monotonic() - t12
+    log(f"  phase 12: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3304,6 +3765,9 @@ def main() -> int:
     log("== phase 11: beams and the evaluator's width ladders (11a: fast and slow beams, "
         "evaluator ladders; 11b: the train CLI; 11c: the beam engine; 11d: refusal)")
     beam, beam_graph = beam_path(task, vocab, beam_dir / "best_model")
+    log("== phase 12: early exit, policy and implicit layers (12a: xla_early / xla_flat; "
+        "12b: the policy engine; 12c: the implicit config with the aux head)")
+    early = early_exit_path(task, vocab, seg, gen)
     # profiles come after every timed phase, so that no timing runs after
     # the profiler has been started in this process
     log("== phase 4: device profiles (K1 call, K3 step at B=32, B=32 bf16 mega decode, "
@@ -3380,11 +3844,25 @@ def main() -> int:
             "beam_cli_launches": {k: v["launches"][name] for k, v in beam["cli"].items()
                                   if isinstance(v, dict)},
             "beam_engine_launches": beam["engine"]["launches"][name],
+            "early_exit_launches_per_decode": early["decodes"]["none"][BATCH]["float32"][
+                "launches"][name],
+            "policy_engine_launches": {dt: early["policy"][dt]["policy"]["launches"][name]
+                                       for dt in ("float32", "bfloat16")},
+            "early_exit_engine_launches": {dt: early["policy"][dt]["xla_early"]["launches"][
+                name] for dt in ("float32", "bfloat16")},
+            "implicit_forward_kernel_launches": early["implicit"]["forward_f32"][
+                "kernel_launches"][name],
+            "implicit_fused_launches_per_decode": early["implicit"]["greedy_f32"][
+                "fused_launches"][name],
+            "implicit_train_cli_val_launches": early["implicit"]["train_cli"]["val_launches"][
+                name],
             "parity": "ok", **res,
         })
         for key, shard in mesh["shard_kernels"].items():
             if key.startswith(name):
                 rows[-1][f"shard_{key[len(name) + 1:] or 'tp2'}"] = shard
+        if fused:
+            rows[-1]["head_dim_32"] = early["implicit"]["decode_attention_hd32"]
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"train_cli": cli}), flush=True)
     print(json.dumps({"real_data": real}), flush=True)
@@ -3393,6 +3871,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"tp_training": tp_training}), flush=True)
     print(json.dumps({"beam": beam}), flush=True)
+    print(json.dumps({"early_exit": early}), flush=True)
     log(f"total seconds: {time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,9 @@ position. Each batch decodes through
 ``mega`` on the card: the spatial-attention kernel in the encoder-cache
 pass, the decode-step kernel per greedy step; for a tensor-parallel
 ``TPSAM4C`` it is ``fused``: K1 and the decode-attention kernel on each
-shard's heads). The kernel backends' stacked weights are made anew in every
-decode, from the weights as they are then. ``fast_decode=False`` decodes
+shard's heads; ``xla_early`` stops each batch once all its rows have
+emitted EOS, with the same answers). The kernel backends' stacked weights
+are made anew in every decode, from the weights as they are then. ``fast_decode=False`` decodes
 with the full-recompute paths instead (``sa_m4c.greedy_decode``,
 ``beam_search.beam_search_decode``).
 
@@ -37,8 +38,8 @@ import torch.distributed as dist
 from ..data.prefetch import cast_features_for_transfer
 from ..data.vocab import VocabDict
 from ..models.beam_search import BEAM_TP_REFUSAL, beam_search_decode
-from ..models.fast_decode import (MASK_KEYS, beam_search_decode_fast, check_prefix_masks,
-                                  greedy_decode_fast, resolve_backend)
+from ..models.fast_decode import (KERNEL_STEP_BACKENDS, MASK_KEYS, beam_search_decode_fast,
+                                  check_prefix_masks, greedy_decode_fast, resolve_backend)
 from ..models.sa_m4c import greedy_decode, with_widths
 from ..models.tensor_parallel import TPSAM4C, home_device
 from ..serving.engine import SAMPLE_KEYS
@@ -211,9 +212,9 @@ class Evaluator:
             host_only = {k: v for k, v in batch.items() if k.startswith("_")}
             qids = _batch_qids(batch, host_only)
             batch, model = self._route_widths(batch, obj_l, ocr_l, grid)
-            # the kernel backends' mask check runs here, on the host arrays,
+            # the kernel steps' mask check runs here, on the host arrays,
             # so that the decode never waits for the device
-            if backend != "plain":
+            if backend in KERNEL_STEP_BACKENDS:
                 check_prefix_masks(batch[k] for k in MASK_KEYS)
             with torch.no_grad():
                 outs = decode(model, self._transfer_batch(batch, device), backend)
@@ -268,7 +269,7 @@ class Evaluator:
             if not self.fast_decode:
                 return (greedy_decode(model, batch, bos)[1],)
             return (greedy_decode_fast(model, batch, bos, backend=backend,
-                                       check_masks=False)[1],)
+                                       check_masks=False, eos_idx=self.special.eos)[1],)
 
         def record(outs, host_only, qids):
             (pred_ids,) = outs

@@ -226,11 +226,16 @@ class OCRVQAAccuracyEvaluator(STVQAAccuracyEvaluator):
 
 class STVQAANLSEvaluator:
     """ANLS metric: 1 - normalized edit distance, floored at 0.5
-    (reference metrics.py:360-382)."""
+    (reference metrics.py:360-382). Two empty strings are identical and
+    score 1.0, where the reference and the JAX package divide by zero (an
+    answer whose first decoded token is EOS against an empty ground
+    truth)."""
 
     def get_anls(self, s1: str, s2: str) -> float:
         s1 = s1.lower().strip()
         s2 = s2.lower().strip()
+        if not s1 and not s2:
+            return 1.0
         iou = 1 - levenshtein(s1, s2) / max(len(s1), len(s2))
         return iou if iou >= 0.5 else 0.0
 

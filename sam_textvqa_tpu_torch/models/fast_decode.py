@@ -8,21 +8,37 @@ sample against [cached encoder K/V ; decoder K/V]. A key masked with the
 -10000 bias contributes exactly 0 in f32, so this equals the full recompute
 (:func:`..models.sa_m4c.greedy_decode`).
 
-Backends (:func:`greedy_decode_fast`):
+Backends (:func:`greedy_decode_fast`; the JAX package's names are
+accepted too: ``xla`` and ``xla_flat`` are ``plain``):
 
 * ``plain`` — PyTorch one-row steps (:func:`_decode_one_row`), no kernels;
+* ``xla_early`` — the ``plain`` steps, stopped once every row has emitted
+  EOS (JAX ``_greedy_early_exit``): each row's ids equal ``plain``'s up to
+  its first EOS, and the steps not run hold a one-hot EOS score row. The
+  exit reads ``done`` on the host after every step, so a CUDA graph cannot
+  hold this path;
 * ``fused`` — per layer, the decode-attention kernel (ops/decode_attention.py);
 * ``mega`` — per step, one host entry runs all layers (ops/decode_step.py);
 * ``auto`` — ``mega`` on CUDA when :func:`_mega_supported` holds, else
   ``plain``; the choice depends only on the config and the device.
 
-The kernel backends also run the encoder-cache pass of the spatial layers
-through the fused spatial-attention kernel (ops/fused_attention.py).
+JAX's ``xla_flat`` keeps the K/V head-flat to fill the TPU's lanes; it
+computes what ``xla`` does, and on the GPU the per-head layout is the one
+the PyTorch products want, so the port runs ``plain`` for it.
+
+Every backend but ``plain`` runs the encoder-cache pass of the spatial
+layers through the fused spatial-attention kernel (ops/fused_attention.py),
+so on CUDA ``xla_early`` launches it too, and like ``fused`` and ``mega``
+needs a spatial head dim the kernel is built for (``HEAD_DIMS``: 16 or 64
+in float32, 64 in bfloat16); :func:`_checked_backend` refuses the others
+before any work. Implicit (``"i"``) layers always take the plain attention
+in that pass, as JAX runs Pallas only for spatial layers: the kernel has
+one relation LUT for all heads and cuts quadrants on every head.
 
 A tensor-parallel model (``models/tensor_parallel.py``) decodes through the
-same functions, each shard on its own heads: ``plain`` and ``fused`` (its
-``auto`` on CUDA), never ``mega``, whose one launch runs every layer while
-tensor parallelism sums two products inside each.
+same functions, each shard on its own heads: ``plain``, ``xla_early`` and
+``fused`` (its ``auto`` on CUDA), never ``mega``, whose one launch runs
+every layer while tensor parallelism sums two products inside each.
 
 :func:`beam_search_decode_fast` is the beam search on the same cache: K
 decoder rows per sample against the untiled encoder K/V, per-beam decoder
@@ -45,16 +61,21 @@ import torch
 from ..config import MATRIX_TYPE_MAP, MMTConfig
 from ..ops.decode_attention import decode_attention
 from ..ops.decode_step import WEIGHT_NAMES, decode_step_fused
-from ..ops.fused_attention import spatial_attention
+from ..ops.fused_attention import HEAD_DIMS as SPATIAL_HEAD_DIMS, spatial_attention
 from ..ops.spatial_graph import build_spatial_allowed, relation_head_lut
 from ..parallel.tensor import reduce_sum
 from .beam_search import BEAM_TP_REFUSAL, beam_step, init_beams
 from .bert import merge_heads, split_heads
 from .layers import MASK_BIAS, gelu_erf, layer_norm_tf, row_alive_from_bias
+from .mmt import implicit_split, layer_heads
 
 logger = logging.getLogger(__name__)
 
-BACKENDS = ("auto", "plain", "fused", "mega")
+BACKENDS = ("auto", "plain", "fused", "mega", "xla", "xla_early", "xla_flat")
+#: the JAX package's names of the port's backends (``xla_flat``: module docstring)
+JAX_ALIASES = {"xla": "plain", "xla_flat": "plain"}
+#: backends whose steps run a kernel, which needs prefix-contiguous masks
+KERNEL_STEP_BACKENDS = ("fused", "mega")
 
 
 class MMTCache(NamedTuple):
@@ -68,13 +89,11 @@ class MMTCache(NamedTuple):
     spatial_dec_masked: Tuple[bool, ...]  # per layer: decoder rows spatially cut
 
 
-def _layer_heads(cfg: MMTConfig, layer_type: str) -> int:
-    return cfg.num_attention_heads if layer_type == "n" else cfg.num_spatial_relations
-
-
 def _dec_rows_masked(cfg: MMTConfig, layer_type: str) -> bool:
-    """Quadrants 7/8/9 cut the decoder rows of spatial heads."""
-    return layer_type == "s" and any(q in (7, 8, 9) for q in cfg.attention_mask_quadrants)
+    """Quadrants 7/8/9 cut the decoder rows of spatial heads (of spatial
+    and implicit layers)."""
+    return layer_type in ("s", "i") and any(q in (7, 8, 9)
+                                            for q in cfg.attention_mask_quadrants)
 
 
 def _with_head_bias(attention, ctx):
@@ -96,12 +115,13 @@ def _attention(q, k, v, bias, zero_fully_masked):
 
 def _cache_attention(ap, layer_type: str, key: str, x, k_out, v_out, col_bias, col_mask,
                      spatial_classes, cfg: MMTConfig, backend: str, first_head: int,
-                     spatial_bias: Dict[str, torch.Tensor]):
+                     spatial_bias: Dict[Tuple[str, str], torch.Tensor]):
     """One layer's attention in the encoder-cache pass: writes the layer's
     head-flat K/V into ``k_out`` / ``v_out`` and returns the merged context
     of ``ap``'s heads, global heads ``first_head`` onward (a tensor-parallel
     shard's; 0 on one device). ``spatial_bias`` caches the plain path's
-    spatial bias per context key."""
+    spatial bias per (context key, layer type): an implicit layer's extra
+    heads need their own (JAX ``fast_decode.build_mmt_cache``)."""
     h = ap.num_heads
     q_len, n_ctx = cfg.max_seq_length, spatial_classes.shape[-1]
     quadrants = tuple(cfg.attention_mask_quadrants)
@@ -110,19 +130,21 @@ def _cache_attention(ap, layer_type: str, key: str, x, k_out, v_out, col_bias, c
     q, k, v = split_heads(ap.query(x), h), split_heads(k_out, h), split_heads(v_out, h)
     if layer_type == "n":
         ctx = _attention(q, k, v, col_bias, zero_fully_masked=False)
-    elif backend == "kernel":
+    elif backend == "kernel" and layer_type == "s":
         lut = _device_lut(key, first_head, h, x.device)
         ctx = spatial_attention(
             q, k, v, spatial_classes.contiguous(), lut, col_mask, q_len=q_len,
             n_ctx=n_ctx, dec_len=0, mask_quadrants=quadrants, spatial=True,
         )
     else:
-        if key not in spatial_bias:
+        if (key, layer_type) not in spatial_bias:
+            n_sp, n_imp = implicit_split(cfg, layer_type, first_head, h)
             allowed = build_spatial_allowed(spatial_classes,
-                                            _device_lut(key, first_head, h, x.device),
-                                            q_len, 0, quadrants, h)
-            spatial_bias[key] = torch.minimum(torch.where(allowed, 0.0, MASK_BIAS), col_bias)
-        ctx = _attention(q, k, v, spatial_bias[key], zero_fully_masked=True)
+                                            _device_lut(key, first_head, n_sp, x.device),
+                                            q_len, 0, quadrants, n_sp, n_imp)
+            spatial_bias[key, layer_type] = torch.minimum(
+                torch.where(allowed, 0.0, MASK_BIAS), col_bias)
+        ctx = _attention(q, k, v, spatial_bias[key, layer_type], zero_fully_masked=True)
     return _with_head_bias(ap, merge_heads(ctx))
 
 
@@ -143,7 +165,7 @@ def build_mmt_cache(mmt, text_bert_emb, obj_mmt_in, ocr_mmt_in, question_mask,
     n_layers = len(cfg.layer_type_list)
     k_all = x.new_empty(n_layers, b, le, d)
     v_all = x.new_empty(n_layers, b, le, d)
-    spatial_bias: Dict[str, torch.Tensor] = {}
+    spatial_bias: Dict[Tuple[str, str], torch.Tensor] = {}
 
     for li, (layer_type, mix, layer) in enumerate(mmt.iter_layers()):
         ctx = _cache_attention(layer.attention.self, layer_type, MATRIX_TYPE_MAP[mix], x,
@@ -158,10 +180,12 @@ def build_mmt_cache(mmt, text_bert_emb, obj_mmt_in, ocr_mmt_in, question_mask,
     )
 
 
-def _dec_quadrant_bias(cfg: MMTConfig, layer_type: str, h: int):
-    """(h, Le) and (h, T) f32 biases cutting spatial heads' decoder-row
-    attention under quadrants 7 (question cols), 8 (obj+OCR cols) and 9
-    (decoder cols) — reference sa_m4c.py:504-549."""
+def _dec_quadrant_bias(cfg: MMTConfig, layer_type: str, h: int, first_head: int = 0):
+    """(h, Le) and (h, T) f32 biases cutting the decoder-row attention of
+    heads ``first_head`` .. ``first_head + h - 1`` under quadrants 7
+    (question cols), 8 (obj+OCR cols) and 9 (decoder cols) — reference
+    sa_m4c.py:504-549. Only spatial heads are cut: an implicit layer's extra
+    heads never are (JAX ``fast_decode._dec_quadrant_bias``)."""
     quadrants = tuple(cfg.attention_mask_quadrants)
     q_len = cfg.max_seq_length
     le = q_len + cfg.max_obj_num + cfg.max_ocr_num
@@ -172,7 +196,7 @@ def _dec_quadrant_bias(cfg: MMTConfig, layer_type: str, h: int):
     if 8 in quadrants:
         enc_cut |= col >= q_len
     dec_cut = np.full(cfg.num_decoding_steps, 9 in quadrants)
-    spatial_head = np.ones(h, dtype=bool)[:, None]
+    spatial_head = (np.arange(h) < implicit_split(cfg, layer_type, first_head, h)[0])[:, None]
     return (np.where(spatial_head & enc_cut, MASK_BIAS, 0.0).astype(np.float32),
             np.where(spatial_head & dec_cut, MASK_BIAS, 0.0).astype(np.float32))
 
@@ -227,11 +251,12 @@ def _output_head(model, ptr_keys, x):
 
 
 def _one_row_context(ap, layer_type: str, cfg: MMTConfig, cache: MMTCache, li: int, x,
-                     dec_kv, t: int, dec_col_bias):
+                     dec_kv, t: int, dec_col_bias, first_head: int = 0):
     """One layer's attention for one decoder row (B, 1, D) of ``ap``'s
-    heads against the cached encoder K/V of layer ``li`` and the decoder
-    K/V buffers ``dec_kv`` (k, v) of shape (B, H, T, hd), row t written in
-    place. Returns the merged context (B, 1, H * hd)."""
+    heads (global heads ``first_head`` onward) against the cached encoder
+    K/V of layer ``li`` and the decoder K/V buffers ``dec_kv`` (k, v) of
+    shape (B, H, T, hd), row t written in place. Returns the merged context
+    (B, 1, H * hd)."""
     h = ap.num_heads
     le = cache.k_enc.shape[2]
     q = split_heads(ap.query(x), h)  # (B, H, 1, hd)
@@ -245,7 +270,8 @@ def _one_row_context(ap, layer_type: str, cfg: MMTConfig, cache: MMTCache, li: i
     scores_dec = torch.matmul(q, k_buf.transpose(-1, -2)) * scale
     enc_bias, dec_bias = cache.enc_bias_cols, dec_col_bias
     if cache.spatial_dec_masked[li]:
-        qe, qd = (torch.from_numpy(a).to(x.device) for a in _dec_quadrant_bias(cfg, layer_type, h))
+        qe, qd = (torch.from_numpy(a).to(x.device)
+                  for a in _dec_quadrant_bias(cfg, layer_type, h, first_head))
         enc_bias = torch.minimum(enc_bias, qe[None, :, None, :])
         dec_bias = torch.minimum(dec_bias, qd[None, :, None, :])
     probs = _row_probs(scores_enc, scores_dec, enc_bias, dec_bias, cache.spatial_dec_masked[li])
@@ -345,7 +371,7 @@ def _kernel_violations(cfg: MMTConfig, uniform: bool, tp: int = 1) -> List[str]:
     problems = []
     if uniform and (d % 64 or f % 64):
         problems.append(f"width {d} or FFN width {f} is not a multiple of 64")
-    heads = {_layer_heads(cfg, lt) // tp for lt in cfg.layer_type_list}
+    heads = {layer_heads(cfg, lt) // tp for lt in cfg.layer_type_list}
     for h in sorted(heads):
         if d % h or 128 % (d // h):
             problems.append(f"head dim {d}/{h} does not divide 128")
@@ -374,12 +400,14 @@ MEGA_TP_REFUSAL = ("decode backend 'mega' runs all layers of a step in one launc
 
 
 def resolve_backend(backend: str, cfg: MMTConfig, device: torch.device, tp: int = 1) -> str:
-    """The concrete backend for ``backend``; ``auto`` picks ``mega`` on CUDA
-    when the config allows it and ``plain`` otherwise, and logs why. For a
-    model of ``tp`` > 1 tensor-parallel shards ``auto`` picks ``fused`` on
-    CUDA where the shards meet its preconditions, and ``mega`` raises."""
+    """The concrete backend for ``backend`` (a JAX name taken as the port's,
+    :data:`JAX_ALIASES`); ``auto`` picks ``mega`` on CUDA when the config
+    allows it and ``plain`` otherwise, and logs why. For a model of ``tp`` >
+    1 tensor-parallel shards ``auto`` picks ``fused`` on CUDA where the
+    shards meet its preconditions, and ``mega`` raises."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown decode backend {backend!r} (expected {' | '.join(BACKENDS)})")
+    backend = JAX_ALIASES.get(backend, backend)
     if tp > 1 and backend == "mega":
         raise ValueError(MEGA_TP_REFUSAL)
     if backend != "auto":
@@ -440,7 +468,7 @@ def _decode_one_row_fused(cfg: MMTConfig, consts, caches, seg_lens, x, k_dec, v_
     shard 0 apply once. Returns (B, D)."""
     home = consts[0]
     for li, layer_type in enumerate(cfg.layer_type_list):
-        hd = cfg.hidden_size // _layer_heads(cfg, layer_type)
+        hd = cfg.hidden_size // layer_heads(cfg, layer_type)
         ctxs = []
         for c, cache, seg, kd, vd, td in zip(consts, caches, seg_lens, k_dec, v_dec, t_dev):
             qkv = torch.matmul(x.to(td.device), c["wqkv"][li].t()) + c["bqkv"][li]
@@ -501,28 +529,72 @@ def _seg_lens(batch, validate: bool = True) -> torch.Tensor:
     return lens.to(torch.int32).contiguous()
 
 
-def _greedy_steps(cfg: MMTConfig, b: int, device, bos_idx: int, embed, head, step_fn):
+def _greedy_steps(cfg: MMTConfig, b: int, device, bos_idx: int, embed, head, step_fn,
+                  eos_idx=None):
     """The greedy loop shared by every backend: ``embed(token, t)`` is the
     (B, D) row embedding of the previous tokens at step t, ``step_fn(x, t)``
-    maps it to the final-layer row and ``head(x)`` to the step's scores."""
+    maps it to the final-layer row and ``head(x)`` to the step's scores.
+
+    With ``eos_idx`` (``xla_early``, JAX ``_greedy_early_exit``) the loop
+    stops after the step at which every row has emitted EOS, read on the
+    host after each step; the steps not run hold a one-hot EOS score row in
+    the scores' dtype, so each row's ids equal the fixed steps' up to its
+    first EOS and are EOS after. Returns (scores (B, T, V + OCR), ids
+    (B, T), the number of steps run)."""
+    t_max = cfg.num_decoding_steps
     token = torch.full((b,), bos_idx, dtype=torch.long, device=device)
+    done = None if eos_idx is None else torch.zeros(b, dtype=torch.bool, device=device)
     all_logits = []
-    for t in range(cfg.num_decoding_steps):
+    for t in range(t_max):
         logits = head(step_fn(embed(token, t).contiguous(), t))
         token = logits.argmax(-1)
         all_logits.append(logits)
-    scores = torch.stack(all_logits, dim=1)  # (B, T, V + OCR)
-    return scores, scores.argmax(-1)
+        if eos_idx is not None:
+            done |= token == eos_idx
+            if bool(done.all()):
+                break
+    steps_run = len(all_logits)
+    scores = torch.stack(all_logits, dim=1)
+    if steps_run < t_max:
+        filler = scores.new_zeros(b, t_max - steps_run, scores.shape[-1])
+        filler[:, :, eos_idx].fill_(1.0)
+        scores = torch.cat([scores, filler], dim=1)
+    return scores, scores.argmax(-1), steps_run
 
 
-def _checked_backend(backend: str, cfg: MMTConfig, device: torch.device, tp: int = 1) -> str:
-    """:func:`resolve_backend`, raising ValueError when a kernel backend
-    cannot run ``cfg``."""
+def _row_kv(cfg: MMTConfig, like: torch.Tensor, b: int, tp: int = 1):
+    """Per layer the zeroed decoder K/V buffers (k, v) of the PyTorch steps
+    of one of ``tp`` shards, (B, H/tp, T, hd) in ``like``'s dtype and
+    device."""
+    t_max, d = cfg.num_decoding_steps, cfg.hidden_size
+    bufs = []
+    for lt in cfg.layer_type_list:
+        h = layer_heads(cfg, lt)
+        shape = (b, h // tp, t_max, d // h)
+        bufs.append((like.new_zeros(shape), like.new_zeros(shape)))
+    return bufs
+
+
+def _checked_backend(backend: str, cfg: MMTConfig, device: torch.device, tp: int = 1,
+                     dtype: torch.dtype = torch.float32) -> str:
+    """:func:`resolve_backend`, raising ValueError when a backend cannot run
+    ``cfg`` in ``dtype`` on ``device``: the kernel steps of ``fused`` and
+    ``mega`` have :func:`_kernel_violations` (the PyTorch steps of ``plain``
+    and ``xla_early`` run any config), and on CUDA every backend but
+    ``plain`` runs its cache pass through the spatial-attention kernel,
+    which needs the spatial layers' head dim in ``HEAD_DIMS[dtype]``."""
     backend = resolve_backend(backend, cfg, device, tp)
-    if backend != "plain":
+    problems = []
+    if backend in KERNEL_STEP_BACKENDS:
         problems = _kernel_violations(cfg, uniform=backend == "mega", tp=tp)
-        if problems:
-            raise ValueError(f"decode backend {backend!r} unsupported: {'; '.join(problems)}")
+    hd = cfg.hidden_size // layer_heads(cfg, "s")
+    if (device.type == "cuda" and backend != "plain" and "s" in cfg.layer_type_list
+            and hd not in SPATIAL_HEAD_DIMS[dtype]):
+        problems.append(f"the spatial-attention kernel of the encoder-cache pass takes head "
+                        f"dims {SPATIAL_HEAD_DIMS[dtype]} in {dtype}, not {hd} (decode with "
+                        f"'plain')")
+    if problems:
+        raise ValueError(f"decode backend {backend!r} unsupported: {'; '.join(problems)}")
     return backend
 
 
@@ -555,7 +627,7 @@ def _encoder_pass(model, batch, backend: str):
 
 @torch.no_grad()
 def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
-                       check_masks: bool = True, consts=None):
+                       check_masks: bool = True, consts=None, eos_idx=None):
     """Greedy decode: the encoder cache, then one decoder row per step
     against cached encoder AND decoder K/V. Same outputs as
     :func:`..models.sa_m4c.greedy_decode`. Returns (scores (B, T, V+O),
@@ -564,43 +636,53 @@ def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
     ``model``: a ``SAM4C``, or a ``models.tensor_parallel.TPSAM4C`` (with
     ``batch`` on its first device), whose shards decode their own heads.
 
-    ``backend``: ``plain`` | ``fused`` | ``mega`` | ``auto`` (see the module
-    docstring); ``fused`` and ``mega`` raise for configs they do not cover,
-    and ``mega`` for a tensor-parallel model.
-    They need prefix-contiguous masks, which ``check_masks`` checks on a
-    host copy, waiting for the device: the engine and the evaluator check
-    their host arrays with :func:`check_prefix_masks` before the transfer
-    and pass False, so that the decode never waits for the device.
+    ``backend``: ``plain`` (``xla``, ``xla_flat``) | ``xla_early`` |
+    ``fused`` | ``mega`` | ``auto`` (see the module docstring); the backends
+    but ``plain`` raise for configs they do not cover
+    (:func:`_checked_backend`), and ``mega`` for a tensor-parallel model;
+    ``xla_early`` needs ``eos_idx``.
+    ``fused`` and ``mega`` need prefix-contiguous masks, which
+    ``check_masks`` checks on a host copy, waiting for the device: the
+    engine and the evaluator check their host arrays with
+    :func:`check_prefix_masks` before the transfer and pass False, so that
+    the decode never waits for the device.
 
     ``consts``: the kernel backends' stacked weights,
     ``_mega_step_consts(model.mmt, model.dtype)`` (a tensor-parallel
     model's ``decode_consts()``), made once by a caller whose weights do
     not change (the serving engine); by default they are made anew in each
     call, from the weights as they are then."""
+    return _greedy_decode(model, batch, bos_idx, backend, check_masks, consts, eos_idx)[:2]
+
+
+@torch.no_grad()
+def _greedy_decode(model, batch, bos_idx: int, backend: str = "auto", check_masks: bool = True,
+                   consts=None, eos_idx=None):
+    """:func:`greedy_decode_fast`, also returning the number of steps run
+    (fewer than ``num_decoding_steps`` only under ``xla_early``)."""
     from .tensor_parallel import TPSAM4C, decode_tensor_parallel  # it imports this module
 
+    if backend == "xla_early" and eos_idx is None:
+        raise ValueError("backend 'xla_early' requires eos_idx")
     cfg = model.params_cfg.mmt
     device = batch["question_indices"].device
     tp = model.tp if isinstance(model, TPSAM4C) else 1
-    backend = _checked_backend(backend, cfg, device, tp)
+    backend = _checked_backend(backend, cfg, device, tp, model.dtype)
+    eos = eos_idx if backend == "xla_early" else None
     if tp > 1:
-        return decode_tensor_parallel(model, batch, bos_idx, backend, check_masks, consts)
+        return decode_tensor_parallel(model, batch, bos_idx, backend, check_masks, consts, eos)
     dtype = model.dtype
     cache, embed, head = _encoder_pass(model, batch, backend)
     b, t_max, d = cache.enc_out.shape[0], cfg.num_decoding_steps, cfg.hidden_size
     n_layers = len(cfg.layer_type_list)
 
-    if backend == "plain":
-        dec_kv = []
-        for lt in cfg.layer_type_list:
-            h = _layer_heads(cfg, lt)
-            shape = (b, h, t_max, d // h)
-            dec_kv.append((cache.k_enc.new_zeros(shape), cache.k_enc.new_zeros(shape)))
+    if backend not in KERNEL_STEP_BACKENDS:
+        dec_kv = _row_kv(cfg, cache.k_enc, b)
 
         def step(x, t):
             return _decode_one_row(model.mmt, cfg, cache, x[:, None], dec_kv, t)[:, 0]
 
-        return _greedy_steps(cfg, b, device, bos_idx, embed, head, step)
+        return _greedy_steps(cfg, b, device, bos_idx, embed, head, step, eos)
 
     seg_lens = _seg_lens(batch, validate=check_masks)
     if consts is None:
@@ -608,7 +690,7 @@ def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
     k_dec = cache.k_enc.new_zeros(n_layers, b, t_max, d)
     v_dec = cache.k_enc.new_zeros(n_layers, b, t_max, d)
     steps = torch.arange(t_max, dtype=torch.int32, device=device)
-    hd = d // _layer_heads(cfg, cfg.layer_type_list[0])
+    hd = d // layer_heads(cfg, cfg.layer_type_list[0])
 
     if backend == "fused":
         def step(x, t):
@@ -653,11 +735,12 @@ def beam_search_decode_fast(model, batch, beam_size: int, bos_idx: int, eos_idx:
         raise ValueError(f"beam_size must be >= 1, got {beam_size}")
     cfg = model.params_cfg.mmt
     device = batch["question_indices"].device
-    cache, embed, head = _encoder_pass(model, batch, _checked_backend(backend, cfg, device))
+    cache, embed, head = _encoder_pass(model, batch,
+                                      _checked_backend(backend, cfg, device, dtype=model.dtype))
     b, k, t_max, d = cache.enc_out.shape[0], beam_size, cfg.num_decoding_steps, cfg.hidden_size
     dec_kv = []
     for lt in cfg.layer_type_list:
-        h = _layer_heads(cfg, lt)
+        h = layer_heads(cfg, lt)
         dec_kv.append(tuple(cache.k_enc.new_zeros(b, k, h, t_max, d // h) for _ in range(2)))
     seqs, scores, done = init_beams(b, k, t_max, bos_idx, device)
     t_final = t_max

@@ -1,10 +1,13 @@
 """Multimodal transformer (MMT) over the joint [question; objects; OCR;
-decoder] stream, with interleaved normal/spatial layers, previous-prediction
-embeddings and the OCR pointer network (reference MMT / BertSpatialEncoder /
-PrevPredEmbeddings / OcrPtrNet, sam/sa_m4c.py:687-948). Dropout sites as
-in the JAX package's ``models/mmt.py``: the decoder embeddings (:93) and
-every layer's attention probs and hidden states, with ``no_drop`` zeroing
-only the spatial layers' attention-probs rate (:195).
+decoder] stream, with interleaved normal, spatial and implicit layers,
+previous-prediction embeddings and the OCR pointer network (reference MMT /
+BertSpatialEncoder / PrevPredEmbeddings / OcrPtrNet, sam/sa_m4c.py:687-948).
+An implicit (``"i"``) layer is a spatial layer with
+``num_implicit_relations`` more heads after its spatial ones, which the
+relation LUT and the quadrant cuts never mask (reference :487-495). Dropout
+sites as in the JAX package's ``models/mmt.py``: the decoder embeddings
+(:93) and every layer's attention probs and hidden states, with ``no_drop``
+zeroing only the spatial and implicit layers' attention-probs rate (:195).
 """
 
 from __future__ import annotations
@@ -86,10 +89,33 @@ class OcrPtrNet(nn.Module):
 
 
 class _SpatialEncoder(nn.Module):
-    def __init__(self, normal_layers, spatial_layers):
+    def __init__(self, normal_layers, spatial_layers, implicit_layers):
         super().__init__()
         self.normal_layers = nn.ModuleList(normal_layers)
         self.spatial_layers = nn.ModuleList(spatial_layers)
+        self.implicit_layers = nn.ModuleList(implicit_layers)
+
+
+def layer_heads(cfg: MMTConfig, layer_type: str) -> int:
+    """A layer's head count (reference sa_m4c.py): ``num_attention_heads``
+    for normal layers, ``num_spatial_relations`` for spatial ones, and
+    ``num_spatial_relations + num_implicit_relations`` for implicit ones."""
+    if layer_type == "n":
+        return cfg.num_attention_heads
+    if layer_type == "s":
+        return cfg.num_spatial_relations
+    return cfg.num_spatial_relations + cfg.num_implicit_relations
+
+
+def implicit_split(cfg: MMTConfig, layer_type: str, first_head: int, h: int) -> Tuple[int, int]:
+    """(spatial, implicit) counts among heads ``first_head`` ..
+    ``first_head + h - 1`` of a spatial or implicit layer (a
+    tensor-parallel shard's heads; all of them from 0 on one device): an
+    implicit layer's spatial heads come first."""
+    if layer_type != "i":
+        return h, 0
+    spatial = min(max(cfg.num_spatial_relations - first_head, 0), h)
+    return spatial, h - spatial
 
 
 class MMT(nn.Module):
@@ -102,9 +128,7 @@ class MMT(nn.Module):
 
     def __init__(self, config: MMTConfig, attention_backend: str = "plain"):
         super().__init__()
-        if "i" in config.layer_type_list:
-            raise NotImplementedError("implicit ('i') MMT layers are not ported yet")
-        bad = set(config.layer_type_list) - {"n", "s"}
+        bad = set(config.layer_type_list) - {"n", "s", "i"}
         if bad:
             raise ValueError(f"unknown MMT layer types {sorted(bad)}")
         if attention_backend not in ATTENTION_BACKENDS:
@@ -114,26 +138,29 @@ class MMT(nn.Module):
         c = config
         self.prev_pred_embeddings = PrevPredEmbeddings(c.hidden_size, c.layer_norm_eps,
                                                        c.hidden_dropout_prob)
-        n_normal = c.layer_type_list.count("n")
-        n_spatial = c.layer_type_list.count("s")
         spatial_attn_drop = 0.0 if c.no_drop else c.attention_probs_dropout_prob
+
+        def spatial_layers(layer_type):
+            return [SpatialBertLayer(c.hidden_size, layer_heads(c, layer_type),
+                                     c.intermediate_size, c.layer_norm_eps, c.use_bias,
+                                     c.hidden_dropout_prob, spatial_attn_drop)
+                    for _ in range(c.layer_type_list.count(layer_type))]
+
         self.encoder = _SpatialEncoder(
             [BertLayer(c.hidden_size, c.num_attention_heads, c.intermediate_size,
                        c.layer_norm_eps, hidden_dropout_prob=c.hidden_dropout_prob,
                        attention_probs_dropout_prob=c.attention_probs_dropout_prob)
-             for _ in range(n_normal)],
-            [SpatialBertLayer(c.hidden_size, c.num_spatial_relations, c.intermediate_size,
-                              c.layer_norm_eps, c.use_bias, c.hidden_dropout_prob,
-                              spatial_attn_drop) for _ in range(n_spatial)],
+             for _ in range(c.layer_type_list.count("n"))],
+            spatial_layers("s"), spatial_layers("i"),
         )
 
     def iter_layers(self) -> Iterator[Tuple[str, str, BertLayer]]:
         """(layer_type, mix, layer) in the interleaved order of
         ``layer_type_list`` (reference sa_m4c.py:738-752)."""
-        normal = iter(self.encoder.normal_layers)
-        spatial = iter(self.encoder.spatial_layers)
+        layers = {"n": iter(self.encoder.normal_layers), "s": iter(self.encoder.spatial_layers),
+                  "i": iter(self.encoder.implicit_layers)}
         for layer_type, mix in zip(self.config.layer_type_list, self.config.mix_list):
-            yield layer_type, mix, next(normal if layer_type == "n" else spatial)
+            yield layer_type, mix, next(layers[layer_type])
 
     def forward(self, text_bert_emb, obj_mmt_in, ocr_mmt_in, fixed_ans_emb, prev_inds,
                 question_mask, obj_mask, ocr_mask, spatial_classes, deterministic: bool = True,
@@ -159,27 +186,32 @@ class MMT(nn.Module):
         base_bias = torch.where(base_ok, 0.0, MASK_BIAS)
 
         hs = cfg.num_spatial_relations
-        spatial_args: Dict[str, dict] = {}
+        # per (context key, layer type): implicit layers carry more heads
+        spatial_args: Dict[Tuple[str, str], dict] = {}
         for layer_type, mix in zip(cfg.layer_type_list, cfg.mix_list):
-            key = MATRIX_TYPE_MAP[mix]
-            if layer_type != "s" or key in spatial_args:
+            cache_key = (MATRIX_TYPE_MAP[mix], layer_type)
+            if layer_type == "n" or cache_key in spatial_args:
                 continue
-            lut = torch.tensor(relation_head_lut(key)[:, :hs], dtype=torch.float32,
+            lut = torch.tensor(relation_head_lut(cache_key[0])[:, :hs], dtype=torch.float32,
                                device=x.device)
-            # the kernel has no dropout and no backward: deterministic only
-            if self.attention_backend == "kernel" and deterministic:
-                spatial_args[key] = {"kernel_ctx": dict(
+            # the kernel has no dropout and no backward: deterministic only;
+            # implicit layers take the plain path (JAX mmt.py:268)
+            if self.attention_backend == "kernel" and deterministic and layer_type == "s":
+                spatial_args[cache_key] = {"kernel_ctx": dict(
                     classes=spatial_classes.contiguous(), lut=lut, col_mask=col_mask,
                     spatial=True, **perm)}
             else:
-                spatial_args[key] = {"combined_ok": combined_permission(
-                    spatial_classes, lut, col_mask, spatial=True, num_heads=hs, **perm)}
+                h = layer_heads(cfg, layer_type)
+                spatial_args[cache_key] = {"combined_ok": combined_permission(
+                    spatial_classes, lut, col_mask, spatial=True, num_heads=h,
+                    num_implicit_heads=h - hs, **perm)}
 
         for layer_type, mix, layer in self.iter_layers():
             if layer_type == "n":
                 x = layer(x, base_bias, generator=generator)
             else:
-                x = layer(x, generator=generator, **spatial_args[MATRIX_TYPE_MAP[mix]])
+                x = layer(x, generator=generator,
+                          **spatial_args[(MATRIX_TYPE_MAP[mix], layer_type)])
 
         ocr_begin = q_len + cfg.max_obj_num
         return {

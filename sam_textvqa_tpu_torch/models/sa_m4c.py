@@ -10,6 +10,12 @@ forward computes in ``dtype`` (float32 or bfloat16).
 Dropout is on only in a forward called with ``deterministic=False`` and a
 ``torch.Generator`` (JAX's ``deterministic`` with its ``dropout`` rng); a
 freshly built module in training mode still runs the deterministic forward.
+
+With ``use_aux_heads`` the forward also returns ``spatial_head_out``, the
+aux relation classifier's (B, obj+OCR, obj+OCR, 12) logits over every pair
+of obj/OCR outputs (reference sa_m4c.py:173-177, 316-347). No loss reads
+them (as in the JAX package's ``training/loss.py``), and the decode never
+computes them.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from torch import nn
 from ..config import MMTConfig, TextBertConfig
 from .bert import TextBert
 from .encoders import ImageEncoder
-from .layers import Dense, LayerNormTF, dropout, dropout_generator, l2_normalize
+from .layers import Dense, LayerNormTF, dropout, dropout_generator, gelu_erf, l2_normalize
 from .mmt import MMT, OcrPtrNet
 
 
@@ -36,13 +42,37 @@ class SAM4CParams(NamedTuple):
     num_answers: int
 
 
+class _GeLU(nn.Module):
+    def forward(self, x):
+        return gelu_erf(x)
+
+
+class SimpleClassifier(nn.Module):
+    """Linear -> erf GeLU -> TF LayerNorm -> Linear (reference
+    sa_m4c.py:1031-1042): ``logit_fc`` indices 0 / 2 / 3 hold the weights,
+    the reference's ``state_dict`` keys."""
+
+    def __init__(self, in_dim: int, hid_dim: int, out_dim: int, eps: float = 1e-12):
+        super().__init__()
+        self.logit_fc = nn.Sequential(Dense(in_dim, hid_dim), _GeLU(),
+                                      LayerNormTF(hid_dim, eps), Dense(hid_dim, out_dim))
+
+    def forward(self, x):
+        return self.logit_fc(x)
+
+
+#: the aux head's fusions of origin and destination features
+AUX_FUSIONS = {"mul": torch.mul, "add": torch.add}
+
+
 class SAM4C(nn.Module):
     def __init__(self, params_cfg: SAM4CParams, dtype: torch.dtype = torch.float32,
                  attention_backend: str = "plain"):
         super().__init__()
         mmt_cfg, tb_cfg = params_cfg.mmt, params_cfg.text_bert
-        if mmt_cfg.use_aux_heads:
-            raise NotImplementedError("the aux spatial heads are not ported yet")
+        if mmt_cfg.use_aux_heads and mmt_cfg.aux_spatial_fusion not in AUX_FUSIONS:
+            raise ValueError(f"aux_spatial_fusion must be one of {sorted(AUX_FUSIONS)}, not "
+                             f"{mmt_cfg.aux_spatial_fusion!r}")
         for option in ("dropout_mask_reuse", "dropout_fused_draw"):
             if getattr(mmt_cfg, option):
                 raise NotImplementedError(f"{option} is not ported yet")
@@ -84,6 +114,10 @@ class SAM4C(nn.Module):
         # the classifier weight doubles as the decoder's answer embedding
         # table (weight tying, reference sa_m4c.py:266)
         self.classifier = Dense(hidden, params_cfg.num_answers)
+        if mmt_cfg.use_aux_heads:
+            self.origin_transform = SimpleClassifier(hidden, 128, 32, eps)
+            self.dest_transform = SimpleClassifier(hidden, 128, 32, eps)
+            self.spatial_classifier = Dense(32, 12)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, std: float = 0.02) -> "SAM4C":
@@ -180,8 +214,20 @@ class SAM4C(nn.Module):
         """Teacher-forced forward on ``train_prev_inds``; with
         ``deterministic=False`` every dropout site draws from ``generator``
         in a fixed order."""
-        return self.decode_step(self.encode(batch, deterministic, generator), batch,
-                                batch["train_prev_inds"], deterministic, generator)
+        out = self.decode_step(self.encode(batch, deterministic, generator), batch,
+                               batch["train_prev_inds"], deterministic, generator)
+        if self.params_cfg.mmt.use_aux_heads:
+            out["spatial_head_out"] = self.aux_head(out["mmt_seq_output"])
+        return out
+
+    def aux_head(self, mmt_seq_output):
+        """Pairwise relation logits over the obj+OCR outputs, (B, N, N, 12)
+        (reference sa_m4c.py:316-347; ``aux_spatial_fusion`` mul or add)."""
+        cfg = self.params_cfg.mmt
+        x = mmt_seq_output[:, cfg.max_seq_length:cfg.max_seq_length + cfg.obj_ocr_length]
+        fuse = AUX_FUSIONS[cfg.aux_spatial_fusion]
+        return self.spatial_classifier(fuse(self.origin_transform(x)[:, :, None],
+                                            self.dest_transform(x)[:, None]))
 
 
 def with_widths(model: SAM4C, n_obj: Optional[int] = None,

@@ -10,7 +10,9 @@ H/tp heads (``num_heads``) and its FFNs intermediate/tp columns. The
 residual stream lives on the first device ("home"): each layer copies its
 input to the shards, each shard attends over its own heads (the spatial
 layers with the relation x head LUT columns of those heads, through the
-spatial-attention kernel in the encoder-cache pass), and the two
+spatial-attention kernel in the encoder-cache pass; an implicit layer's
+shard with its heads' slice of the (spatial + implicit)-head permission
+and quadrant cuts, on the plain path), and the two
 row-parallel products of the layer are summed on home, where the
 replicated biases and LayerNorms apply once. A replicated weight exists
 once, on home: every shard's module holds that one ``Parameter``, so its
@@ -48,11 +50,13 @@ from ..parallel.tensor import (ShardState, broadcast, column_parallel, reduce_su
                                row_parallel, shard_state_dict, unshard_state_dict,
                                vocab_parallel_embedding, vocab_parallel_logits)
 from .bert import BertSelfAttention, merge_heads, split_heads
-from .fast_decode import (MMTCache, _cache_attention, _dec_col_bias, _dec_row_embedding,
-                          _dec_rows_masked, _decode_one_row_fused, _device_lut, _greedy_steps,
-                          _layer_heads, _mega_step_consts, _one_row_context, _seg_lens)
+from .fast_decode import (KERNEL_STEP_BACKENDS, MMTCache, _cache_attention, _dec_col_bias,
+                          _dec_row_embedding, _dec_rows_masked, _decode_one_row_fused,
+                          _device_lut, _greedy_steps, _mega_step_consts, _one_row_context,
+                          _row_kv, _seg_lens)
 from .layers import (MASK_BIAS, apply_keep_mask, dropout, dropout_generator, gelu_erf,
                      keep_mask, layer_norm_tf, masked_softmax_attention)
+from .mmt import implicit_split
 from .sa_m4c import SAM4C
 from .spatial import SpatialBertSelfAttention
 
@@ -307,7 +311,8 @@ class TPSAM4C:
     def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """``SAM4C.forward``, teacher-forced on ``train_prev_inds``: the MMT
-        outputs and ``scores``, on home. With ``deterministic=False`` every
+        outputs, ``scores`` and with ``use_aux_heads`` ``spatial_head_out``,
+        on home. With ``deterministic=False`` every
         dropout site draws from ``generator`` (on home) the one-device
         model's masks; the spatial layers then take the plain attention, as
         ``SAM4C`` does (the kernel has no backward)."""
@@ -328,25 +333,28 @@ class TPSAM4C:
         base_ok = combined_permission(classes, None, col_mask, spatial=False, num_heads=1, **perm)
         base = broadcast(torch.where(base_ok, 0.0, MASK_BIAS), self.devices)
         masks, classes_r = broadcast(col_mask, self.devices), broadcast(classes, self.devices)
-        spatial_args: List[Dict[str, dict]] = [{} for _ in self.devices]
+        spatial_args: List[Dict[tuple, dict]] = [{} for _ in self.devices]
         kernel = deterministic and home.mmt.attention_backend == "kernel"
 
-        def spatial(r, key, h):
-            if key not in spatial_args[r]:
-                lut = _device_lut(key, r * h, h, self.devices[r])
-                if kernel:
-                    spatial_args[r][key] = {"kernel_ctx": dict(
+        def spatial(r, key, layer_type, h):
+            if (key, layer_type) not in spatial_args[r]:
+                n_sp, n_imp = implicit_split(cfg, layer_type, r * h, h)
+                lut = _device_lut(key, r * h, n_sp, self.devices[r])
+                # implicit layers take the plain path, as on one device
+                if kernel and layer_type == "s":
+                    args = {"kernel_ctx": dict(
                         classes=classes_r[r].contiguous(), lut=lut, col_mask=masks[r],
                         spatial=True, **perm)}
                 else:
-                    spatial_args[r][key] = {"bias": torch.where(combined_permission(
-                        classes_r[r], lut, masks[r], spatial=True, num_heads=h, **perm),
-                        0.0, MASK_BIAS)}
-            return spatial_args[r][key]
+                    args = {"bias": torch.where(combined_permission(
+                        classes_r[r], lut, masks[r], spatial=True, num_heads=h,
+                        num_implicit_heads=n_imp, **perm), 0.0, MASK_BIAS)}
+                spatial_args[r][key, layer_type] = args
+            return spatial_args[r][key, layer_type]
 
-        def attend_spatial(key):
+        def attend_spatial(key, layer_type):
             def attend(r, m, xr, drop):
-                args = spatial(r, key, m.attention.self.num_heads)
+                args = spatial(r, key, layer_type, m.attention.self.num_heads)
                 if "kernel_ctx" in args:
                     return m.attention.self(xr, kernel_ctx=args["kernel_ctx"])
                 return _attend(m.attention.self, xr, args["bias"], True, drop)
@@ -357,7 +365,7 @@ class TPSAM4C:
                 x = self._layer(layers, x, lambda r, m, xr, drop: _attend(
                     m.attention.self, xr, base[r], False, drop), g)
             else:
-                x = self._layer(layers, x, attend_spatial(MATRIX_TYPE_MAP[mix]), g)
+                x = self._layer(layers, x, attend_spatial(MATRIX_TYPE_MAP[mix], layer_type), g)
 
         ocr_begin = q_len + cfg.max_obj_num
         dec_out = x[:, -dec_len:]
@@ -366,13 +374,16 @@ class TPSAM4C:
             self.ptr_project(dec_out, "query"), self.ptr_project(ocr_out, "key"))],
             x.device) / self.ptr_norm()
         ocr_bias = ((1.0 - batch["pad_ocr_mask"].to(self.dtype)) * MASK_BIAS)[:, None, :]
-        return {
+        out = {
             "mmt_seq_output": x,
             "mmt_txt_output": x[:, :q_len],
             "mmt_ocr_output": ocr_out,
             "mmt_dec_output": dec_out,
             "scores": torch.cat([self.classify(dec_out), dyn + ocr_bias.to(dyn.dtype)], dim=-1),
         }
+        if cfg.use_aux_heads:  # replicated weights: home's modules
+            out["spatial_head_out"] = home.aux_head(x)
+        return out
 
     # ----- encoder cache -----
 
@@ -391,7 +402,7 @@ class TPSAM4C:
         n_layers = len(cfg.layer_type_list)
         k_all = [x.new_empty(n_layers, b, le, d // self.tp, device=dev) for dev in self.devices]
         v_all = [x.new_empty(n_layers, b, le, d // self.tp, device=dev) for dev in self.devices]
-        spatial_bias: List[Dict[str, torch.Tensor]] = [{} for _ in self.devices]
+        spatial_bias: List[Dict[tuple, torch.Tensor]] = [{} for _ in self.devices]
         for li, (layer_type, mix, layers) in enumerate(self._mmt_layers()):
             key = MATRIX_TYPE_MAP[mix]
             x = self._layer(layers, x, lambda r, m, xr, drop: _cache_attention(
@@ -411,11 +422,12 @@ def home_device(model) -> torch.device:
 
 
 def decode_tensor_parallel(model: TPSAM4C, batch, bos_idx: int, backend: str,
-                           check_masks: bool, consts=None):
-    """``greedy_decode_fast`` of a tensor-parallel model with a resolved
-    ``backend`` (``plain`` or ``fused``; ``consts``: ``decode_consts()``).
-    The shards' tables, caches and decoder K/V stay on their devices; the
-    scores and ids come back on home."""
+                           check_masks: bool, consts=None, eos_idx=None):
+    """``fast_decode._greedy_decode`` of a tensor-parallel model with a
+    resolved ``backend``: ``plain`` and ``xla_early`` (with ``eos_idx``)
+    run their PyTorch steps on each shard's heads, ``fused`` its kernel (``consts``: ``decode_consts()``). The shards' tables, caches
+    and decoder K/V stay on their devices; the scores, ids and the number of
+    steps run come back on home."""
     cfg = model.params_cfg.mmt
     dtype, home, devices, tp = model.dtype, model.home, model.devices, model.tp
     enc = model.encode(batch)
@@ -440,11 +452,8 @@ def decode_tensor_parallel(model: TPSAM4C, batch, bos_idx: int, backend: str,
             keys, model.ptr_project(x, "query"))], home) / model.ptr_norm()
         return torch.cat([model.classify(x), dyn + ocr_bias], dim=-1)
 
-    if backend == "plain":
-        dec_kv = [[(c.k_enc.new_zeros(shape), c.k_enc.new_zeros(shape))
-                   for shape in ((b, _layer_heads(cfg, lt) // tp, t_max,
-                                  cfg.hidden_size // _layer_heads(cfg, lt))
-                                 for lt in cfg.layer_type_list)] for c in caches]
+    if backend not in KERNEL_STEP_BACKENDS:
+        dec_kv = [_row_kv(cfg, c.k_enc, b, tp) for c in caches]
 
         def step(x, t):
             col_bias = [_dec_col_bias(cfg, t, dev) for dev in devices]
@@ -452,10 +461,10 @@ def decode_tensor_parallel(model: TPSAM4C, batch, bos_idx: int, backend: str,
             for li, (layer_type, _, layers) in enumerate(model._mmt_layers()):
                 x = model._layer(layers, x, lambda r, m, xr, drop: _one_row_context(
                     m.attention.self, layer_type, cfg, caches[r], li, xr, dec_kv[r][li], t,
-                    col_bias[r]))
+                    col_bias[r], r * m.attention.self.num_heads))
             return x[:, 0]
 
-        return _greedy_steps(cfg, b, home, bos_idx, embed, head, step)
+        return _greedy_steps(cfg, b, home, bos_idx, embed, head, step, eos_idx)
 
     seg = _seg_lens(batch, validate=check_masks)
     segs = broadcast(seg, devices)

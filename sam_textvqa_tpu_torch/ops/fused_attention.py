@@ -137,10 +137,12 @@ def spatial_attention(
 
 
 def combined_permission(classes, lut, col_mask, *, q_len, n_ctx, dec_len,
-                        mask_quadrants, spatial, num_heads):
+                        mask_quadrants, spatial, num_heads, num_implicit_heads=0):
     """(B, H, L, L) bool attention permission — what the kernel rebuilds:
     the prefix-LM base (unpadded encoder columns, causal decoder block),
-    ANDed for spatial heads with :func:`build_spatial_allowed`."""
+    ANDed for spatial heads with :func:`build_spatial_allowed`. The last
+    ``num_implicit_heads`` of the ``num_heads`` are implicit heads (no
+    relation LUT, no quadrant cut), which the kernel does not take."""
     b, length = col_mask.shape
     dev = col_mask.device
     rows = torch.arange(length, device=dev)[:, None]
@@ -150,7 +152,7 @@ def combined_permission(classes, lut, col_mask, *, q_len, n_ctx, dec_len,
     if not spatial:
         return ok.expand(b, num_heads, length, length)
     return ok & build_spatial_allowed(classes, lut, q_len, dec_len, mask_quadrants,
-                                      num_heads)
+                                      num_heads - num_implicit_heads, num_implicit_heads)
 
 
 def spatial_attention_plain(q, k, v, classes, lut, col_mask, *, q_len, n_ctx,

@@ -160,14 +160,17 @@ MASKABLE_QUADRANTS = (1, 2, 4, 7, 8, 9)
 
 def build_spatial_allowed(classes: torch.Tensor, lut, question_len: int,
                           decode_len: int, mask_quadrants: Sequence[int],
-                          num_spatial_heads: int) -> torch.Tensor:
-    """Boolean per-head spatial attention permission, (B, H, L, L).
+                          num_spatial_heads: int, num_implicit_heads: int = 0) -> torch.Tensor:
+    """Boolean per-head spatial attention permission, (B, H, L, L) with
+    H = ``num_spatial_heads + num_implicit_heads``.
 
-    Inside the obj+OCR block a pair of class ``c`` allows head ``h`` iff
-    ``lut[c, h]`` (class 0 allows none); elsewhere every head is allowed,
-    except in the quadrants of ``mask_quadrants`` (reference
+    Inside the obj+OCR block a pair of class ``c`` allows spatial head
+    ``h`` iff ``lut[c, h]`` (class 0 allows none); elsewhere every head is
+    allowed, except in the quadrants of ``mask_quadrants`` (reference
     sam/sa_m4c.py:504-549; the quadrant ids number the 3x3 grid of
-    [question | obj+OCR | decoder] rows by columns).
+    [question | obj+OCR | decoder] rows by columns). The implicit heads come
+    after the spatial ones: allowed for every class and outside the block,
+    and never cut by a quadrant (reference :487-495).
     """
     bad = set(mask_quadrants) - set(MASKABLE_QUADRANTS)
     if bad:
@@ -177,11 +180,13 @@ def build_spatial_allowed(classes: torch.Tensor, lut, question_len: int,
     dev = classes.device
     q0, q1 = question_len, question_len + n
     length = q1 + decode_len
-    lut_ok = torch.as_tensor(lut, device=dev)[:, :num_spatial_heads] > 0
+    hs = num_spatial_heads
+    lut_ok = torch.as_tensor(lut, device=dev)[:, :hs] > 0
     cls = classes.long()
     valid = (cls >= 1) & (cls <= 12)
-    allowed = torch.ones(b, num_spatial_heads, length, length, dtype=torch.bool, device=dev)
-    allowed[:, :, q0:q1, q0:q1] = (
+    allowed = torch.ones(b, hs + num_implicit_heads, length, length, dtype=torch.bool,
+                         device=dev)
+    allowed[:, :hs, q0:q1, q0:q1] = (
         lut_ok[torch.where(valid, cls, 0)] & valid[..., None]
     ).permute(0, 3, 1, 2)
     band = torch.full((length,), 2, device=dev)
@@ -191,4 +196,5 @@ def build_spatial_allowed(classes: torch.Tensor, lut, question_len: int,
     cut = torch.zeros(length, length, dtype=torch.bool, device=dev)
     for q in mask_quadrants:
         cut |= quadrant == q
-    return allowed & ~cut
+    allowed[:, :hs] &= ~cut
+    return allowed

@@ -255,6 +255,8 @@ def check_tensor_parallel(params_cfg, tp: int) -> None:
     heads = {"TextBERT": tb.num_attention_heads, "MMT normal": mmt.num_attention_heads}
     if "s" in mmt.layer_type_list:
         heads["MMT spatial"] = mmt.num_spatial_relations
+    if "i" in mmt.layer_type_list:
+        heads["MMT implicit"] = mmt.num_spatial_relations + mmt.num_implicit_relations
     problems = [f"the {n} layers' {h} heads" for n, h in heads.items() if h % tp]
     problems += [f"the {n} FFN width {f}" for n, f in
                  (("TextBERT", tb.intermediate_size), ("MMT", mmt.intermediate_size)) if f % tp]

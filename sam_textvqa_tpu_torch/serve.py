@@ -56,6 +56,7 @@ from .config import TaskConfig, load_task_config
 from .data.synthetic import make_batch
 from .data.vocab import VocabDict, synthetic_vocab
 from .models.beam_search import BEAM_TP_REFUSAL
+from .models.fast_decode import BACKENDS as DECODE_BACKENDS
 from .models.fast_decode import MEGA_TP_REFUSAL
 from .models.sa_m4c import SAM4C, SAM4CParams
 from .parallel.mesh import check_tensor_parallel
@@ -69,9 +70,6 @@ UNPORTED = (
     ("artifact", None, "item 10, AOT artifacts"),
     ("compile_cache", None, "item 11, the compile cache"),
 )
-UNPORTED_DECODE_BACKENDS = {"policy": "item 4, the early-exit policy backend",
-                            "xla_early": "item 4, early-exit greedy decode",
-                            "xla_flat": "item 4, the xla_flat decode"}
 
 
 def _ladder(s: str):
@@ -94,9 +92,10 @@ def get_args(argv=None):
                    help="re-plan the width ladders from live traffic every N served "
                         "batches and adopt cost-model wins >= 5%% (0: off)")
     p.add_argument("--max_wait_ms", type=float, default=2.0)
-    p.add_argument("--decode_backend",
-                   choices=["auto", "plain", "fused", "mega", *UNPORTED_DECODE_BACKENDS],
-                   default="auto")
+    p.add_argument("--decode_backend", choices=[*DECODE_BACKENDS, "policy"], default="auto",
+                   help="greedy decode backend (xla and xla_flat are JAX's names of plain); "
+                        "policy: auto where the engine replays CUDA graphs, else bucket-1 "
+                        "batches run auto's fixed steps and larger ones xla_early")
     p.add_argument("--demo", type=int, default=0,
                    help="submit N synthetic requests and print stats")
     p.add_argument("--demo_ocr", type=int, default=None,
@@ -128,9 +127,6 @@ def get_args(argv=None):
     for flag, default, item in UNPORTED:
         if getattr(args, flag) != default:
             p.error(f"--{flag} is not ported yet (ROADMAP queue 1, {item})")
-    if args.decode_backend in UNPORTED_DECODE_BACKENDS:
-        p.error(f"--decode_backend {args.decode_backend} is not ported yet "
-                f"(ROADMAP queue 1, {UNPORTED_DECODE_BACKENDS[args.decode_backend]})")
     if args.beam_size < 1:
         p.error(f"--beam_size {args.beam_size} must be at least 1")
     if args.beam_size > 1 and args.model_parallel > 1:

@@ -45,6 +45,19 @@ package ``serving/engine.py``).
   coalesced with it.
 * **Transfer diet.** Feature arrays are cast to the model's compute dtype
   at ``submit``, on the caller's thread (``data/prefetch.py``).
+* **Early exit** (``decode_backend="xla_early"``): the greedy decode
+  stops once every row has emitted EOS, with the same answers. Its exit
+  test reads the device from the host after every step, which a CUDA graph
+  cannot hold, so such an engine captures no graph and decodes eagerly.
+  ``policy`` is the JAX engine's per-bucket rule (JAX
+  ``serving/engine.py``) where the engine runs no graphs (the CPU, a
+  tensor-parallel group): bucket-1 batches run the fixed steps that
+  ``auto`` resolves to (``plain``, or a group's ``fused``), as the JAX
+  engine runs its ``xla``, which is JAX's ``auto``, and larger buckets run
+  ``xla_early``. Where the engine replays CUDA graphs, ``policy`` is
+  ``auto`` for every bucket: the graph replay of the fixed steps serves
+  more than twice the samples per second of the eager early exit on the
+  H100 (``PERF.md``), a deliberate difference from the JAX engine.
 * **Beams** (``beam_size`` > 1): each batch runs
   ``beam_search_decode_fast`` and is reduced on the device to the best
   beam's tokens without BOS, so the consumer is the same for both modes.
@@ -79,8 +92,9 @@ from ..data.prefetch import cast_features_for_transfer
 from ..data.vocab import VocabDict
 from ..evaluation.metrics import decode_predictions
 from ..models.beam_search import BEAM_TP_REFUSAL
-from ..models.fast_decode import (MASK_KEYS, _mega_step_consts, beam_search_decode_fast,
-                                  check_prefix_masks, greedy_decode_fast, resolve_backend)
+from ..models.fast_decode import (KERNEL_STEP_BACKENDS, MASK_KEYS, _mega_step_consts,
+                                  beam_search_decode_fast, check_prefix_masks,
+                                  greedy_decode_fast, resolve_backend)
 from ..models.sa_m4c import with_widths
 from ..models.tensor_parallel import TPSAM4C
 from ..ops import cuda_build
@@ -312,8 +326,11 @@ class ServingEngine:
       answer_vocab: the fixed answer VocabDict (BOS/EOS and word decode).
       buckets: allowed batch sizes.
       max_wait_ms: coalescing window after the first queued request.
-      decode_backend: ``auto`` | ``plain`` | ``fused`` | ``mega``
-        (models/fast_decode.py); ``auto`` is resolved once, here.
+      decode_backend: ``auto`` | ``plain`` | ``fused`` | ``mega`` |
+        ``xla`` | ``xla_early`` | ``xla_flat`` (models/fast_decode.py), or
+        ``policy`` (module docstring); ``auto`` is resolved once, here.
+        Beams ignore the greedy backend (their cache pass takes the fixed
+        one's kernel), as in the JAX engine.
       device: where the model runs; default ``cuda``, and with no GPU the
         engine raises unless ``device="cpu"`` is passed.
       devices / model_parallel: instead of ``device``, a list of devices
@@ -371,8 +388,14 @@ class ServingEngine:
             raise ValueError(f"buckets {bad} not divisible by dp={self.dp}")
         self.device = mesh[0][0]
         mmt = model.params_cfg.mmt
-        self.decode_backend = resolve_backend(decode_backend, mmt, self.device, self.tp)
-        self._graphs_on = self.device.type == "cuda" and self.tp == 1
+        #: the backend of the batches that run fixed steps
+        self._fixed_backend = resolve_backend("auto" if decode_backend == "policy"
+                                              else decode_backend, mmt, self.device, self.tp)
+        self.decode_backend = ("policy" if decode_backend == "policy"
+                               else self._fixed_backend)
+        # an early exit reads the device after every step: no graph holds it
+        self._graphs_on = (self.device.type == "cuda" and self.tp == 1
+                           and not (self.decode_backend == "xla_early" and self.beam_size == 1))
         self._replicas = [self._replica(model.eval(), g, group) for g, group in enumerate(mesh)]
         self.model = self._replicas[0].model
         self.answer_vocab = answer_vocab
@@ -419,7 +442,7 @@ class ServingEngine:
             replica = (model if g == 0 else copy.deepcopy(model)).to(devices[0])
         consts = None
         # stacked once (the weights are frozen), for the greedy kernel steps
-        if self.decode_backend != "plain" and self.beam_size == 1:
+        if self._fixed_backend in KERNEL_STEP_BACKENDS and self.beam_size == 1:
             consts = (replica.decode_consts() if len(devices) > 1
                       else _mega_step_consts(replica.mmt, replica.dtype))
         return _Replica(replica, devices, consts, self._graphs_on)
@@ -499,18 +522,30 @@ class ServingEngine:
                 out[k] = torch.cat(parts, out=self._staging_view(slot, k, shape, parts[0].dtype))
         return out
 
+    def _greedy_backend(self, bucket: int) -> str:
+        """The greedy backend of a batch of ``bucket`` rows: under
+        ``policy`` with no graphs, the fixed steps at bucket 1 and
+        ``xla_early`` above (module docstring)."""
+        if self.decode_backend != "policy":
+            return self.decode_backend
+        return "xla_early" if bucket > 1 and not self._graphs_on else self._fixed_backend
+
     def _decode(self, model, batch: Dict[str, torch.Tensor], consts=None) -> torch.Tensor:
+        """Decode one replica's block of a batch (its bucket: the block's rows
+        x dp)."""
         if self.beam_size > 1:
             seqs, scores = beam_search_decode_fast(model, batch, self.beam_size,
                                                    self.special.bos, self.special.eos,
-                                                   backend=self.decode_backend)
+                                                   backend=self._fixed_backend)
             best = scores.argmax(1)[:, None, None].expand(-1, 1, seqs.shape[-1])
             return seqs.gather(1, best)[:, 0, 1:]  # the best beam, BOS dropped
         # the masks were checked on the host in _validate: the decode never
         # waits for the device
         _, pred_ids = greedy_decode_fast(model, batch, self.special.bos,
-                                         backend=self.decode_backend, check_masks=False,
-                                         consts=consts)
+                                         backend=self._greedy_backend(
+                                             batch["question_indices"].shape[0] * self.dp),
+                                         check_masks=False, consts=consts,
+                                         eos_idx=self.special.eos)
         return pred_ids
 
     def _capture(self, replica: _Replica, model, host: Dict[str, torch.Tensor]) -> _Graph:
@@ -595,7 +630,7 @@ class ServingEngine:
 
     def _launch_eager(self, cell: _Cell, bucket: int, blocks: List[Dict]):
         """Decode each replica's block eagerly (the CPU; tensor-parallel
-        groups on the card)."""
+        groups and early-exit engines on the card)."""
         outs = [self._decode(m, {k: v.to(r.device) for k, v in block.items()}, r.consts)
                 for m, r, block in zip(cell.models, self._replicas, blocks)]
         if self.device.type != "cuda":
@@ -799,7 +834,7 @@ class ServingEngine:
             if arr.shape != want_shape:
                 raise ValueError(f"request {k!r} has shape {arr.shape}, expected {want_shape}")
             out[k] = np.array(arr, dtype=want_dtype)
-        if self.decode_backend != "plain":
+        if self._fixed_backend in KERNEL_STEP_BACKENDS:
             check_prefix_masks(out[k] for k in MASK_KEYS)
         if "ocr_tokens" not in sample:
             raise KeyError("request missing 'ocr_tokens'")

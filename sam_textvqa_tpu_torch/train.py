@@ -74,6 +74,7 @@ from .data.processors import FastTextProcessor, SimpleWordpieceTokenizer, load_b
 from .data.synthetic import SyntheticDataset
 from .evaluation.evaluator import Evaluator
 from .models.beam_search import BEAM_TP_REFUSAL
+from .models.fast_decode import BACKENDS as DECODE_BACKENDS
 from .models.fast_decode import MEGA_TP_REFUSAL
 from .models.tensor_parallel import TPSAM4C
 from .parallel.mesh import (barrier, check_batch, check_tensor_parallel, env_world_size,
@@ -90,8 +91,6 @@ UNPORTED = (
     ("dropout_reuse", False, "item 1, dropout_mask_reuse"),
     ("compile_cache", None, "item 11, the compile cache"),
 )
-UNPORTED_DECODE_BACKENDS = {"xla_early": "item 4, early-exit greedy decode",
-                            "xla_flat": "item 4, the xla_flat decode"}
 
 
 def _ladder(s: str):
@@ -114,9 +113,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
     p.add_argument("--grad_accum", type=int, default=1, metavar="N",
                    help="N microbatches per optimizer update")
-    p.add_argument("--decode_backend",
-                   choices=["auto", "plain", "fused", "mega", *UNPORTED_DECODE_BACKENDS],
-                   default="auto", help="greedy decode of validation and evaluation")
+    p.add_argument("--decode_backend", choices=DECODE_BACKENDS, default="auto",
+                   help="greedy decode of validation and evaluation (xla and xla_flat are "
+                        "JAX's names of plain; xla_early stops once every row has emitted EOS)")
     p.add_argument("--attention_backend", choices=["plain", "kernel"], default="plain",
                    help="spatial attention of deterministic full forwards (the train "
                         "steps run the plain one with dropout, and the greedy decode "
@@ -149,9 +148,6 @@ def get_args(argv=None):
     for flag, default, item in UNPORTED:
         if getattr(args, flag) != default:
             parser.error(f"--{flag} is not ported yet (ROADMAP queue 1, {item})")
-    if args.decode_backend in UNPORTED_DECODE_BACKENDS:
-        parser.error(f"--decode_backend {args.decode_backend} is not ported yet "
-                     f"(ROADMAP queue 1, {UNPORTED_DECODE_BACKENDS[args.decode_backend]})")
     if args.multihost and missing_torchrun_env():
         parser.error(f"--multihost needs torchrun's environment "
                      f"({', '.join(missing_torchrun_env())} unset): launch with torchrun "

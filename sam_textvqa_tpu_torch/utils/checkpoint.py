@@ -88,9 +88,9 @@ def reference_name_map(
         m.update(_bert_layer_map(
             ("mmt", f"{names[lt]}_layer_{i}"), f"mmt.encoder.{names[lt]}_layers.{i}"
         ))
-        if lt == "s":
-            m[("mmt", f"spatial_layer_{i}", "attention_self", "biases")] = (
-                f"mmt.encoder.spatial_layers.{i}.attention.self.biases.weight"
+        if lt in ("s", "i"):
+            m[("mmt", f"{names[lt]}_layer_{i}", "attention_self", "biases")] = (
+                f"mmt.encoder.{names[lt]}_layers.{i}.attention.self.biases.weight"
             )
 
     for enc in ("obj_faster_rcnn_fc7", "ocr_faster_rcnn_fc7"):
@@ -101,6 +101,14 @@ def reference_name_map(
         m[("ocr_ptr_net", "key", leaf)] = f"ocr_ptr_net.key.{leaf}"
     m[("classifier_weight",)] = "classifier.weight"
     m[("classifier_bias",)] = "classifier.bias"
+    # the aux relation head: the reference's SimpleClassifier is
+    # Sequential(Linear, GeLU, LayerNorm, Linear), JAX's dense0 / ln / dense1
+    for head in ("origin_transform", "dest_transform"):
+        for ours, theirs in (("dense0", "0"), ("ln", "2"), ("dense1", "3")):
+            for leaf in ("weight", "bias"):
+                m[(head, ours, leaf)] = f"{head}.logit_fc.{theirs}.{leaf}"
+    for leaf in ("weight", "bias"):
+        m[("spatial_classifier", leaf)] = f"spatial_classifier.{leaf}"
     return m
 
 

@@ -85,8 +85,9 @@ def model(pair):
 @pytest.fixture(scope="module")
 def gt(pair, model):
     """External ground truth from the port's own full-width beams (an
-    empty answer, a first token EOS, becomes "nothing": both packages' ANLS
-    divides by the longer string's length)."""
+    empty answer, a first token EOS, becomes "nothing": the JAX package's
+    ANLS, which scores the same ground truth here, divides by the longer
+    string's length; the port's scores two empty strings 1.0)."""
     preds = Evaluator(model, VocabDict(WORDS)).run_split_beam(port_batches(pair), K)
     return {p["question_id"]: [p["beams"][0]["pred_answer"] or "nothing"] * 5
             + [p["beams"][1]["pred_answer"] or "nothing"] * 5 for p in preds["predictions"]}

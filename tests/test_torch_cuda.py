@@ -806,3 +806,83 @@ def test_wrappers_launch_on_the_tensors_device(dev):
             assert out.device == card and (out - ref).abs().max().item() < 1e-4
             assert torch.cuda.current_device() == 0
         torch.cuda.synchronize(1)
+
+
+# ---------------------------------------------------------------- early exit, implicit layers
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b", [1, 32])
+def test_decode_attention_head_dim_32_matches_plain(dev, dtype, tol, b):
+    """K2 in the implicit layers of ``num_implicit_relations: 12`` at c3
+    width: 24 heads of 32."""
+    rng = np.random.RandomState(32 + b)
+    d, le, t_max, q_len, n_obj = 768, 170, 12, 20, 100
+    k_enc, v_enc, k_dec, v_dec, seg = _decode_inputs(rng, b, d, le, t_max, q_len, n_obj,
+                                                     dtype, dev)
+    q = torch.from_numpy(rng.randn(b, d).astype(np.float32)).to(dev, dtype)
+    for step in (0, 11):
+        t = torch.tensor([step], dtype=torch.int32, device=dev)
+        kw = dict(hd=32, q_len=q_len, n_obj=n_obj)
+        out = decode_attention(q, k_enc, v_enc, k_dec, v_dec, seg, t, **kw)
+        ref = decode_attention_plain(q, k_enc, v_enc, k_dec, v_dec, seg, t, **kw)
+        assert (out.float() - ref.float()).abs().max().item() < tol, step
+
+
+def _early_model(dev, eos_bias, **mmt):
+    """``_train_task``'s model at std 0.1 on the card, EOS's classifier bias
+    raised by ``eos_bias``, and a batch of 6."""
+    task = _train_task(**mmt)
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, 40))
+    model = model.init_weights(torch.Generator().manual_seed(0), std=0.1).to(dev)
+    with torch.no_grad():
+        model.classifier.bias[2] += eos_bias
+    return task, model, device_batch(make_batch(task, 6, num_answers_vocab=40), dev)
+
+
+@pytest.mark.parametrize("eos_bias", [0.0, 1e4])
+def test_xla_early_on_card_equals_plain(dev, eos_bias):
+    """``xla_early``: the K1 cache pass (launched), PyTorch steps (no K2 or
+    K3); ids equal ``plain``'s up to each row's first EOS and EOS after the
+    exit; under the full EOS bias one step runs."""
+    from sam_textvqa_tpu_torch.models.fast_decode import _greedy_decode
+
+    task, model, batch = _early_model(dev, eos_bias)
+    _, ids_p = greedy_decode_fast(model, batch, 1, backend="plain")
+    cuda_build.reset_launch_counts()
+    scores, ids, steps = _greedy_decode(model, batch, 1, backend="xla_early", eos_idx=2)
+    torch.cuda.synchronize()
+    launches = cuda_build.launch_counts()
+    assert launches == {"spatial_attention": task.mmt.layer_type_list.count("s"),
+                        "decode_attention": 0, "decode_step": 0}, launches
+    for row, ref in zip(ids.tolist(), ids_p.tolist()):
+        stop = ref.index(2) + 1 if 2 in ref else len(ref)
+        assert row[:stop] == ref[:stop]
+    assert (ids[:, steps:] == 2).all()
+    if eos_bias:
+        assert steps == 1 and (scores[:, 1:, 2] == 1.0).all()
+    flat = greedy_decode_fast(model, batch, 1, backend="xla_flat")
+    assert torch.equal(flat[1], ids_p)
+
+
+def test_implicit_fused_decode_on_card_equals_plain(dev):
+    """An implicit layer of 2 + 6 heads of 16 beside a spatial layer of 2
+    heads of 64: ``fused`` runs K1 on the spatial layer only and K2 in every
+    layer, with the ids of ``plain``; ``mega`` is refused (head counts
+    differ)."""
+    task, model, batch = _early_model(dev, 0.0, layer_type_list=("n", "s", "i"),
+                                      mix_list=("none", "share3", "share3"),
+                                      num_implicit_relations=6)
+    assert model.mmt.encoder.implicit_layers[0].attention.self.num_heads == 8
+    s_p, p_p = greedy_decode_fast(model, batch, 1, backend="plain")
+    cuda_build.reset_launch_counts()
+    s_f, p_f = greedy_decode_fast(model, batch, 1, backend="fused")
+    torch.cuda.synchronize()
+    launches = cuda_build.launch_counts()
+    steps = task.mmt.num_decoding_steps
+    assert launches == {"spatial_attention": 1, "decode_attention": 3 * steps,
+                        "decode_step": 0}, launches
+    assert torch.equal(p_f, p_p)
+    assert (s_f - s_p).abs().max().item() < 1e-4
+    with pytest.raises(ValueError, match="head counts differ"):
+        greedy_decode_fast(model, batch, 1, backend="mega")

@@ -95,8 +95,13 @@ def test_auto_backend_resolution():
     assert fast_decode._fused_supported(mixed)
     assert not fast_decode._mega_supported(mixed)
     assert resolve_backend("auto", mixed, torch.device("cuda")) == "plain"
+    # the JAX package's names: xla and the head-flat xla_flat are plain; the
+    # early exit resolves to itself
+    for name in ("xla", "xla_flat"):
+        assert resolve_backend(name, c3, torch.device("cuda"), tp=2) == "plain"
+    assert resolve_backend("xla_early", c3, torch.device("cuda"), tp=2) == "xla_early"
     with pytest.raises(ValueError, match="unknown decode backend"):
-        resolve_backend("xla", c3, torch.device("cpu"))
+        resolve_backend("pallas", c3, torch.device("cpu"))
 
 
 def test_seg_lens_need_prefix_masks(c3_pair):

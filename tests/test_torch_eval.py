@@ -182,6 +182,21 @@ def test_anls_near_its_cut_equals_jax():
         assert metrics.levenshtein(a, b) == jax_metrics.levenshtein(a, b)
 
 
+def test_anls_of_two_empty_strings_is_one():
+    """A deliberate difference (ROADMAP section 3): the JAX package divides
+    by zero on two empty strings (an answer whose first token is EOS against
+    an empty ground truth); the port scores them 1.0, as identical strings.
+    An empty string against a nonempty one still scores 0."""
+    with pytest.raises(ZeroDivisionError):
+        jax_metrics.STVQAANLSEvaluator().get_anls("", " ")
+    anls = metrics.STVQAANLSEvaluator()
+    assert anls.get_anls("", " ") == 1.0 and anls.get_anls("", "") == 1.0
+    assert anls.get_anls("", "stop") == 0.0
+    pred = [{"pred_answer": "", "gt_answers": ["", "x"]},
+            {"pred_answer": "stop", "gt_answers": ["stop"]}]
+    assert anls.eval_pred_list(pred)[0] == 1.0
+
+
 # ------------------------------------------------------------ answer processor
 
 
@@ -400,3 +415,7 @@ def test_dump_evalai_and_unported_options(eval_pair, jax_run, tmp_path):
         ev.run_split([], ocr_bucket=[4, 6])
     with pytest.raises(ValueError, match="beam_size"):
         ev.run_split_beam([], beam_size=0)
+    # item 4 is ported: the JAX package's decode backends run
+    for backend in ("xla", "xla_early", "xla_flat"):
+        assert Evaluator(eval_pair.model(), VocabDict(WORDS),
+                         decode_backend=backend).run_split([])["num_scored"] == 0

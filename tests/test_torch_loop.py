@@ -412,12 +412,22 @@ def test_cli_train_resume_and_pretrained_eval(cli_config):
     (["--multihost"], "torchrun"),  # ported: refused without torchrun's environment
     (["--dropout_reuse"], "item 1"),
     (["--compile_cache", "cache"], "item 11"),
-    (["--decode_backend", "xla_early"], "item 4"),
-    (["--decode_backend", "xla_flat"], "item 4"),
+    # item 4 is ported: the JAX package's decode backends parse, also under
+    # tensor parallelism
+    pytest.param(["--decode_backend", "xla_early"], None, id="flags7-item 4"),
+    pytest.param(["--decode_backend", "xla_flat", "--model_parallel", "2"], None,
+                 id="flags8-item 4"),
+    pytest.param(["--decode_backend", "xla"], None, id="xla"),
 ])
 def test_cli_refuses_unported_flags(flags, item, capsys, monkeypatch):
+    """Each JAX flag the port lacks is refused with its ROADMAP item; the
+    ported ones (``item`` None) parse."""
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(var, raising=False)
+    if item is None:
+        args = train_cli.get_args(["--config", "c.yml", *flags])
+        assert args.decode_backend == flags[1]
+        return
     with pytest.raises(SystemExit) as exc:
         train_cli.get_args(["--config", "c.yml", *flags])
     assert exc.value.code == 2

@@ -548,9 +548,11 @@ def test_server_cli_drains_on_sigterm(env, tmp_path):
 @pytest.mark.parametrize("flags,item", [
     # ported since (beams): refused only under tensor parallelism
     pytest.param(["--beam_size", "2", "--model_parallel", "2"], "item 5b", id="flags0-item 5b"),
-    (["--decode_backend", "policy"], "item 4"),
-    (["--decode_backend", "xla_early"], "item 4"),
-    (["--decode_backend", "xla_flat"], "item 4"),
+    # ported since (item 4): the JAX package's decode backends parse
+    pytest.param(["--decode_backend", "policy"], None, id="flags1-item 4"),
+    pytest.param(["--decode_backend", "xla_early"], None, id="flags2-item 4"),
+    pytest.param(["--decode_backend", "xla_flat"], None, id="flags3-item 4"),
+    pytest.param(["--decode_backend", "xla"], None, id="xla"),
     # ported since (multi-device serving): on one device JAX serve.py's
     # mesh checks refuse them, with its messages
     pytest.param(["--model_parallel", "2"], "must divide the 1 available devices",
@@ -564,8 +566,13 @@ def test_server_cli_drains_on_sigterm(env, tmp_path):
 def test_cli_refuses_unported_flags(flags, item, capsys):
     """Each JAX flag this port lacks is refused by name with its ROADMAP
     item, before any model is built; so is a run with no mode, and a mesh
-    that the one device cannot hold."""
+    that the one device cannot hold. The ported ones (``item`` None) parse
+    (the server under ``policy`` runs in ``test_torch_early_exit.py``)."""
     mode = [] if item == "pick a mode" else ["--port", "0"]
+    if item is None:
+        args = serve.get_args(["--config", "c.yml", *mode, *flags])
+        assert args.decode_backend == flags[1]
+        return
     with pytest.raises(SystemExit) as exc:
         serve.main(["--config", str(ROOT / "configs" / "train-tvqa-eval-tvqa-c3.yml"),
                     "--device", "cpu", *mode, *flags])
