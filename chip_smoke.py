@@ -63,10 +63,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    process started with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and run with
    ``torch.use_deterministic_algorithms`` on: an uninterrupted 2-epoch
    ``main`` against 1 epoch plus a ``--resume``-d second in fresh ``main``
-   calls (step and parameters bit-identical), and the same once more in a
-   child without the variable and without deterministic algorithms, as the
-   CLI runs by default (the largest parameter difference is printed, with
-   no bar); ``--pretrained_eval`` of the best model with ``auto``
+   calls (step and parameters bit-identical), and at the same time the same
+   in a child without the variable and without deterministic algorithms,
+   as the CLI runs by default (the largest parameter difference is printed,
+   with no bar); phase 13's untimed part runs in this process meanwhile
+   (13a's exports, 13e's tp 2 parity and fc7 run); ``--pretrained_eval`` of the best model with ``auto``
    (K1 and K3 launched, accuracy equal to the loop's best) and with
    ``fused`` (K1 and K2 launched), both writing ``evalai_val.json``; the
    best model's f32 greedy ids over the whole val split identical across
@@ -232,6 +233,37 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    launch); the train CLI on a generated YAML of the config (bf16, batch
    96, ``--synthetic 192``, 1 epoch, validation with ``fused``: K1 and K2
    launched, K3 not);
+13. decode artifacts, the compile cache, the dropout variants and fc7
+   weights, before phase 4 too, on 64 raw requests (seed 13) and phase 7's
+   kind of weights; 13a's exports and 13e's exact checks run in phase 5,
+   beside its resume children, so that nothing else runs while phase 13
+   times. 13a: ``tools/torch_export_decode.py`` in three
+   processes at once, from one checkpoint: the bf16 ``mega`` grid (1, 8,
+   32) x OCR (25, full), one f32 ``mega`` cell (B = 8, ``--check``) and
+   one bf16 beam cell (B = 8, K = 5), for ``cuda``; export seconds and
+   bytes per cell beside the checkpoint's bytes. 13b: ``DecodeArtifact``:
+   f32 ids equal the live ``mega`` decode's (scores within 1e-5, also 3
+   rows padded into the B = 8 cell), K1 4 and K3 12 launches per decode,
+   the program's nodes (no weight; ``auto_functionalized`` copies
+   counted), the beam cell's best rows equal ``beam_search_decode_fast``'s,
+   bf16 agreement printed; the host ms each kernel's operator dispatch
+   adds, against its CUDA implementation called directly. 13c: the
+   artifact engine against the live engine on the same requests and
+   weights: f32 answers equal (bucket 8), bf16 over the grid: graphs,
+   capture seconds, K1/K3 launches through the replays (= recorded x
+   replays, not 0), then samples/s and p50/p95 of 1,024 requests per turn
+   in turns (live, artifact, artifact, live). 13d: seconds to the first
+   TCP answer of the server CLI in a child (f32, bucket 8): the live
+   engine and ``--artifact`` (no ``--config``), one child at a time, each
+   with an empty and then a warm ``--compile_cache``; a warm start builds
+   no kernel. 13e: 3 + 10 bf16
+   train steps at batch 96 under ``dropout_mask_reuse`` and
+   ``dropout_fused_draw`` beside the default (ms, peak memory, losses
+   finite and falling); f32 tp 2 against one device under each, at phase
+   10's bars; the train CLI with generated detectron fc7 pickles (2
+   steps). 13f, after phase 4: ``utils.profiling.trace`` of a B = 32
+   bf16 artifact decode names K1's and K3's kernels, and ``StepTimer``'s
+   median over 20 of them lies within 10% of CUDA events';
 4. after every timed phase, ``torch.profiler`` device time by kernel of one
    spatial-attention call (code pass and attention), of one bf16 decode
    step at batch 32 (its kernels by name with launch counts, so launches
@@ -243,8 +275,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    with the kernel attention must match the plain one;
 then JSON lines of the training path, of the train CLI, of the real-data
 run, of the server, of data parallelism, of multi-device serving, of
-tensor-parallel training, of beams and ladders, of phase 12 and of the
-kernels, and the result line
+tensor-parallel training, of beams and ladders, of phase 12, of phase 13
+and of the kernels, and the result line
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --resume-check CONFIG DIR [DEVICE [MODE]]`` is that child
@@ -267,6 +299,7 @@ import hashlib
 import json
 import logging
 import os
+import pickle
 import re
 import shutil
 import signal
@@ -277,6 +310,8 @@ import tempfile
 import threading
 import time
 import warnings
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -301,7 +336,9 @@ from sam_textvqa_tpu_torch.models.fast_decode import (_greedy_decode, _mega_step
                                                       beam_search_decode_fast, build_mmt_cache,
                                                       greedy_decode_fast, resolve_backend)
 from sam_textvqa_tpu_torch.models.layers import LayerNormTF
-from sam_textvqa_tpu_torch.ops import cuda_build
+from sam_textvqa_tpu_torch.ops import cuda_build, fused_attention
+from sam_textvqa_tpu_torch.ops import decode_attention as decode_attention_mod
+from sam_textvqa_tpu_torch.ops import decode_step as decode_step_mod
 from sam_textvqa_tpu_torch.ops.batcher import cast_bf16
 from sam_textvqa_tpu_torch.ops.decode_attention import (decode_attention,
                                                         decode_attention_plain,
@@ -316,11 +353,14 @@ from sam_textvqa_tpu_torch.ops.spatial_graph import build_spatial_graph, relatio
 from sam_textvqa_tpu_torch.parallel.mesh import init_distributed, wrap_model
 from sam_textvqa_tpu_torch.serve import (build_model, build_vocab, run_demo,
                                          synthetic_requests)
+from sam_textvqa_tpu_torch.serving.artifact import DecodeArtifact
+from sam_textvqa_tpu_torch.serving.artifact_engine import ArtifactServingEngine
 from sam_textvqa_tpu_torch.serving.engine import SAMPLE_KEYS, ServingEngine, build_sample
 from sam_textvqa_tpu_torch.training.loop import train
 from sam_textvqa_tpu_torch.training.optimizer import lr_factor_schedule, make_optimizer
 from sam_textvqa_tpu_torch.training.step import (create_train_state, make_eval_step,
                                                  make_train_step)
+from sam_textvqa_tpu_torch.utils import profiling
 from sam_textvqa_tpu_torch.utils.checkpoint import (reference_name_map, restore_checkpoint,
                                                     save_checkpoint, state_dict_from_jax)
 
@@ -1046,11 +1086,11 @@ def resume_child(config: str, out_dir: str, device: str = "cuda",
 
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        ref, ref_step, _ = run("det_a", "--num_train_epochs", str(CLI_EPOCHS))
-        shutil.rmtree(out_dir / "det_a")
-        run("det_b", "--num_train_epochs", "1")
-        mine, step, epochs = run("det_b", "--num_train_epochs", str(CLI_EPOCHS), "--resume")
-        shutil.rmtree(out_dir / "det_b")
+        ref, ref_step, _ = run(f"{mode}_a", "--num_train_epochs", str(CLI_EPOCHS))
+        shutil.rmtree(out_dir / f"{mode}_a")
+        run(f"{mode}_b", "--num_train_epochs", "1")
+        mine, step, epochs = run(f"{mode}_b", "--num_train_epochs", str(CLI_EPOCHS), "--resume")
+        shutil.rmtree(out_dir / f"{mode}_b")
         out = dict(step=step, uninterrupted_step=ref_step, resumed_epochs=epochs,
                    max_abs_diff=max(max_err(mine[k], ref[k]) for k in ref),
                    bit_identical=all(torch.equal(mine[k], ref[k]) for k in ref),
@@ -1060,8 +1100,8 @@ def resume_child(config: str, out_dir: str, device: str = "cuda",
             if "deterministic" in str(w.message)})
         out["mode"] = mode
         if not out["bit_identical"] and out["ops_without_deterministic_cuda"]:
-            other, _, _ = run("det_c", "--num_train_epochs", str(CLI_EPOCHS))
-            shutil.rmtree(out_dir / "det_c")
+            other, _, _ = run(f"{mode}_c", "--num_train_epochs", str(CLI_EPOCHS))
+            shutil.rmtree(out_dir / f"{mode}_c")
             out["bar_two_uninterrupted_runs"] = max(max_err(other[k], ref[k]) for k in ref)
     print(json.dumps(out), flush=True)
     return 0
@@ -1096,6 +1136,18 @@ def resume_check(config: str, out_dir: Path, dev=torch.device("cuda"),
             and out["max_abs_diff"] <= out["bar_two_uninterrupted_runs"]):
         raise AssertionError(f"the resumed run differs from the uninterrupted one: {out}")
     return out
+
+
+def resume_checks(config: str, out_dir: Path, dev=torch.device("cuda"), beside=None) -> dict:
+    """Both resume children at once (deterministic, and the CLI's default):
+    their checks are exact and neither times anything. ``beside``, if
+    given, runs in this process meanwhile (phase 13's untimed work)."""
+    with ThreadPoolExecutor(2) as pool:
+        futures = {key: pool.submit(resume_check, config, out_dir, dev, deterministic=d)
+                   for key, d in (("resume", True), ("resume_default", False))}
+        if beside is not None:
+            beside()
+        return {key: f.result() for key, f in futures.items()}
 
 
 def f32_best_model_ids(task, vocab, best_model: str, dev=torch.device("cuda")) -> dict:
@@ -1164,11 +1216,12 @@ def parity_b96(task, model, batch, gen) -> dict:
 
 
 def train_cli_path(task, vocab, model, bare_step, gen, dev=torch.device("cuda"),
-                   keep_best: Path = None) -> dict:
+                   keep_best: Path = None, beside=None) -> dict:
     """Phase 5: the train CLI at full c3 width (see the module docstring).
     ``bare_step`` is phase 3b's train-step result, printed beside the
     loop's rate; ``model`` the phase 3 model, whose weights K3's B=96
-    check uses. ``keep_best``: where the best model is copied for phase 11."""
+    check uses. ``keep_best``: where the best model is copied for phase 11.
+    ``beside``: run while the resume children run (:func:`resume_checks`)."""
     import yaml
 
     out = {}
@@ -1251,8 +1304,7 @@ def train_cli_path(task, vocab, model, bare_step, gen, dev=torch.device("cuda"),
         if keep_best is not None:
             shutil.copy(best_model, keep_best)
         shutil.rmtree(tmp / "full")
-        out["resume"] = resume_check(config, tmp, dev)
-        out["resume_default"] = resume_check(config, tmp, dev, deterministic=False)
+        out.update(resume_checks(config, tmp, dev, beside))
 
     val_batch = device_batch(make_batch(task, TRAIN_BATCH, seed=1,
                                         num_answers_vocab=len(vocab)), dev)
@@ -3682,6 +3734,596 @@ def early_exit_path(task, vocab, seg, gen, dev=torch.device("cuda")) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+
+ART_BUCKETS, ART_OCR = (1, 8, 32), (25,)  # the bf16 grid: 6 cells
+ART_F32_BATCH = 8      # the f32 cell, full width (13b, 13c's f32 engines, 13d)
+ART_BEAM_BATCH, ART_BEAM = 8, 5  # the bf16 beam cell
+ART_REQUESTS = 64
+ART_TIMED_REPEATS = 16  # 13c's bf16 turns: 1,024 requests each, about 32 batches of 32
+ART_SCORE_TOL = 1e-5   # f32 artifact scores against the live mega decode
+COLD_START_TIMEOUT = 300.0
+ART_TRAIN_WARMUP, ART_TRAIN_TIMED = 3, 10
+#: the kernels' names in a profiler trace (csrc/*.cu): K1's two kernels and
+#: K3's product kernel
+K1_TRACE_NAMES = ("spatial_codes_kernel", "spatial_attention_kernel")
+K3_TRACE_NAMES = ("product_kernel",)
+
+
+def host_arrays(samples) -> dict:
+    """Samples stacked into a host batch of numpy arrays (the engine's
+    schema)."""
+    return {k: np.stack([s[k] for s in samples]) for k in SAMPLE_KEYS}
+
+
+def on_card(host: dict, dev) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in host.items()}
+
+
+def start_exports(model, tmp: Path) -> tuple:
+    """13a: ``tools/torch_export_decode.py`` in three processes at once
+    (each export is host-bound Python), from the weights of a checkpoint
+    they share: the c3 bf16 ``mega`` grid, buckets (1, 8, 32) x OCR (25,
+    full); one f32 ``mega`` cell (B = 8, full, with ``--check`` against the
+    live decode); one bf16 beam cell (B = 8, K = 5); all for the ``cuda``
+    platform. Returns (the running exports, the checkpoint, their start)."""
+    ckpt = tmp / "weights.pt"
+    torch.save({"model_state_dict": model.state_dict()}, ckpt)
+    jobs = {
+        "bf16_grid": ["--dtype", "bf16", "--buckets", ",".join(map(str, ART_BUCKETS)),
+                      "--ocr_bucket", ",".join(map(str, ART_OCR))],
+        "f32_b8": ["--dtype", "f32", "--buckets", str(ART_F32_BATCH), "--check"],
+        "bf16_beam_b8": ["--dtype", "bf16", "--buckets", str(ART_BEAM_BATCH), "--beam_size",
+                         str(ART_BEAM)],
+    }
+    t0 = time.monotonic()
+    procs = {}
+    for label, flags in jobs.items():
+        cmd = [sys.executable, str(ROOT / "tools" / "torch_export_decode.py"), "--config",
+               str(CONFIG), "--checkpoint", str(ckpt), "--out", str(tmp / label), "--backend",
+               "mega", "--platforms", "cuda", *flags]
+        procs[label] = (subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL,
+                                         stderr=open(tmp / f"export_{label}.err", "w")), cmd)
+    return procs, ckpt, t0
+
+
+def wait_exports(procs: dict, tmp: Path, t0: float) -> dict:
+    """13a: wait for the exports: seconds from the start to each one's end
+    and export seconds and bytes per cell."""
+    out = {}
+    for label, (proc, cmd) in procs.items():
+        rc = proc.wait(COLD_START_TIMEOUT)
+        if rc != 0:
+            raise AssertionError(f"13a: {' '.join(cmd)} exited {rc}: "
+                                 f"{(tmp / f'export_{label}.err').read_text()[-3000:]}")
+        m = json.loads((tmp / label / "manifest.json").read_text())
+        out[label] = dict(seconds=time.monotonic() - t0, cells={
+            c["name"]: dict(bytes=c["bytes"], export_s=m["export_s"][f"{c['name']}.cuda"])
+            for c in m["cells"]})
+        log(f"  export {label}: {json.dumps(out[label])}")
+    check = re.findall(r"reload check: .*", (tmp / "export_f32_b8.err").read_text())
+    out["f32_tool_check"] = check[-1] if check else None
+    log(f"  tool: {out['f32_tool_check']}")
+    return out
+
+
+def program_contents(art: DecodeArtifact, key) -> dict:
+    """What an exported program holds: its nodes, the kernels' operator
+    nodes, any ``auto_functionalized`` (a copy of the mutated decoder K/V
+    per K3 step), its parameters and constants."""
+    art.program(key)
+    program = art.exported[key]
+    targets = Counter(str(n.target) for n in program.graph.nodes if n.op == "call_function")
+    return dict(nodes=len(program.graph.nodes),
+                kernel_nodes={t: n for t, n in targets.items() if "sam_textvqa_torch" in t},
+                auto_functionalized=sum(n for t, n in targets.items()
+                                        if "auto_functionalized" in t),
+                parameters=len(program.state_dict),
+                constant_bytes=sum(t.numel() * t.element_size()
+                                   for t in program.constants.values()))
+
+
+def artifact_calls(task, vocab, model, tmp: Path, samples, dev) -> dict:
+    """13b: ``DecodeArtifact.call`` against the live decodes on the same
+    weights: f32 ids equal the live ``mega`` decode's and scores within
+    ART_SCORE_TOL, also for 3 rows padded into the B = 8 cell; K1 4 and K3
+    12 launched per greedy decode; bf16 agreement printed. Returns (results,
+    the loaded f32 and bf16 grid artifacts, whose programs 13c reuses)."""
+    special = vocab.special_ids()
+    steps, n_spatial = task.mmt.num_decoding_steps, task.mmt.layer_type_list.count("s")
+    out = {}
+    model.dtype = torch.float32
+    art = DecodeArtifact(str(tmp / "f32_b8"), dev)
+    t0 = time.monotonic()
+    weights = art.prepare_weights(model.state_dict())
+    out["prepare_weights_s"] = time.monotonic() - t0
+    host = host_arrays(samples[:ART_F32_BATCH])
+    t0 = time.monotonic()
+    art.call(weights, host)
+    torch.cuda.synchronize()
+    out["first_call_s"] = time.monotonic() - t0  # the program's load included
+    cuda_build.reset_launch_counts()
+    scores, ids = art.call(weights, host)
+    torch.cuda.synchronize()
+    launches = cuda_build.launch_counts()
+    live_scores, live_ids = greedy_decode_fast(model, on_card(host, dev), special.bos,
+                                               backend="mega")
+    again_scores, _ = greedy_decode_fast(model, on_card(host, dev), special.bos, backend="mega")
+    art_again, _ = art.call(weights, host)
+    diff = (scores - live_scores).abs()
+    where = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+    diagnostics = dict(live_vs_live=max_err(again_scores, live_scores),
+                       artifact_vs_artifact=max_err(art_again, scores),
+                       max_at=[int(i) for i in where], live_value_there=float(live_scores[where]),
+                       elements_differing=int((diff > 0).sum()), elements=diff.numel())
+    three = {k: v[:3] for k, v in host.items()}
+    _, ids3 = art.call(weights, three)
+    _, live3 = greedy_decode_fast(model, on_card(three, dev), special.bos, backend="mega")
+    out["f32"] = dict(ids_equal=bool(torch.equal(ids, live_ids)),
+                      score_max_abs_err=max_err(scores, live_scores),
+                      three_rows_ids_equal=bool(torch.equal(ids3, live3)),
+                      launches_per_decode=launches, diagnostics=diagnostics,
+                      program=program_contents(art, (ART_F32_BATCH, None, None)))
+    want = {"spatial_attention": n_spatial, "decode_attention": 0, "decode_step": steps}
+    log(f"  f32 call: {json.dumps(out['f32'])}")
+    if not (out["f32"]["ids_equal"] and out["f32"]["three_rows_ids_equal"]
+            and out["f32"]["score_max_abs_err"] <= ART_SCORE_TOL and launches == want):
+        raise AssertionError(f"13b: the f32 artifact differs from the live mega decode "
+                             f"(launches {launches}, {want} expected): {out['f32']}")
+    model.dtype = torch.bfloat16
+    grid = DecodeArtifact(str(tmp / "bf16_grid"), dev)
+    bf_weights = grid.prepare_weights(model.state_dict())
+    agree = {}
+    for rows, narrow in ((BATCH, False), (ART_F32_BATCH, True), (1, False)):
+        chosen = [s for s in samples if needed_width(s["pad_ocr_mask"]) <= ART_OCR[0]] \
+            if narrow else samples
+        batch = host_arrays(chosen[:rows])
+        key, _ = grid.route(batch)
+        _, got = grid.call(bf_weights, batch)
+        _, live = greedy_decode_fast(model, on_card(batch, dev), special.bos, backend="mega")
+        agree[str(key)] = float((got == live).float().mean())
+    out["bf16_token_agreement_with_live"] = agree
+    out["bf16_program_b32"] = program_contents(grid, (BATCH, None, None))
+    log(f"  bf16 agreement {json.dumps(agree)}; B=32 program "
+        f"{json.dumps(out['bf16_program_b32'])}")
+    return out, {"f32_b8": art, "bf16_grid": grid}
+
+
+def artifact_beam_call(vocab, model, tmp: Path, samples, dev) -> dict:
+    """13b: the beam cell's best-beam rows equal ``beam_search_decode_fast``'s
+    (bf16, B = 8, K = 5)."""
+    special = vocab.special_ids()
+    model.dtype = torch.bfloat16
+    beam = DecodeArtifact(str(tmp / "bf16_beam_b8"), dev)
+    host = host_arrays(samples[:ART_BEAM_BATCH])
+    _, best = beam.call(beam.prepare_weights(model.state_dict()), host)
+    seqs, beam_scores = beam_search_decode_fast(model, on_card(host, dev), ART_BEAM, special.bos,
+                                                special.eos, backend="mega")
+    live_best = seqs[torch.arange(ART_BEAM_BATCH, device=dev), beam_scores.argmax(1), 1:]
+    out = dict(best_rows_equal=bool(torch.equal(best, live_best)),
+               program=program_contents(beam, (ART_BEAM_BATCH, None, None)))
+    log(f"  beam cell: {json.dumps(out)}")
+    if not out["best_rows_equal"]:
+        raise AssertionError("13b: the beam cell's best beams differ from the live beams'")
+    return out
+
+
+def engine_turns(engines: dict, samples) -> dict:
+    """13c, bf16: ``ART_TIMED_REPEATS`` copies of the requests flooded
+    through one engine at a time, in turns (live, artifact, artifact,
+    live): samples/s and p50/p95 per turn, and each engine's mean
+    samples/s."""
+    timed = list(samples) * ART_TIMED_REPEATS
+    turns = {kind: [] for kind in engines}
+    for kind in ("live", "artifact", "artifact", "live"):
+        engine = engines[kind]
+        _, wall = flood(engine, timed)
+        with engine.stats.lock:
+            lat = np.asarray(list(engine.stats.latencies_ms)[-len(timed):], np.float64)
+        turns[kind].append(dict(samples_per_s=len(timed) / wall, wall_s=wall,
+                                latency_ms_p50=float(np.percentile(lat, 50)),
+                                latency_ms_p95=float(np.percentile(lat, 95))))
+    return {kind: dict(requests=len(timed), turns=t,
+                       samples_per_s=float(np.mean([x["samples_per_s"] for x in t])))
+            for kind, t in turns.items()}
+
+
+def artifact_engines(vocab, model, arts: dict, samples, dev) -> tuple:
+    """13c: the artifact engine against the live engine on the same 64 raw
+    requests and weights: f32 answers equal (B = 8 cell; the live engine at
+    bucket 8); bf16 over the (1, 8, 32) x OCR (25, full) grid, both
+    engines: answers, graphs, capture s, and K1/K3 launches through the
+    replays equal to recorded x replays and not 0; then the bf16 engines'
+    samples/s and p50/p95 in turns (:func:`engine_turns`). Returns
+    (results, the f32 answers)."""
+    out = {}
+    for dtype, art_dir, buckets, ocr in ((torch.float32, "f32_b8", (ART_F32_BATCH,), None),
+                                         (torch.bfloat16, "bf16_grid", ART_BUCKETS, ART_OCR)):
+        model.dtype = dtype
+        runs, engines = {}, {}
+        try:
+            for kind in ("live", "artifact"):
+                t0 = time.monotonic()
+                if kind == "live":
+                    engine = ServingEngine(model, vocab, buckets=buckets, ocr_buckets=ocr,
+                                           decode_backend="mega", device=dev)
+                else:
+                    engine = ArtifactServingEngine(arts[art_dir], model.state_dict(), vocab)
+                engines[kind] = engine
+                engine.warmup()
+                warm = dict(warmup_s=time.monotonic() - t0, **engine.graph_counts())
+                warm.pop("launches")
+                runs[kind] = dict(warm, **in_process_serving(engine, samples))
+            timed = engine_turns(engines, samples) if dtype == torch.bfloat16 else None
+        finally:
+            for engine in engines.values():
+                engine.close()
+        live, art = runs["live"], runs["artifact"]
+        res = dict(answers_equal=live["answers"] == art["answers"],
+                   distinct_answers=len(set(live["answers"])),
+                   **{k: {key: v for key, v in r.items() if key != "answers"}
+                      for k, r in runs.items()})
+        if timed is not None:
+            res["timed"] = timed
+        log(f"  {str(dtype)[6:]} engines: {json.dumps(res)}")
+        if dtype == torch.float32 and not res["answers_equal"]:
+            raise AssertionError("13c: f32 artifact engine answers differ from the live engine's")
+        out[str(dtype)[6:]] = res
+        if dtype == torch.float32:
+            f32_answers = live["answers"]
+    return out, f32_answers
+
+
+def _first_answer(cmd, req: Path, err_path: Path) -> dict:
+    """Start ``cmd`` (a server on port 0), wait for its port, send one
+    request: seconds to the port and to the first answer, the exit code
+    after SIGTERM, and the server's log line of the kernels it built."""
+    env = {k: v for k, v in os.environ.items() if k != "SAM_COMPILE_CACHE"}
+    t0 = time.monotonic()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True,
+                                env=env)
+        try:
+            first = {}
+            reader = threading.Thread(target=lambda: first.update(line=proc.stdout.readline()),
+                                      daemon=True)
+            reader.start()
+            reader.join(COLD_START_TIMEOUT)
+            if not first.get("line"):
+                raise AssertionError(f"13d: no port announced (exit {proc.poll()}): "
+                                     f"{err_path.read_text()[-3000:]}")
+            port_s = time.monotonic() - t0
+            host, port = json.loads(first["line"])["listening"]
+            with socket.create_connection((host, port), timeout=SOCKET_TIMEOUT) as s:
+                f = s.makefile("rw")
+                f.write(json.dumps({"id": 0, "npz": str(req)}) + "\n")
+                f.flush()
+                answer = json.loads(f.readline())
+            answer_s = time.monotonic() - t0
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(SOCKET_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(SOCKET_TIMEOUT)
+    log_text = err_path.read_text()
+    built = re.findall(r"kernels built by this process \(s\): (\{[^\n]*\})", log_text)
+    return dict(seconds_to_port=port_s, seconds_to_first_answer=answer_s, exit_code=rc,
+                answer=answer.get("answer", answer.get("error")),
+                built_seconds=json.loads(built[-1]) if built else None)
+
+
+def cold_start(tmp: Path, ckpt: Path, sample: dict, want: str) -> dict:
+    """13d: seconds to the first TCP answer of ``python -m
+    sam_textvqa_tpu_torch.serve`` in a child, one bucket (8, f32, full
+    width) each: the live engine and ``--artifact`` (the f32 B = 8 cell, no
+    ``--config``), each on an empty ``--compile_cache`` (nvcc included),
+    then both again on their warm caches, one child at a time (each builds
+    on its own cache). A warm start builds nothing."""
+    req = tmp / "cold_request.npz"
+    np.savez(req, **{k: sample[k] for k in SAMPLE_KEYS}, ocr_tokens=np.asarray(
+        sample["ocr_tokens"]))
+    serve_cmd = [sys.executable, "-m", "sam_textvqa_tpu_torch.serve", "--port", "0",
+                 "--checkpoint", str(ckpt)]
+    cmds = {"live": ([*serve_cmd, "--config", str(CONFIG), "--dtype", "f32", "--buckets",
+                      str(ART_F32_BATCH), "--decode_backend", "mega"], "cache_live"),
+            "artifact": ([*serve_cmd, "--artifact", str(tmp / "f32_b8")], "cache_artifact")}
+    out = {}
+    for state in ("cold", "warm"):
+        for kind, (cmd, cache) in cmds.items():
+            out[f"{kind}_{state}"] = r = _first_answer(
+                [*cmd, "--compile_cache", str(tmp / cache)], req, tmp / f"{kind}_{state}.err")
+            log(f"  {kind}_{state}: {json.dumps(r)}")
+    for label, r in out.items():
+        warm = label.endswith("warm")
+        if r["exit_code"] != 0 or r["answer"] != want or r["built_seconds"] is None \
+                or (r["built_seconds"] == {}) != warm:
+            raise AssertionError(f"13d {label}: {r} (answer {want!r} expected; a warm start "
+                                 f"builds nothing, a cold one builds)")
+    return out
+
+
+def variant_train_steps(task, vocab, dev) -> dict:
+    """13e: the bf16 train step at batch 96 under each dropout variant
+    beside the default (dropout 0.1): step ms by CUDA events after
+    warm-up, peak memory, finite and falling losses."""
+    n = len(vocab)
+    out = {}
+    for label, kw in (("default", {}), ("dropout_mask_reuse", dict(dropout_mask_reuse=True)),
+                      ("dropout_fused_draw", dict(dropout_fused_draw=True))):
+        t = dataclasses.replace(task, mmt=dataclasses.replace(task.mmt, **kw))
+        model = build_model(t, n, torch.bfloat16, seed=0, device=dev)
+        optimizer = make_optimizer(model, t)
+        state, step = create_train_state(model, optimizer), make_train_step(model, optimizer)
+        batch = device_batch(make_batch(t, TRAIN_BATCH, seed=3, num_answers_vocab=n), dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for i in range(ART_TRAIN_WARMUP + ART_TRAIN_TIMED):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = step(state, batch, gen)
+            end.record()
+            end.synchronize()
+            losses.append(metrics["loss"].item())
+            if i >= ART_TRAIN_WARMUP:
+                step_ms.append(start.elapsed_time(end))
+        median = float(np.median(step_ms))
+        out[label] = dict(step_ms=step_ms, step_ms_median=median,
+                          samples_per_s=TRAIN_BATCH / (median / 1e3),
+                          peak_memory_bytes=torch.cuda.max_memory_allocated(), losses=losses)
+        log(f"  {label}: median {median:.2f} ms, peak "
+            f"{out[label]['peak_memory_bytes'] / 2**30:.2f} GiB, losses "
+            f"{[round(x, 3) for x in losses]}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"13e {label}: losses not finite and falling: {losses}")
+        del model, optimizer, state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def variant_tp_parity(task, vocab, dev) -> dict:
+    """13e: under each dropout variant, TP_STEPS f32 tp 2 steps against
+    one device's on phase 8's 96-row batch, within phase 10's bars."""
+    n = len(vocab)
+    batch = device_batch(_ddp_batch(task, n), dev)
+    factor = lr_factor_schedule(task)
+    reach = 2 * sum(task.lr * factor(i) for i in range(TP_STEPS))
+    out = {}
+    for label in ("dropout_mask_reuse", "dropout_fused_draw"):
+        t = dataclasses.replace(task, mmt=dataclasses.replace(task.mmt, **{label: True}))
+        runs = {}
+        for name, tp in (("one_device", 1), ("tp2", TP)):
+            model = _tp_model(t, n, torch.float32, dev, tp)
+            runs[name] = _f32_steps(model, t, batch)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        one, tp2 = runs["one_device"], runs["tp2"]
+        grad_rel = (torch.linalg.vector_norm(torch.stack(
+            [(tp2["grads"][k] - g).norm() for k, g in one["grads"].items()]))
+            / torch.linalg.vector_norm(torch.stack([g.norm() for g in one["grads"].values()])))
+        row = dict(
+            losses_one_device=one["losses"], losses_tp2=tp2["losses"],
+            loss_rel_err=max(abs(a / b - 1) for a, b in zip(tp2["losses"], one["losses"])),
+            grad_norm_rel_err=max(abs(a / b - 1) for a, b in zip(tp2["norms"], one["norms"])),
+            clipped_grad_rel_l2=grad_rel.item(),
+            param_max_abs_err=max(max_err(tp2["params"][k], v) for k, v in one["params"].items()),
+            param_bar=reach)
+        out[label] = row
+        log(f"  f32 tp 2 vs one device, {label}: {json.dumps(row)}")
+        if not (row["loss_rel_err"] <= TRAIN_PARITY["loss_rtol"]
+                and row["grad_norm_rel_err"] <= TRAIN_PARITY["grad_norm_rtol"]
+                and row["clipped_grad_rel_l2"] <= TRAIN_PARITY["grad_rel_l2"]
+                and row["param_max_abs_err"] <= reach):
+            raise AssertionError(f"13e: the f32 tp 2 step under {label} differs: {row}")
+        del runs, one, tp2
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def fc7_cli(dev) -> dict:
+    """13e: the train CLI with ``finetune_faster_rcnn_fpn_fc7`` encoders and
+    generated detectron pickles (c3, bf16, batch 96, 2 steps): the pickles
+    are installed (the encoders' weights lie within the 2 Adam steps'
+    reach of them afterwards)."""
+    import yaml
+
+    rng = np.random.RandomState(13)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fc7_") as tmp:
+        w = rng.randn(2048, 2048).astype(np.float32) * 0.02
+        b = rng.randn(2048).astype(np.float32) * 0.02
+        for name, value in (("fc7_w.pkl", w), ("fc7_b.pkl", b)):
+            with open(Path(tmp) / name, "wb") as f:
+                pickle.dump(value, f)
+        raw = yaml.safe_load(CONFIG.read_text())
+        raw["SA-M4C"].update(frcn_encoder_type="finetune_faster_rcnn_fpn_fc7",
+                             detectron_weights_file=str(Path(tmp) / "fc7_w.pkl"),
+                             detectron_bias_file=str(Path(tmp) / "fc7_b.pkl"))
+        raw["output_dir"] = tmp
+        config = Path(tmp) / "fc7.yml"
+        config.write_text(yaml.safe_dump(raw))
+        t0 = time.monotonic()
+        run = train_cli.main(["--config", str(config), "--tag", "fc7", "--synthetic",
+                              str(IMPLICIT_SYNTHETIC), "--batch_size", str(TRAIN_BATCH),
+                              "--device", dev.type, "--dtype", "bf16", "--num_train_epochs", "1",
+                              "--max_steps", "2"])
+        wall = time.monotonic() - t0
+    model = run["state"].model
+    err = max(max_err(getattr(model, m).module.lc.weight, torch.from_numpy(w).to(dev))
+              for m in ("obj_faster_rcnn_fc7", "ocr_faster_rcnn_fc7"))
+    h = run["history"][0]
+    out = dict(wall_s=wall, steps=h.get("steps"), loss=h.get("loss"),
+               fc7_weight_max_abs_from_pickle=err, bar=0.01)
+    log(f"  fc7 train CLI: {json.dumps(out)}")
+    if h.get("steps") != 2 or not np.isfinite(h["loss"]) or err > 0.01:
+        raise AssertionError(f"13e: the fc7 train CLI run: {out}")
+    return out
+
+
+def dispatch_cost(task, model, dev) -> dict:
+    """What the registered operators add to each kernel's eager host time:
+    host ms per call through the wrapper (the operator, as every path calls
+    it) against the kernel's CUDA implementation called directly, bf16 at
+    c3's B = 32 shapes, in turns in this run."""
+    b, d, h = BATCH, task.mmt.hidden_size, task.mmt.num_spatial_relations
+    q_len, n_obj, n_ocr = task.mmt.max_seq_length, task.mmt.max_obj_num, task.mmt.max_ocr_num
+    le, t_max, bf = q_len + n_obj + n_ocr, task.mmt.num_decoding_steps, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+
+    q, k, v = (r(b, h, le, d // h) for _ in range(3))
+    classes = torch.zeros(b, n_obj + n_ocr, n_obj + n_ocr, dtype=torch.int8, device=dev)
+    lut = torch.ones(13, h, device=dev)
+    cols = torch.ones(b, le, device=dev)
+    seg = torch.tensor([[q_len, n_obj, n_ocr]] * b, dtype=torch.int32, device=dev)
+    t = torch.tensor([t_max - 1], dtype=torch.int32, device=dev)
+    kd = (r(b, le, d), r(b, le, d), r(b, t_max, d), r(b, t_max, d))
+    consts = _mega_step_consts(model.mmt, bf)
+    n_layers = len(task.mmt.layer_type_list)
+    k3 = (r(n_layers, b, le, d), r(n_layers, b, le, d), r(n_layers, b, t_max, d),
+          r(n_layers, b, t_max, d))
+    x0, q_row, w = r(b, d), r(b, d), [consts[n] for n in WEIGHT_NAMES]
+    kw = dict(q_len=q_len, n_obj=n_obj)
+    calls = {
+        "spatial_attention": (
+            lambda: spatial_attention(q, k, v, classes, lut, cols, q_len=q_len, n_ctx=le - q_len,
+                                      dec_len=0),
+            lambda: fused_attention._spatial_attention_cuda(q, k, v, classes, lut, cols, q_len,
+                                                            le - q_len, 0, [1, 2], True)),
+        "decode_attention": (
+            lambda: decode_attention(q_row, *kd, seg, t, hd=d // h, **kw),
+            lambda: decode_attention_mod._decode_attention_cuda(q_row, *kd, seg, t, d // h,
+                                                                q_len, n_obj)),
+        "decode_step": (
+            lambda: decode_step_fused(t, seg, x0, *w, *k3, hd=d // h, **kw),
+            lambda: decode_step_mod._decode_step_cuda(t, seg, x0, *w, *k3, d // h, q_len,
+                                                      n_obj)),
+    }
+    out = {}
+    for name, (op, direct) in calls.items():
+        ms = [host_ms(f) for f in (op, direct, direct, op)]
+        out[name] = dict(operator_host_ms=(ms[0] + ms[3]) / 2, direct_host_ms=(ms[1] + ms[2]) / 2,
+                         turns_ms=ms)
+        out[name]["dispatch_ms"] = out[name]["operator_host_ms"] - out[name]["direct_host_ms"]
+    log(f"  host ms per call, operator vs direct CUDA implementation (bf16, B={b}): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def artifact_untimed(task, vocab, dev=torch.device("cuda")) -> dict:
+    """Phase 13's work that times nothing, run beside phase 5's resume
+    children: 13a's exports (their seconds are taken beside those
+    children), and 13e's f32 tp 2 parity and fc7 CLI run, which are exact.
+    Returns phase 13's model (on the CPU), its checkpoint, the export
+    directory and these results."""
+    t0 = time.monotonic()
+    log("  13a: exports start (three processes), beside the resume children")
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, len(vocab)))
+    model.init_weights(torch.Generator().manual_seed(0), std=SERVE_STD)
+    model.eval()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_artifact_"))
+    atexit.register(shutil.rmtree, tmp, True)
+    procs, ckpt, t_export = start_exports(model, tmp)
+    try:
+        log("  13e: f32 tp 2 parity under the dropout variants, detectron fc7 weights")
+        out = dict(model=model, tmp=tmp, ckpt=ckpt,
+                   tp2_parity=variant_tp_parity(task, vocab, dev), fc7_cli=fc7_cli(dev))
+        out["export"] = wait_exports(procs, tmp, t_export)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["export"]["checkpoint_bytes"] = ckpt.stat().st_size
+    out["seconds"] = time.monotonic() - t0
+    log(f"  phase 13's untimed part: {out['seconds']:.1f} s")
+    return out
+
+
+def artifact_path(task, vocab, untimed: dict, dev=torch.device("cuda")):
+    """Phase 13 (see the module docstring) but 13f, which runs after phase
+    4, on :func:`artifact_untimed`'s model and exports. Returns (results,
+    the directory of the exported artifacts)."""
+    t13 = time.monotonic()
+    ft = processors.FastTextProcessor()
+    samples = [build_sample(task, **r, fasttext=ft)
+               for r in raw_requests(task, ART_REQUESTS, seed=13)]
+    model, tmp = untimed["model"].to(dev), untimed["tmp"]
+    log("  13e: dropout variants' train steps")
+    out = dict(export=untimed["export"], fc7_cli=untimed["fc7_cli"], dropout_variants=dict(
+        train_steps=variant_train_steps(task, vocab, dev), tp2_parity=untimed["tp2_parity"]))
+    log("  13b: DecodeArtifact.call")
+    out["call"], arts = artifact_calls(task, vocab, model, tmp, samples, dev)
+    out["dispatch"] = dispatch_cost(task, model, dev)
+    log("  13c: artifact engine against the live engine")
+    out["engines"], f32_answers = artifact_engines(vocab, model, arts, samples, dev)
+    del arts
+    out["call"]["beam"] = artifact_beam_call(vocab, model, tmp, samples, dev)
+    log("  13d: cold start of the server CLI")
+    out["cold_start"] = cold_start(tmp, untimed["ckpt"], samples[0], f32_answers[0])
+    del model
+    out["seconds"] = time.monotonic() - t13
+    out["untimed_seconds"] = untimed["seconds"]
+    log(f"  phase 13: {out['seconds']:.1f} s (and {untimed['seconds']:.1f} s in phase 5)")
+    return out, tmp
+
+
+def profiling_path(tmp: Path, vocab, dev=torch.device("cuda")) -> dict:
+    """13f, after every timed phase: ``utils.profiling.trace`` of one bf16
+    artifact decode at B = 32 (its trace must name K1's and K3's kernels),
+    and ``StepTimer``'s median over 20 such decodes against CUDA events
+    over the same decodes (within 10%)."""
+    task = load_task_config(str(CONFIG))
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, len(vocab)))
+    model.init_weights(torch.Generator().manual_seed(0), std=SERVE_STD)
+    art = DecodeArtifact(str(tmp / "bf16_grid"), dev)
+    weights = art.prepare_weights(model.state_dict())
+    ft = processors.FastTextProcessor()
+    samples = [build_sample(task, **r, fasttext=ft) for r in raw_requests(task, BATCH, seed=13)]
+    key, routed = art.route(host_arrays(samples))
+    routed = {k: v.to(dev) for k, v in routed.items()}
+    program = art.program(key)
+
+    def decode():
+        return program(weights.weights, weights.consts, routed)
+
+    decode()
+    torch.cuda.synchronize()
+    with profiling.trace(str(tmp / "trace")):
+        decode()
+        torch.cuda.synchronize()
+    trace_file = next((tmp / "trace").glob("trace_*.json"))
+    names = {e.get("name", "") for e in json.loads(trace_file.read_text())["traceEvents"]}
+    found = {k: sorted({n for n in names if k in n})[:2]
+             for k in (*K1_TRACE_NAMES, *K3_TRACE_NAMES)}
+    timer = profiling.StepTimer(BATCH, dev)
+    events = []
+    for _ in range(21):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with timer:
+            start.record()
+            decode()
+            end.record()
+        events.append(start.elapsed_time(end))
+    summary = timer.summary()
+    events_ms = float(np.median(events[1:]))
+    out = dict(cell=str(key), trace_bytes=trace_file.stat().st_size, kernels_in_trace=found,
+               step_timer=summary, cuda_events_median_ms=events_ms,
+               step_timer_over_events=summary["p50_ms"] / events_ms)
+    log(f"  13f: {json.dumps(out)}")
+    if not all(found.values()):
+        raise AssertionError(f"13f: the trace lacks K1's or K3's kernels: {found}")
+    if abs(out["step_timer_over_events"] - 1) > 0.10:
+        raise AssertionError(f"13f: StepTimer's median is not within 10% of CUDA events: {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3689,8 +4331,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
+    marks = []  # (phase header, its start)
 
-    log("== phase 1: build")
+    def mark(msg: str) -> None:
+        marks.append((msg.split(":")[0][3:], time.monotonic()))
+        log(msg)
+
+    mark("== phase 1: build")
     secs = cuda_build.build_all()
     log(f"build seconds per kernel (parallel nvcc): {json.dumps(secs)}")
     for name, text in cuda_build.build_logs.items():
@@ -3712,7 +4359,7 @@ def main() -> int:
     seg = _seg_lens(batch)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    log("== phase 2: kernels vs plain, times")
+    mark("== phase 2: kernels vs plain, times")
     spatial, spatial_call = bench_spatial_attention(task, batch, gen)
     kernels = {
         "spatial_attention": spatial,
@@ -3720,7 +4367,7 @@ def main() -> int:
     }
     kernels["decode_step"], step_call = bench_decode_step(task, model, seg, gen)
 
-    log("== phase 3: main path (serving, c3, bf16, auto backend)")
+    mark("== phase 3: main path (serving, c3, bf16, auto backend)")
     main = main_path(task, vocab, model, samples)
     # eager kernel times against the eager decode time, as in the first
     # slice; the device times beside them
@@ -3732,45 +4379,50 @@ def main() -> int:
         breakdown[f"{name}_kernels_device_ms"] = n * kernels[name]["device_ms"]
     breakdown["decode_step_share"] = breakdown["decode_step_kernels_ms"] / breakdown["decode_ms"]
 
-    log("== phase 3c: no host sync in a kernel decode (B=32, mega and fused)")
+    mark("== phase 3c: no host sync in a kernel decode (B=32, mega and fused)")
     main["sync_free"] = sync_free_decodes(model, main["batch"], vocab.special_ids().bos)
     log(f"  {json.dumps(main['sync_free'])}")
 
-    log("== phase 3b: training path (c3: f32 card vs CPU; bf16 batch 96 train steps; eval)")
+    mark("== phase 3b: training path (c3: f32 card vs CPU; bf16 batch 96 train steps; eval)")
     training = {"parity_f32": train_parity(task, len(vocab))}
     training["train"], trained, train_batch, train_call = train_path(task, vocab)
     training["eval"] = trained_checks(task, vocab, trained, train_batch)
-    log("== phase 5: the train CLI (c3, bf16, batch 96, --synthetic 480)")
+    mark("== phase 5: the train CLI (c3, bf16, batch 96, --synthetic 480)")
     beam_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_beam_"))  # phase 11's checkpoint
     atexit.register(shutil.rmtree, beam_dir, True)
+    untimed = {}
     cli = train_cli_path(task, vocab, model, training["train"], gen,
-                         keep_best=beam_dir / "best_model")
-    log("== phase 6: the train CLI on real-format files (c3, bf16, batch 96, 1 epoch)")
+                         keep_best=beam_dir / "best_model",
+                         beside=lambda: untimed.update(artifact_untimed(task, vocab)))
+    mark("== phase 6: the train CLI on real-format files (c3, bf16, batch 96, 1 epoch)")
     real = real_data_path(task, vocab, model, cli, training["train"], gen)
-    log("== phase 7: the server (c3, obj ladder 50, OCR ladder 10,25, one CUDA graph per cell; "
+    mark("== phase 7: the server (c3, obj ladder 50, OCR ladder 10,25, one CUDA graph per cell; "
         "in-process f32 and bf16, TCP f32)")
     server, served = server_path(task, vocab, model, gen)
-    log("== phase 8: data parallelism (8a: NCCL on one card; 2 gloo ranks on one card, f32 "
+    mark("== phase 8: data parallelism (8a: NCCL on one card; 2 gloo ranks on one card, f32 "
         "parity and a bf16 loop epoch; 8b: the train CLI under torchrun, world 1, NCCL)")
     parallel = ddp_path(task, vocab, cli)
-    log("== phase 9: multi-device serving on the repeated card (9a: K1/K2 at shard shapes; "
+    mark("== phase 9: multi-device serving on the repeated card (9a: K1/K2 at shard shapes; "
         "9b: dp2, tp2, dp2 x tp2 engines, f32 and bf16; 9c: the serve CLI)")
     t9 = time.monotonic()
     mesh = {"shard_kernels": shard_kernels(task, batch, seg, gen)}
     mesh.update(mesh_path(task, vocab, samples))
     mesh["seconds"] = time.monotonic() - t9
-    log("== phase 10: tensor-parallel training on the repeated card (10a: f32 tp 2 vs one "
+    mark("== phase 10: tensor-parallel training on the repeated card (10a: f32 tp 2 vs one "
         "device, dp 2 x tp 2 over gloo, bf16 step; 10b: the train CLI --model_parallel 2)")
     tp_training, tp_call = tp_training_path(task, vocab, gen)
-    log("== phase 11: beams and the evaluator's width ladders (11a: fast and slow beams, "
+    mark("== phase 11: beams and the evaluator's width ladders (11a: fast and slow beams, "
         "evaluator ladders; 11b: the train CLI; 11c: the beam engine; 11d: refusal)")
     beam, beam_graph = beam_path(task, vocab, beam_dir / "best_model")
-    log("== phase 12: early exit, policy and implicit layers (12a: xla_early / xla_flat; "
+    mark("== phase 12: early exit, policy and implicit layers (12a: xla_early / xla_flat; "
         "12b: the policy engine; 12c: the implicit config with the aux head)")
     early = early_exit_path(task, vocab, seg, gen)
+    mark("== phase 13: decode artifacts (13a: export; 13b: DecodeArtifact.call; 13c: the "
+        "artifact engine; 13d: cold start; 13e: dropout variants, detectron fc7)")
+    artifact, artifact_dir = artifact_path(task, vocab, untimed)
     # profiles come after every timed phase, so that no timing runs after
     # the profiler has been started in this process
-    log("== phase 4: device profiles (K1 call, K3 step at B=32, B=32 bf16 mega decode, "
+    mark("== phase 4: device profiles (K1 call, K3 step at B=32, B=32 bf16 mega decode, "
         "B=96 bf16 train step)")
     split = device_profile(spatial_call)
     kernels["spatial_attention"]["device_split"] = split.get("kernels", split)
@@ -3809,6 +4461,8 @@ def main() -> int:
         served._routing.grid[(None, None)].graphs[0][BATCH].graph.replay)
     log(f"  B=32 bf16 graph replay: idle share "
         f"{server['bfloat16']['profile_graph_replay_b32'].get('idle_share')}")
+    mark("== phase 13f: utils.profiling (trace of an artifact decode, StepTimer)")
+    artifact["profiling"] = profiling_path(artifact_dir, vocab)
     log(json.dumps({k: v for k, v in main.items() if k not in ("batch", "ids_mega_bf16")}))
     checks = f32_checks(task, vocab, model, main["batch"], main["ids_mega_bf16"])
     log(json.dumps(checks))
@@ -3856,6 +4510,11 @@ def main() -> int:
                 "fused_launches"][name],
             "implicit_train_cli_val_launches": early["implicit"]["train_cli"]["val_launches"][
                 name],
+            "artifact_call_launches_per_decode": artifact["call"]["f32"]["launches_per_decode"][
+                name],
+            "artifact_engine_launches": {dt: artifact["engines"][dt]["artifact"]["launches"][name]
+                                         for dt in ("float32", "bfloat16")},
+            "operator_dispatch_host_ms": artifact["dispatch"][name],
             "parity": "ok", **res,
         })
         for key, shard in mesh["shard_kernels"].items():
@@ -3872,6 +4531,10 @@ def main() -> int:
     print(json.dumps({"tp_training": tp_training}), flush=True)
     print(json.dumps({"beam": beam}), flush=True)
     print(json.dumps({"early_exit": early}), flush=True)
+    print(json.dumps({"artifact": artifact}), flush=True)
+    ends = [t for _, t in marks[1:]] + [time.monotonic()]
+    log("seconds per phase (in run order): " + json.dumps(
+        {name: round(end - start, 1) for (name, start), end in zip(marks, ends)}))
     log(f"total seconds: {time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -98,8 +98,8 @@ class MMTConfig:
     spatial_type: str = "top"
     use_bias: bool = False
     no_drop: bool = False
-    # opt-in dropout variants of the JAX package (its config.py:122,135),
-    # not ported yet: SAM4C raises when either is set
+    # opt-in dropout variants of the JAX package (its config.py:122,135):
+    # where the MMT layers' masks come from (models/mmt.py:mmt_dropout_masks)
     dropout_mask_reuse: bool = False
     dropout_fused_draw: bool = False
 

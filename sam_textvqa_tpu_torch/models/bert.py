@@ -5,7 +5,10 @@ Submodule names produce the reference ``state_dict`` keys.
 Dropout sites, as in the JAX package's ``models/bert.py``: the embeddings
 after their LayerNorm (:66), the attention probs (:99), and the hidden
 states after the self-output and FFN-output products (:119-123, :169-173).
-Each forward takes ``generator``; None is the deterministic forward."""
+Each forward takes ``generator``; None is the deterministic forward. A
+``BertLayer`` also takes ``masks``, its three sites' keep masks drawn before
+(``mmt.mmt_dropout_masks``: the dropout variants), which then replace its
+own draws."""
 
 from __future__ import annotations
 
@@ -67,12 +70,13 @@ class BertSelfAttention(nn.Module):
         return (split_heads(self.query(x), h), split_heads(self.key(x), h),
                 split_heads(self.value(x), h))
 
-    def forward(self, x, bias, generator=None):
+    def forward(self, x, bias, generator=None, keep=None):
         q, k, v = self.qkv(x)
         hd = q.shape[-1]
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
         probs = masked_softmax_attention(
-            scores, bias, dropout_rate=self.attention_probs_dropout_prob, generator=generator)
+            scores, bias, dropout_rate=self.attention_probs_dropout_prob, generator=generator,
+            keep=keep)
         return merge_heads(torch.matmul(probs, v))
 
 
@@ -83,8 +87,8 @@ class BertSelfOutput(nn.Module):
         self.dense = Dense(hidden_size, hidden_size)
         self.LayerNorm = LayerNormTF(hidden_size, layer_norm_eps)
 
-    def forward(self, hidden, residual, generator=None):
-        hidden = dropout(self.dense(hidden), self.hidden_dropout_prob, generator)
+    def forward(self, hidden, residual, generator=None, keep=None):
+        hidden = dropout(self.dense(hidden), self.hidden_dropout_prob, generator, keep)
         return self.LayerNorm(hidden + residual)
 
 
@@ -128,14 +132,22 @@ class BertLayer(nn.Module):
         self.intermediate = _Dense(hidden_size, intermediate_size)
         self.output = BertOutput(intermediate_size, hidden_size, layer_norm_eps)
 
-    def ffn(self, attn_out, generator=None):
+    def ffn(self, attn_out, generator=None, keep=None):
         inter = gelu_erf(self.intermediate.dense(attn_out))
-        out = dropout(self.output.dense(inter), self.hidden_dropout_prob, generator)
+        out = dropout(self.output.dense(inter), self.hidden_dropout_prob, generator, keep)
         return self.output.LayerNorm(out + attn_out)
 
-    def forward(self, x, *attn_args, generator=None, **attn_kwargs):
-        ctx = self.attention.self(x, *attn_args, generator=generator, **attn_kwargs)
-        return self.ffn(self.attention.output(ctx, x, generator), generator)
+    def forward(self, x, *attn_args, generator=None, masks=None, **attn_kwargs):
+        """``masks``: {"attn", "self_out", "ffn_out"} keep masks (None where
+        the site's rate is 0) drawn for this layer; with them the layer
+        draws nothing from ``generator``."""
+        masks = masks or {}
+        if masks:
+            generator = None
+        ctx = self.attention.self(x, *attn_args, generator=generator, keep=masks.get("attn"),
+                                  **attn_kwargs)
+        return self.ffn(self.attention.output(ctx, x, generator, masks.get("self_out")),
+                        generator, masks.get("ffn_out"))
 
 
 class _Encoder(nn.Module):

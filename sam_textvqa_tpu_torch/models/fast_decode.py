@@ -22,6 +22,11 @@ accepted too: ``xla`` and ``xla_flat`` are ``plain``):
 * ``auto`` — ``mega`` on CUDA when :func:`_mega_supported` holds, else
   ``plain``; the choice depends only on the config and the device.
 
+The kernels are registered operators (``torch.ops.sam_textvqa_torch.*``),
+so ``torch.export`` traces a decode of any backend with each kernel call as
+one node (``serving/artifact.py``); nothing here reads the device from the
+host unless ``check_masks`` or ``xla_early`` asks for it.
+
 JAX's ``xla_flat`` keeps the K/V head-flat to fill the TPU's lanes; it
 computes what ``xla`` does, and on the GPU the per-head layout is the one
 the PyTorch products want, so the port runs ``plain`` for it.
@@ -50,7 +55,6 @@ kernel.
 
 from __future__ import annotations
 
-import functools
 import logging
 import math
 from typing import Dict, List, NamedTuple, Tuple
@@ -229,9 +233,13 @@ def _dec_row_embedding(pp, vocab_rows, ocr_emb, ans_num: int, token, t: int):
 
 def _ptr_keys(model, cfg: MMTConfig, cache: MMTCache, ocr_mask, dtype):
     """Step-invariant OCR pointer-net inputs: the key projection of the
-    cached OCR outputs and the additive OCR padding bias."""
+    cached OCR outputs and the additive OCR padding bias. The OCR rows are
+    copied out of the encoder output first: ``F.linear`` of the strided
+    slice took another CUDA product in an exported program than eagerly
+    (f32 keys 1.4e-5 apart on the H100), and of a contiguous input the same
+    one."""
     ocr_begin = cfg.max_seq_length + cfg.max_obj_num
-    ocr_out = cache.enc_out[:, ocr_begin:ocr_begin + cfg.max_ocr_num]
+    ocr_out = cache.enc_out[:, ocr_begin:ocr_begin + cfg.max_ocr_num].contiguous()
     kd = model.ocr_ptr_net.key(ocr_out.to(dtype))
     ocr_bias = ((1.0 - ocr_mask.float()) * MASK_BIAS).to(dtype)
     return kd, ocr_bias
@@ -424,6 +432,34 @@ def resolve_backend(backend: str, cfg: MMTConfig, device: torch.device, tp: int 
     return chosen
 
 
+#: per stacked decode-step weight (``WEIGHT_NAMES``), the parameters of one
+#: MMT layer it concatenates, and whether it is a LayerNorm parameter (kept
+#: in float32; the rest take the compute dtype)
+STEP_WEIGHT_PARTS = {
+    "wqkv": (lambda l: [l.attention.self.query.weight, l.attention.self.key.weight,
+                        l.attention.self.value.weight], False),
+    "bqkv": (lambda l: [l.attention.self.query.bias, l.attention.self.key.bias,
+                        l.attention.self.value.bias], False),
+    "wout": (lambda l: [l.attention.output.dense.weight], False),
+    "bout": (lambda l: [l.attention.output.dense.bias], False),
+    "ln1w": (lambda l: [l.attention.output.LayerNorm.weight], True),
+    "ln1b": (lambda l: [l.attention.output.LayerNorm.bias], True),
+    "wff1": (lambda l: [l.intermediate.dense.weight], False),
+    "bff1": (lambda l: [l.intermediate.dense.bias], False),
+    "wff2": (lambda l: [l.output.dense.weight], False),
+    "bff2": (lambda l: [l.output.dense.bias], False),
+    "ln2w": (lambda l: [l.output.LayerNorm.weight], True),
+    "ln2b": (lambda l: [l.output.LayerNorm.bias], True),
+}
+
+
+def stack_step_weight(name: str, per_layer, dtype) -> torch.Tensor:
+    """Stacked weight ``name`` from each layer's list of parts."""
+    f32 = STEP_WEIGHT_PARTS[name][1]
+    return torch.stack([torch.cat(parts) for parts in per_layer]).to(
+        torch.float32 if f32 else dtype).contiguous()
+
+
 @torch.no_grad()
 def _mega_step_consts(mmt, dtype, names=WEIGHT_NAMES) -> Dict[str, torch.Tensor]:
     """Stacked per-layer weights in torch (out, in) layout, cast once per
@@ -431,28 +467,8 @@ def _mega_step_consts(mmt, dtype, names=WEIGHT_NAMES) -> Dict[str, torch.Tensor]
     those of ``names`` (default: all). Taken outside autograd: the
     decode-step kernel has no backward."""
     layers = [layer for _, _, layer in mmt.iter_layers()]
-
-    def qkv(layer, leaf):
-        a = layer.attention.self
-        return torch.cat([getattr(a.query, leaf), getattr(a.key, leaf), getattr(a.value, leaf)])
-
-    f32 = torch.float32
-    getters = {
-        "wqkv": (lambda l: qkv(l, "weight"), dtype),
-        "bqkv": (lambda l: qkv(l, "bias"), dtype),
-        "wout": (lambda l: l.attention.output.dense.weight, dtype),
-        "bout": (lambda l: l.attention.output.dense.bias, dtype),
-        "ln1w": (lambda l: l.attention.output.LayerNorm.weight, f32),
-        "ln1b": (lambda l: l.attention.output.LayerNorm.bias, f32),
-        "wff1": (lambda l: l.intermediate.dense.weight, dtype),
-        "bff1": (lambda l: l.intermediate.dense.bias, dtype),
-        "wff2": (lambda l: l.output.dense.weight, dtype),
-        "bff2": (lambda l: l.output.dense.bias, dtype),
-        "ln2w": (lambda l: l.output.LayerNorm.weight, f32),
-        "ln2b": (lambda l: l.output.LayerNorm.bias, f32),
-    }
-    return {n: torch.stack([getters[n][0](layer) for layer in layers]).to(
-        getters[n][1]).contiguous() for n in names}
+    return {n: stack_step_weight(n, [STEP_WEIGHT_PARTS[n][0](layer) for layer in layers], dtype)
+            for n in names}
 
 
 def _decode_one_row_fused(cfg: MMTConfig, consts, caches, seg_lens, x, k_dec, v_dec,
@@ -504,16 +520,43 @@ def check_prefix_masks(masks) -> None:
             raise ValueError("the kernel decode backends need prefix-contiguous masks")
 
 
-@functools.lru_cache(maxsize=None)
+#: the relation -> head LUTs made so far, by (context key, first head,
+#: heads, device)
+_LUTS: Dict[tuple, torch.Tensor] = {}
+
+
 def _device_lut(key: str, first_head: int, h: int, device: torch.device) -> torch.Tensor:
     """The (13, h) float32 relation -> head LUT of heads ``first_head`` ..
     ``first_head + h - 1`` (a tensor-parallel shard's; 0 .. h - 1 on one
     device) on ``device``, contiguous (the spatial-attention kernel reads
     ``lut[c * h + head]``), made once per (context, heads, device) and
     never written: copying it for each call from pageable memory waited for
-    all work queued on the stream."""
-    return torch.tensor(relation_head_lut(key)[:, first_head:first_head + h],
-                        dtype=torch.float32, device=device)
+    all work queued on the stream. An exported program takes it as a
+    constant: :func:`prime_luts` makes a model's LUTs before the trace, and
+    one missing under ``torch.export`` raises rather than entering the
+    cache as a traced tensor."""
+    cache_key = (key, first_head, h, torch.device(device))
+    lut = _LUTS.get(cache_key)
+    if lut is None:
+        if torch.compiler.is_exporting():
+            raise RuntimeError(f"the relation LUT {cache_key} was not made before the export "
+                               f"(prime_luts)")
+        lut = _LUTS[cache_key] = torch.tensor(
+            relation_head_lut(key)[:, first_head:first_head + h], dtype=torch.float32,
+            device=device)
+    return lut
+
+
+def prime_luts(mmt, device: torch.device) -> None:
+    """Make every LUT that the encoder-cache pass of ``mmt`` reads on
+    ``device`` (a tensor's device, with its index), for both attention
+    backends, before ``torch.export`` traces the pass."""
+    cfg = mmt.config
+    for layer_type, mix, layer in mmt.iter_layers():
+        if layer_type != "n":
+            h = layer.attention.self.num_heads
+            for heads in {h, implicit_split(cfg, layer_type, 0, h)[0]}:
+                _device_lut(MATRIX_TYPE_MAP[mix], 0, heads, device)
 
 
 def _seg_lens(batch, validate: bool = True) -> torch.Tensor:

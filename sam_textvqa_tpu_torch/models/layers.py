@@ -69,14 +69,20 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.clamp(norm, min=eps)
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverted dropout: ``where(keep, x / (1 - rate), 0)`` with ``keep`` a
     bool mask drawn from ``generator`` on ``x``'s device (JAX
-    ``apply_keep_mask``, models/layers.py:37-43). The identity when
-    ``generator`` is None or ``rate`` is 0. Only the bool mask outlives the
-    call (autograd keeps it for the backward); the f32 uniforms are freed."""
-    if generator is None or rate == 0.0:
+    ``apply_keep_mask``, models/layers.py:37-43), or the ``keep`` given
+    (drawn before, by ``mmt.mmt_dropout_masks``). The identity when ``rate``
+    is 0, or when neither ``keep`` nor ``generator`` is given. Only the
+    bool mask outlives the call (autograd keeps it for the backward); the
+    f32 uniforms are freed."""
+    if rate == 0.0:
+        return x
+    if keep is not None:
+        return apply_keep_mask(x, keep, rate)
+    if generator is None:
         return x
     return apply_keep_mask(x, keep_mask(x.shape, rate, generator, x.device), rate)
 
@@ -113,16 +119,17 @@ def row_alive_from_bias(bias: torch.Tensor) -> torch.Tensor:
 
 
 def masked_softmax_attention(scores, bias, zero_fully_masked: bool = False,
-                             dropout_rate: float = 0.0, generator=None):
+                             dropout_rate: float = 0.0, generator=None, keep=None):
     """softmax(scores + bias) in f32, cast back to the scores' dtype; with
     ``zero_fully_masked`` rows whose every key is masked become zeros. The
     attention-probs dropout comes after the zeroing, as in JAX
-    ``masked_softmax_attention`` (models/layers.py:118-130)."""
+    ``masked_softmax_attention`` (models/layers.py:118-130); ``keep``: a
+    drawn mask for it (:func:`dropout`)."""
     scores = scores + bias.to(scores.dtype)
     probs = torch.softmax(scores.float(), dim=-1).to(scores.dtype)
     if zero_fully_masked:
         probs = probs * row_alive_from_bias(bias).to(probs.dtype)
-    return dropout(probs, dropout_rate, generator)
+    return dropout(probs, dropout_rate, generator, keep)
 
 
 def causal_mask(length: int, device=None) -> torch.Tensor:

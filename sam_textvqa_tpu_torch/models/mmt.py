@@ -8,12 +8,22 @@ relation LUT and the quadrant cuts never mask (reference :487-495). Dropout
 sites as in the JAX package's ``models/mmt.py``: the decoder embeddings
 (:93) and every layer's attention probs and hidden states, with ``no_drop``
 zeroing only the spatial and implicit layers' attention-probs rate (:195).
+
+The two dropout variants of JAX ``mmt.py:178-236`` (``MMTConfig``
+``dropout_mask_reuse`` and ``dropout_fused_draw``) change where the MMT
+layers' masks come from, never their distribution
+(:func:`mmt_dropout_masks`): under reuse every layer takes the same mask
+for one site type and shape within a step; the fused draw takes each mask
+from one page per (rate, heads) group of attention sites and one page for
+the hidden sites. Both hold the masks as bool tensors, which autograd saves
+once. The bits differ from JAX's (Philox against threefry); the grouping,
+the shapes and the sharing are JAX's.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,7 +32,7 @@ from ..config import MATRIX_TYPE_MAP, MMTConfig
 from ..ops.fused_attention import combined_permission
 from ..ops.spatial_graph import relation_head_lut
 from .bert import BertLayer
-from .layers import MASK_BIAS, Dense, LayerNormTF, dropout, dropout_generator
+from .layers import MASK_BIAS, Dense, LayerNormTF, dropout, dropout_generator, keep_mask
 from .spatial import SpatialBertLayer
 
 ATTENTION_BACKENDS = ("plain", "kernel")
@@ -118,6 +128,80 @@ def implicit_split(cfg: MMTConfig, layer_type: str, first_head: int, h: int) -> 
     return spatial, h - spatial
 
 
+#: the dropout sites of one MMT layer, in the order a layer applies them
+DROPOUT_SITES = ("attn", "self_out", "ffn_out")
+
+
+def attention_dropout_rate(cfg: MMTConfig, layer_type: str) -> float:
+    """A layer's attention-probs dropout rate: ``no_drop`` zeroes it for the
+    spatial and implicit layers only (JAX ``mmt.py:195``)."""
+    if layer_type != "n" and cfg.no_drop:
+        return 0.0
+    return cfg.attention_probs_dropout_prob
+
+
+def fused_draw_groups(cfg: MMTConfig) -> List[Tuple[Tuple[float, int], List[int]]]:
+    """The attention-probs pages of ``dropout_fused_draw``: ((rate, heads),
+    layer indices) per group of layers with one rate above 0 and one head
+    count, in JAX's sorted order (``mmt.py:214-233``)."""
+    groups: Dict[Tuple[float, int], List[int]] = {}
+    for idx, lt in enumerate(cfg.layer_type_list):
+        rate = attention_dropout_rate(cfg, lt)
+        if rate > 0.0:
+            groups.setdefault((rate, layer_heads(cfg, lt)), []).append(idx)
+    return sorted(groups.items())
+
+
+def mmt_dropout_masks(cfg: MMTConfig, b: int, length: int,
+                      generator: Optional[torch.Generator],
+                      device) -> Optional[List[Dict[str, Optional[torch.Tensor]]]]:
+    """Per MMT layer, the keep masks of its :data:`DROPOUT_SITES` (None where
+    a rate is 0) under the config's dropout variant, drawn from
+    ``generator`` on ``device`` at the one-device shapes (B, H, L, L) and
+    (B, L, D); None without a variant (each layer then draws its own) or
+    without ``generator``.
+
+    * ``dropout_mask_reuse``: one mask per (site type, shape, rate), so
+      layers of one head count share their attention mask, and all layers
+      their hidden masks (JAX hands every layer one rng per site type).
+    * ``dropout_fused_draw`` (ignored under reuse, as in JAX): one page
+      (layers, B, heads, L, L) per :func:`fused_draw_groups` group and one
+      (layers, 2, B, L, D) page for the two hidden sites of every layer;
+      each layer takes its slices."""
+    if generator is None or not (cfg.dropout_mask_reuse or cfg.dropout_fused_draw):
+        return None
+    d, hidden = cfg.hidden_size, cfg.hidden_dropout_prob
+    n_layers = len(cfg.layer_type_list)
+    masks: List[Dict[str, Optional[torch.Tensor]]] = [dict.fromkeys(DROPOUT_SITES)
+                                                      for _ in range(n_layers)]
+    if cfg.dropout_mask_reuse:
+        drawn: Dict[tuple, torch.Tensor] = {}
+
+        def draw(site, shape, rate):
+            if rate == 0.0:
+                return None
+            if (site, shape, rate) not in drawn:
+                drawn[site, shape, rate] = keep_mask(shape, rate, generator, device)
+            return drawn[site, shape, rate]
+
+        for idx, lt in enumerate(cfg.layer_type_list):
+            h = layer_heads(cfg, lt)
+            masks[idx]["attn"] = draw("attn", (b, h, length, length),
+                                      attention_dropout_rate(cfg, lt))
+            masks[idx]["self_out"] = draw("self_out", (b, length, d), hidden)
+            masks[idx]["ffn_out"] = draw("ffn_out", (b, length, d), hidden)
+        return masks
+    for (rate, heads), idxs in fused_draw_groups(cfg):
+        page = keep_mask((len(idxs), b, heads, length, length), rate, generator, device)
+        for j, idx in enumerate(idxs):
+            masks[idx]["attn"] = page[j]
+    if hidden > 0.0:
+        page = keep_mask((n_layers, 2, b, length, d), hidden, generator, device)
+        for idx in range(n_layers):
+            masks[idx]["self_out"], masks[idx]["ffn_out"] = page[idx, 0], page[idx, 1]
+    return masks
+
+
 class MMT(nn.Module):
     """Joint-stream transformer (reference MMT, sa_m4c.py:773-863).
 
@@ -138,12 +222,12 @@ class MMT(nn.Module):
         c = config
         self.prev_pred_embeddings = PrevPredEmbeddings(c.hidden_size, c.layer_norm_eps,
                                                        c.hidden_dropout_prob)
-        spatial_attn_drop = 0.0 if c.no_drop else c.attention_probs_dropout_prob
 
         def spatial_layers(layer_type):
             return [SpatialBertLayer(c.hidden_size, layer_heads(c, layer_type),
                                      c.intermediate_size, c.layer_norm_eps, c.use_bias,
-                                     c.hidden_dropout_prob, spatial_attn_drop)
+                                     c.hidden_dropout_prob,
+                                     attention_dropout_rate(c, layer_type))
                     for _ in range(c.layer_type_list.count(layer_type))]
 
         self.encoder = _SpatialEncoder(
@@ -206,11 +290,13 @@ class MMT(nn.Module):
                     spatial_classes, lut, col_mask, spatial=True, num_heads=h,
                     num_implicit_heads=h - hs, **perm)}
 
-        for layer_type, mix, layer in self.iter_layers():
+        drawn = mmt_dropout_masks(cfg, b, length, generator, x.device)
+        for li, (layer_type, mix, layer) in enumerate(self.iter_layers()):
+            masks = None if drawn is None else drawn[li]
             if layer_type == "n":
-                x = layer(x, base_bias, generator=generator)
+                x = layer(x, base_bias, generator=generator, masks=masks)
             else:
-                x = layer(x, generator=generator,
+                x = layer(x, generator=generator, masks=masks,
                           **spatial_args[(MATRIX_TYPE_MAP[mix], layer_type)])
 
         ocr_begin = q_len + cfg.max_obj_num

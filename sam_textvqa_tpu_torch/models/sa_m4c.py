@@ -73,9 +73,6 @@ class SAM4C(nn.Module):
         if mmt_cfg.use_aux_heads and mmt_cfg.aux_spatial_fusion not in AUX_FUSIONS:
             raise ValueError(f"aux_spatial_fusion must be one of {sorted(AUX_FUSIONS)}, not "
                              f"{mmt_cfg.aux_spatial_fusion!r}")
-        for option in ("dropout_mask_reuse", "dropout_fused_draw"):
-            if getattr(mmt_cfg, option):
-                raise NotImplementedError(f"{option} is not ported yet")
         self.params_cfg = params_cfg
         self.dtype = dtype
         hidden = mmt_cfg.hidden_size

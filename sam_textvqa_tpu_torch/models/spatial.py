@@ -41,7 +41,7 @@ class SpatialBertSelfAttention(nn.Module):
         # learned output bias shared across positions (reference :439-443)
         self.biases = nn.Embedding(1, hidden_size) if use_head_bias else None
 
-    def forward(self, x, combined_ok=None, kernel_ctx=None, generator=None):
+    def forward(self, x, combined_ok=None, kernel_ctx=None, generator=None, keep=None):
         """``combined_ok``: (B, H, L, L) bool for the plain path; or
         ``kernel_ctx``: the keyword arguments of ``spatial_attention``
         beyond q/k/v for the kernel path, which has no dropout."""
@@ -56,7 +56,7 @@ class SpatialBertSelfAttention(nn.Module):
             bias = torch.where(combined_ok, 0.0, MASK_BIAS)
             probs = masked_softmax_attention(
                 scores, bias, zero_fully_masked=True,
-                dropout_rate=self.attention_probs_dropout_prob, generator=generator)
+                dropout_rate=self.attention_probs_dropout_prob, generator=generator, keep=keep)
             ctx = torch.matmul(probs, v)
         ctx = merge_heads(ctx)
         if self.biases is not None:

@@ -56,7 +56,7 @@ from .fast_decode import (KERNEL_STEP_BACKENDS, MMTCache, _cache_attention, _dec
                           _row_kv, _seg_lens)
 from .layers import (MASK_BIAS, apply_keep_mask, dropout, dropout_generator, gelu_erf,
                      keep_mask, layer_norm_tf, masked_softmax_attention)
-from .mmt import implicit_split
+from .mmt import implicit_split, mmt_dropout_masks
 from .sa_m4c import SAM4C
 from .spatial import SpatialBertSelfAttention
 
@@ -191,40 +191,49 @@ class TPSAM4C:
 
     # ----- layers -----
 
-    def _probs_dropout(self, layer, x, generator) -> list:
+    def _probs_dropout(self, layer, x, generator, keep=None) -> list:
         """One function per shard for the attention probs of ``layer`` (home's
         narrowed layer) over ``x``: the one-device model's dropout, its mask
-        drawn at the full (B, H, L, L) shape on home and each shard given its
-        heads' slice; the identity without dropout."""
+        drawn at the full (B, H, L, L) shape on home (or ``keep``, drawn
+        before by a dropout variant) and each shard given its heads' slice;
+        the identity without dropout."""
         rate = layer.attention.self.attention_probs_dropout_prob
-        if generator is None or rate == 0.0:
+        if (generator is None and keep is None) or rate == 0.0:
             return [_identity] * self.tp
         b, length = x.shape[:2]
         h = layer.attention.self.num_heads
-        keep = keep_mask((b, h * self.tp, length, length), rate, generator, x.device)
+        if keep is None:
+            keep = keep_mask((b, h * self.tp, length, length), rate, generator, x.device)
         return [functools.partial(apply_keep_mask, keep=keep[:, r * h:(r + 1) * h].to(dev),
                                   rate=rate) for r, dev in enumerate(self.devices)]
 
-    def _layer(self, layers, x, attend, generator=None):
+    def _layer(self, layers, x, attend, generator=None, masks=None):
         """One BERT layer over ``x`` (on home): ``layers`` are the shards'
         narrowed layers and ``attend(r, layer, x_r, drop)`` shard r's merged
         attention context, its probs passed through ``drop``. The hidden
         dropouts apply on home to the summed products, before the residual
-        adds, as in ``bert.BertSelfOutput`` and ``BertLayer.ffn``."""
+        adds, as in ``bert.BertSelfOutput`` and ``BertLayer.ffn``. ``masks``:
+        the layer's keep masks of a dropout variant
+        (``mmt.mmt_dropout_masks``, one-device shapes), used instead of
+        draws from ``generator``."""
         home = layers[0]
-        drops = self._probs_dropout(home, x, generator)
+        if masks is not None:
+            generator = None
+        masks = masks or {}
+        drops = self._probs_dropout(home, x, generator, masks.get("attn"))
         xs = broadcast(x, self.devices)
         ctxs = [attend(r, layer, xs[r], drops[r]) for r, layer in enumerate(layers)]
         y = row_parallel(ctxs, [l.attention.output.dense.weight for l in layers],
                          home.attention.output.dense.bias, x.device)
-        y = dropout(y, home.attention.output.hidden_dropout_prob, generator)
+        y = dropout(y, home.attention.output.hidden_dropout_prob, generator,
+                    masks.get("self_out"))
         attn_out = home.attention.output.LayerNorm(y + x)
         inters = [gelu_erf(h) for h in column_parallel(
             attn_out, [l.intermediate.dense.weight for l in layers],
             [l.intermediate.dense.bias for l in layers])]
         y = row_parallel(inters, [l.output.dense.weight for l in layers],
                          home.output.dense.bias, x.device)
-        y = dropout(y, home.hidden_dropout_prob, generator)
+        y = dropout(y, home.hidden_dropout_prob, generator, masks.get("ffn_out"))
         return home.output.LayerNorm(y + attn_out)
 
     def _mmt_layers(self):
@@ -360,12 +369,15 @@ class TPSAM4C:
                 return _attend(m.attention.self, xr, args["bias"], True, drop)
             return attend
 
-        for layer_type, mix, layers in self._mmt_layers():
+        drawn = mmt_dropout_masks(cfg, b, x.shape[1], g, x.device)
+        for li, (layer_type, mix, layers) in enumerate(self._mmt_layers()):
+            drops = None if drawn is None else drawn[li]
             if layer_type == "n":
                 x = self._layer(layers, x, lambda r, m, xr, drop: _attend(
-                    m.attention.self, xr, base[r], False, drop), g)
+                    m.attention.self, xr, base[r], False, drop), g, drops)
             else:
-                x = self._layer(layers, x, attend_spatial(MATRIX_TYPE_MAP[mix], layer_type), g)
+                x = self._layer(layers, x, attend_spatial(MATRIX_TYPE_MAP[mix], layer_type), g,
+                                drops)
 
         ocr_begin = q_len + cfg.max_obj_num
         dec_out = x[:, -dec_len:]

@@ -2,9 +2,17 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, bound with ctypes. Libraries go
-under ``build/sam_textvqa_tpu_torch/`` beside the package and are named by
-a hash of their sources, so an edited source rebuilds. They are built at
-first use; :func:`build_all` starts one ``nvcc`` per source, all at once.
+under ``build/sam_textvqa_tpu_torch/`` beside the package, or under the
+directory :func:`set_build_dir` names (``utils/compile_cache.py``), and are
+named by a hash of their sources, the flags and ``nvcc --version``, so an
+edited source or another toolchain rebuilds. They are built at first use;
+:func:`build_all` starts one ``nvcc`` per source, all at once.
+
+Each kernel entry is a ``torch.library.custom_op`` of the namespace
+:data:`OP_NAMESPACE` (``torch.ops.sam_textvqa_torch.*``): its CUDA
+implementation launches the kernel through ctypes, its CPU implementation
+is the plain PyTorch version, and a fake implementation gives the output
+shapes, so ``torch.export`` records each launch as one node.
 
 Every kernel wrapper adds one to its launch count (:func:`count_launch`)
 where it launches its kernel and nowhere else, and one to the count of the
@@ -18,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,6 +43,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "sam_textvqa_tpu_torch"
 SOURCES = ("spatial_attention", "decode_attention", "decode_step")
+#: the ``torch.library`` namespace of the kernels' operators
+OP_NAMESPACE = "sam_textvqa_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +54,9 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: nvcc's output (ptxas register / shared-memory / spill report) per kernel
 build_logs: Dict[str, str] = {}
+#: the wall seconds of every nvcc build this process ran, per kernel (empty
+#: when every library came from the build directory)
+built_seconds: Dict[str, float] = {}
 
 _count_lock = threading.Lock()
 _launches: Counter = Counter()
@@ -112,11 +126,46 @@ def _nvcc() -> str:
     return found
 
 
+def set_build_dir(path) -> Path:
+    """Build and load the kernels and the host passes (``ops/host_build.py``)
+    under ``path`` from now on. Libraries already loaded stay loaded."""
+    global BUILD_DIR
+    from . import host_build  # it imports this module
+
+    with _lock:
+        BUILD_DIR = host_build.BUILD_DIR = Path(path)
+    return BUILD_DIR
+
+
+@functools.lru_cache(maxsize=None)
+def nvcc_version() -> str:
+    """``nvcc --version``'s banner, which names the libraries too: a build
+    directory shared across toolchains (a compile cache) rebuilds instead of
+    loading a library another compiler made. Empty when nvcc is missing
+    (the build then reports it)."""
+    try:
+        return subprocess.run([_nvcc(), "--version"], capture_output=True, text=True,
+                              timeout=60).stdout
+    except (OSError, RuntimeError, subprocess.TimeoutExpired):
+        return ""
+
+
+def source_digest() -> str:
+    """A hash of every kernel source (``csrc/*.cu``, ``*.cuh``): what an
+    exported program that runs the kernels was traced against."""
+    digest = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cu*")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return digest.hexdigest()
+
+
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(nvcc_version().encode())
     return BUILD_DIR / f"libsam_{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -146,6 +195,7 @@ def _build_locked(names: Iterable[str]) -> Dict[str, float]:
             errors.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
         else:
             os.replace(tmp, out)
+            built_seconds[name] = seconds[name]
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds

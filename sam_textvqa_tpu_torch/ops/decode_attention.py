@@ -65,7 +65,10 @@ def check_kernel_head_dim(hd: int, dtype) -> None:
 def decode_attention(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, *, hd: int,
                      q_len: int, n_obj: int):
     """Fused one-row decode attention; raises under grad on inputs that
-    require it (no backward).
+    require it (no backward). Calls the registered operator
+    ``torch.ops.sam_textvqa_torch.decode_attention``
+    (:func:`decode_attention_op`): the kernel for CUDA tensors,
+    :func:`decode_attention_plain` for CPU ones.
 
     Args:
       q: (B, D) decoder-row queries, head-flat, float32 or bfloat16.
@@ -79,17 +82,34 @@ def decode_attention(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, *, hd: int,
     """
     cuda_build.refuse_grad("decode_attention", (q, k_enc, v_enc, k_dec, v_dec))
     check_decode_shapes(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, hd, q_len, n_obj)
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t,
-                                      hd=hd, q_len=q_len, n_obj=n_obj)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
+    return decode_attention_op(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, hd, q_len, n_obj)
+
+
+@torch.library.custom_op(f"{cuda_build.OP_NAMESPACE}::decode_attention", mutates_args=(),
+                         device_types="cpu")
+def decode_attention_op(q: torch.Tensor, k_enc: torch.Tensor, v_enc: torch.Tensor,
+                        k_dec: torch.Tensor, v_dec: torch.Tensor, seg_lens: torch.Tensor,
+                        t: torch.Tensor, hd: int, q_len: int, n_obj: int) -> torch.Tensor:
+    """The operator behind :func:`decode_attention` (checked arguments).
+    This body is its CPU implementation, the plain version."""
+    return decode_attention_plain(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, hd=hd,
+                                  q_len=q_len, n_obj=n_obj)
+
+
+@decode_attention_op.register_fake
+def _(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, hd, q_len, n_obj):
+    return torch.empty_like(q)
+
+
+def _decode_attention_cuda(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, hd, q_len, n_obj):
     b, d = q.shape
     le, t_max = k_enc.shape[1], k_dec.shape[1]
     dev, dt = q.device, q.dtype
     code = cuda_build.dtype_code(dt)
     check_kernel_head_dim(hd, dt)
-    # shapes were checked above
+    # shapes were checked by check_decode_shapes
     for name, x in (("q", q), ("k_enc", k_enc), ("v_enc", v_enc),
                     ("k_dec", k_dec), ("v_dec", v_dec)):
         cuda_build.require(x, name, dt, None, dev, aligned=True)
@@ -107,6 +127,11 @@ def decode_attention(q, k_enc, v_enc, k_dec, v_dec, seg_lens, t, *, hd: int,
     cuda_build.check(lib, rc, "decode_attention")
     cuda_build.count_launch("decode_attention", dt)
     return out
+
+
+#: the CUDA implementation, also called directly (no dispatcher) by
+#: ``chip_smoke.py`` to time what the operator dispatch adds
+decode_attention_op.register_kernel("cuda")(_decode_attention_cuda)
 
 
 def encoder_valid(seg_lens, le: int, q_len: int, n_obj: int):

@@ -105,7 +105,10 @@ def decode_step_fused(t, seg_lens, x0, wqkv, bqkv, wout, bout, ln1w, ln1b,
                       wff1, bff1, wff2, bff2, ln2w, ln2b, k_enc, v_enc,
                       k_dec, v_dec, *, hd: int, q_len: int, n_obj: int):
     """One decode step (all layers). Updates ``k_dec``/``v_dec`` in place.
-    Raises under grad on inputs that require it (no backward).
+    Raises under grad on inputs that require it (no backward). Calls the
+    registered operator ``torch.ops.sam_textvqa_torch.decode_step``
+    (:func:`decode_step_op`, which declares the two buffers it mutates):
+    the kernel for CUDA tensors, :func:`decode_step_plain` for CPU ones.
 
     Args:
       t: (1,) int32 step index on the device (one build serves every step).
@@ -122,12 +125,41 @@ def decode_step_fused(t, seg_lens, x0, wqkv, bqkv, wout, bout, ln1w, ln1b,
     args = (t, seg_lens, x0, wqkv, bqkv, wout, bout, ln1w, ln1b, wff1, bff1, wff2, bff2,
             ln2w, ln2b, k_enc, v_enc, k_dec, v_dec)
     cuda_build.refuse_grad("decode_step_fused", args)
-    n_layers, b, le, d, t_max, f = _check_config(
-        tuple(x.shape for x in args), tuple(x.dtype for x in args), hd, q_len, n_obj)
-    if x0.device.type == "cpu":
-        return decode_step_plain(*args, hd=hd, q_len=q_len, n_obj=n_obj)
-    if x0.device.type != "cuda":
+    _check_config(tuple(x.shape for x in args), tuple(x.dtype for x in args), hd, q_len, n_obj)
+    if x0.device.type not in ("cpu", "cuda"):
         raise ValueError(f"decode_step_fused runs on cuda or cpu, not {x0.device}")
+    return decode_step_op(*args, hd, q_len, n_obj)
+
+
+@torch.library.custom_op(f"{cuda_build.OP_NAMESPACE}::decode_step",
+                         mutates_args=("k_dec", "v_dec"), device_types="cpu")
+def decode_step_op(t: torch.Tensor, seg_lens: torch.Tensor, x0: torch.Tensor,
+                   wqkv: torch.Tensor, bqkv: torch.Tensor, wout: torch.Tensor,
+                   bout: torch.Tensor, ln1w: torch.Tensor, ln1b: torch.Tensor,
+                   wff1: torch.Tensor, bff1: torch.Tensor, wff2: torch.Tensor,
+                   bff2: torch.Tensor, ln2w: torch.Tensor, ln2b: torch.Tensor,
+                   k_enc: torch.Tensor, v_enc: torch.Tensor, k_dec: torch.Tensor,
+                   v_dec: torch.Tensor, hd: int, q_len: int, n_obj: int) -> torch.Tensor:
+    """The operator behind :func:`decode_step_fused` (checked arguments).
+    This body is its CPU implementation, the plain version; the step index
+    is read from ``t`` here, where an export does not trace it."""
+    return decode_step_plain(t, seg_lens, x0, wqkv, bqkv, wout, bout, ln1w, ln1b, wff1, bff1,
+                             wff2, bff2, ln2w, ln2b, k_enc, v_enc, k_dec, v_dec, hd=hd,
+                             q_len=q_len, n_obj=n_obj)
+
+
+@decode_step_op.register_fake
+def _(t, seg_lens, x0, *rest):
+    return torch.empty_like(x0)
+
+
+def _decode_step_cuda(t, seg_lens, x0, wqkv, bqkv, wout, bout, ln1w, ln1b, wff1, bff1, wff2,
+                      bff2, ln2w, ln2b, k_enc, v_enc, k_dec, v_dec, hd, q_len, n_obj):
+    args = (t, seg_lens, x0, wqkv, bqkv, wout, bout, ln1w, ln1b, wff1, bff1, wff2, bff2,
+            ln2w, ln2b, k_enc, v_enc, k_dec, v_dec)
+    # shapes and dtypes were checked by _check_config in decode_step_fused
+    n_layers, b, le, d = k_enc.shape
+    t_max, f = k_dec.shape[2], wff1.shape[1]
     dev, dt = x0.device, x0.dtype
     check_kernel_head_dim(hd, dt)
     lib, nbytes = _kernel_plan(b, d, f, dt)
@@ -152,6 +184,11 @@ def decode_step_fused(t, seg_lens, x0, wqkv, bqkv, wout, bout, ln1w, ln1b,
     cuda_build.check(lib, rc, "decode_step_fused")
     cuda_build.count_launch("decode_step", dt)
     return x_out
+
+
+#: the CUDA implementation, also called directly (no dispatcher) by
+#: ``chip_smoke.py`` to time what the operator dispatch adds
+decode_step_op.register_kernel("cuda")(_decode_step_cuda)
 
 
 def _linear(x, weight, bias):

@@ -17,7 +17,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
@@ -81,7 +81,10 @@ def spatial_attention(
     spatial: bool = True,
 ):
     """Fused deterministic forward; raises under grad on inputs that require
-    it (no backward).
+    it (no backward). Calls the registered operator
+    ``torch.ops.sam_textvqa_torch.spatial_attention`` (:func:`spatial_attention_op`): the
+    kernel for CUDA tensors, :func:`spatial_attention_plain` for CPU ones,
+    one node of an exported program either way.
 
     Args:
       q, k, v: (B, H, L, D) float32 or bfloat16 (all three alike), L =
@@ -102,16 +105,35 @@ def spatial_attention(
     """
     cuda_build.refuse_grad("spatial_attention", (q, k, v, lut, col_mask))
     _check_args(q, k, v, classes, lut, col_mask, q_len, n_ctx, dec_len, mask_quadrants)
-    b, h, length, d = q.shape
-    out = q.new_empty(b, length, h, d).transpose(1, 2)
-    if q.device.type == "cpu":
-        out.copy_(spatial_attention_plain(
-            q, k, v, classes, lut, col_mask, q_len=q_len, n_ctx=n_ctx,
-            dec_len=dec_len, mask_quadrants=mask_quadrants, spatial=spatial,
-        ))
-        return out
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"spatial_attention runs on cuda or cpu, not {q.device}")
+    return spatial_attention_op(q, k, v, classes, lut, col_mask, q_len, n_ctx, dec_len,
+              sorted(set(int(x) for x in mask_quadrants)), spatial).transpose(1, 2)
+
+
+@torch.library.custom_op(f"{cuda_build.OP_NAMESPACE}::spatial_attention", mutates_args=(),
+                         device_types="cpu")
+def spatial_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, classes: torch.Tensor,
+       lut: torch.Tensor, col_mask: torch.Tensor, q_len: int, n_ctx: int, dec_len: int,
+       mask_quadrants: List[int], spatial: bool) -> torch.Tensor:
+    """The operator behind :func:`spatial_attention` (checked arguments):
+    a contiguous (B, L, H, D) output. This body is its CPU implementation,
+    the plain version."""
+    return spatial_attention_plain(
+        q, k, v, classes, lut, col_mask, q_len=q_len, n_ctx=n_ctx, dec_len=dec_len,
+        mask_quadrants=mask_quadrants, spatial=spatial,
+    ).transpose(1, 2).contiguous()
+
+
+@spatial_attention_op.register_fake
+def _(q, k, v, classes, lut, col_mask, q_len, n_ctx, dec_len, mask_quadrants, spatial):
+    b, h, length, d = q.shape
+    return q.new_empty(b, length, h, d)
+
+
+def _spatial_attention_cuda(q, k, v, classes, lut, col_mask, q_len, n_ctx, dec_len,
+                            mask_quadrants, spatial):
+    b, h, length, d = q.shape
     dev, dt = q.device, q.dtype
     lib = cuda_build.library("spatial_attention", _declare)
     code, scratch_bytes = _kernel_plan(lib, dt, b, length, d)
@@ -121,7 +143,8 @@ def spatial_attention(
     cuda_build.require(classes, "classes", torch.int8, None, dev)
     cuda_build.require(lut, "lut", torch.float32, None, dev)
     cuda_build.require(col_mask, "col_mask", torch.float32, None, dev)
-    quad_bits = sum(1 << qd for qd in set(mask_quadrants))
+    quad_bits = sum(1 << qd for qd in mask_quadrants)
+    out = q.new_empty(b, length, h, d)
     scratch = torch.empty(scratch_bytes, dtype=torch.int8, device=dev)
     p = cuda_build.ptr
     with cuda_build.on_device(dev):
@@ -134,6 +157,11 @@ def spatial_attention(
     cuda_build.check(lib, rc, "spatial_attention")
     cuda_build.count_launch("spatial_attention", dt)
     return out
+
+
+#: the CUDA implementation, also called directly (no dispatcher) by
+#: ``chip_smoke.py`` to time what the operator dispatch adds
+spatial_attention_op.register_kernel("cuda")(_spatial_attention_cuda)
 
 
 def combined_permission(classes, lut, col_mask, *, q_len, n_ctx, dec_len,

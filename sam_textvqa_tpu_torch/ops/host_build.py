@@ -4,8 +4,10 @@ Each ``csrc/host/<name>.cc`` compiles with ``g++`` (``$CXX`` if set) into
 its own shared library with a plain C interface, bound with ctypes: the
 PHOC featurizer, the spatial graph, the batch gather and bf16 cast, and the
 edit distance. Libraries go under ``build/sam_textvqa_tpu_torch/`` beside
-the CUDA kernels' and are named by a hash of their source, flags and
-compiler version, so an edited source rebuilds. Each builds at first use;
+the CUDA kernels', or under the directory ``cuda_build.set_build_dir``
+names for both (a compile cache, ``utils/compile_cache.py``), and are
+named by a hash of their source, flags and compiler version, so an edited
+source or another compiler rebuilds. Each builds at first use;
 a failed build raises with the compiler's output (there is no silent
 fallback: callers that want the Python version ask for it with
 ``native=False``).

@@ -33,6 +33,18 @@ Several devices, in this one process (JAX ``serve.py``'s dp x tp mesh):
 device); a device may repeat (``cuda:0,cuda:0`` or ``cpu,cpu``), which runs
 the same path on one card.
 
+From a decode artifact (``tools/torch_export_decode.py``; no model code and
+no config: the artifact embeds its answer vocab), with a checkpoint's
+weights:
+
+  python -m sam_textvqa_tpu_torch.serve --artifact artifacts/c3 \
+      --checkpoint save/c3/best_model --port 8765
+
+The buckets, width ladders, decode backend, beam size and dtype are the
+artifact's; the flags that would change them are refused.
+``--compile_cache DIR`` (or ``$SAM_COMPILE_CACHE``) builds the kernels into
+DIR once and reuses them on every later start.
+
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions,
 eagerly, instead.
 """
@@ -59,16 +71,25 @@ from .models.beam_search import BEAM_TP_REFUSAL
 from .models.fast_decode import BACKENDS as DECODE_BACKENDS
 from .models.fast_decode import MEGA_TP_REFUSAL
 from .models.sa_m4c import SAM4C, SAM4CParams
+from .ops import cuda_build
 from .parallel.mesh import check_tensor_parallel
 from .serving.engine import SAMPLE_KEYS, ServingEngine
 from .utils.checkpoint import restore_checkpoint
+from .utils.compile_cache import enable_compile_cache
 
 logger = logging.getLogger("serve")
 
-#: JAX flags not ported yet: (flag, its default, the ROADMAP queue 1 item)
-UNPORTED = (
-    ("artifact", None, "item 10, AOT artifacts"),
-    ("compile_cache", None, "item 11, the compile cache"),
+#: the flags an artifact's manifest freezes: (flag, whether args set it)
+ARTIFACT_FROZEN = (
+    ("--buckets", lambda a: a.buckets is not None),
+    ("--ocr_bucket", lambda a: a.ocr_bucket is not None),
+    ("--obj_bucket", lambda a: a.obj_bucket is not None),
+    ("--beam_size", lambda a: a.beam_size != 1),
+    ("--decode_backend", lambda a: a.decode_backend != "auto"),
+    ("--dtype", lambda a: a.dtype is not None),
+    ("--auto_tune", lambda a: a.auto_tune != 0),
+    ("--model_parallel", lambda a: a.model_parallel != 1),
+    ("--data_parallel", lambda a: a.data_parallel != 0),
 )
 
 
@@ -78,11 +99,14 @@ def _ladder(s: str):
 
 def get_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--config", default=None, help="task YAML (configs/*.yml)")
+    p.add_argument("--config", default=None,
+                   help="task YAML (configs/*.yml); optional with --artifact --port when the "
+                        "artifact embeds its answer vocab (--demo needs it for its requests)")
     p.add_argument("--checkpoint", default="",
                    help="weights to serve (default: random ones from --seed)")
-    p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
-    p.add_argument("--buckets", default="1,8,32", help="batch sizes, comma-separated")
+    p.add_argument("--dtype", choices=["bf16", "f32"], default=None, help="default bf16")
+    p.add_argument("--buckets", default=None, help="batch sizes, comma-separated "
+                   "(default 1,8,32)")
     p.add_argument("--ocr_bucket", type=_ladder, default=None, metavar="N[,N...]",
                    help="OCR-width ladder: batches whose requests all fit a rung run a "
                         "narrower cell (identical answers)")
@@ -120,20 +144,32 @@ def get_args(argv=None):
     p.add_argument("--seed", type=int, default=0, help="weights and demo requests")
     p.add_argument("--beam_size", type=int, default=1, metavar="K",
                    help="answer with the best of K beams (1: greedy)")
-    # JAX flags refused unless left at their defaults (UNPORTED)
-    p.add_argument("--artifact", default=None, metavar="DIR")
-    p.add_argument("--compile_cache", default=None, metavar="DIR")
+    p.add_argument("--artifact", default=None, metavar="DIR",
+                   help="serve the exported programs of DIR (tools/torch_export_decode.py) "
+                        "with --checkpoint's weights, no model code")
+    p.add_argument("--compile_cache", default=None, metavar="DIR",
+                   help="build the CUDA kernels and native host passes into DIR and reuse "
+                        "them on later starts (default: $SAM_COMPILE_CACHE, else build/)")
     args = p.parse_args(argv)
-    for flag, default, item in UNPORTED:
-        if getattr(args, flag) != default:
-            p.error(f"--{flag} is not ported yet (ROADMAP queue 1, {item})")
+    if args.artifact:
+        frozen = [flag for flag, given in ARTIFACT_FROZEN if given(args)]
+        if frozen:
+            p.error(f"{', '.join(frozen)} cannot be combined with --artifact: buckets, width "
+                    f"ladders, backend, beam size and dtype are frozen in the manifest (and "
+                    f"auto-tuning cannot make new cells); re-export with "
+                    f"tools/torch_export_decode.py to change them")
+        if not args.checkpoint:
+            p.error("--artifact requires --checkpoint: the exported programs take the "
+                    "weights as an input")
+        if args.demo and not args.config:
+            p.error("--demo needs --config for its synthetic requests")
     if args.beam_size < 1:
         p.error(f"--beam_size {args.beam_size} must be at least 1")
     if args.beam_size > 1 and args.model_parallel > 1:
         p.error(f"--beam_size {args.beam_size} with --model_parallel {args.model_parallel}: "
                 f"{BEAM_TP_REFUSAL}")
-    if not args.config:
-        p.error("--config is required")
+    if not args.config and not args.artifact:
+        p.error("--config is required without --artifact")
     if not args.demo and args.port is None:
         p.error("pick a mode: --demo N or --port P")
     return args
@@ -348,12 +384,9 @@ def run_server(engine: ServingEngine, host: str, port: int, drain_s: float = 60.
             logger.warning("answers still unwritten after %.0f s", drain_s)
 
 
-def main(argv=None):
-    logging.basicConfig(format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-                        level=logging.INFO)
-    args = get_args(argv)
-    devices = parse_devices(args.device)
-    buckets = _ladder(args.buckets)
+def build_live_engine(args, devices):
+    """(dp, tp, task config, vocab, engine) of a run from ``--config``."""
+    buckets = _ladder(args.buckets or "1,8,32")
     dp, tp = plan_mesh(args, len(devices), buckets)
     devices = devices[:dp * tp]
     task_cfg = load_task_config(args.config)
@@ -368,7 +401,7 @@ def main(argv=None):
         logger.info("serving over mesh %s (dp=%d x tp=%d)",
                     {"data": dp, "model": tp, "devices": [str(d) for d in devices]}, dp, tp)
     vocab = build_vocab(task_cfg)
-    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
     # a tensor-parallel engine copies its shards from the CPU
     home = devices[0] if tp == 1 else torch.device("cpu")
     model = build_model(task_cfg, len(vocab), dtype, args.seed, home)
@@ -384,10 +417,61 @@ def main(argv=None):
         ocr_buckets=args.ocr_bucket, obj_buckets=args.obj_bucket,
         auto_tune_every=args.auto_tune, beam_size=args.beam_size,
     )
+    return dp, tp, task_cfg, vocab, engine
+
+
+def build_artifact_engine(args, devices):
+    """(task config or None, vocab, engine) of ``--artifact``: the answer
+    vocab of ``--config``, else the one the artifact embeds; the weights of
+    ``--checkpoint``."""
+    from .serving.artifact import VOCAB_FILE
+    from .serving.artifact_engine import engine_from_artifact
+
+    if not args.device:
+        devices = devices[:1]
+    if len(devices) != 1:
+        raise SystemExit(f"--artifact serves on one device; --device lists {len(devices)}")
+    task_cfg = None
+    if args.config:
+        task_cfg = load_task_config(args.config)
+        vocab = build_vocab(task_cfg)
+    else:
+        path = os.path.join(args.artifact, VOCAB_FILE)
+        if not os.path.exists(path):
+            raise SystemExit(f"{path} is missing: this artifact embeds no answer vocab; "
+                             f"pass --config")
+        vocab = VocabDict(path)
+        logger.info("answer vocab (%d words) loaded from the artifact", len(vocab))
+    restored = restore_checkpoint(args.checkpoint, map_location="cpu")
+    try:
+        engine = engine_from_artifact(args.artifact, restored["model_state_dict"], vocab,
+                                      device=devices[0], max_wait_ms=args.max_wait_ms)
+    except ValueError as e:
+        raise SystemExit(f"--artifact {args.artifact}: {e}") from None
+    m = engine._artifact.manifest
+    logger.info("artifact engine %s: buckets %s, obj %s, OCR %s, backend %s, beam %d, %s, "
+                "weights of %s", args.artifact, engine.buckets, engine.obj_ladder_widths,
+                engine.ladder_widths, m["backend"], m["beam_size"], m["model_dtype"],
+                args.checkpoint)
+    return task_cfg, vocab, engine
+
+
+def main(argv=None):
+    logging.basicConfig(format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+                        level=logging.INFO)
+    args = get_args(argv)
+    enable_compile_cache(args.compile_cache)  # before any kernel builds
+    devices = parse_devices(args.device)
+    if args.artifact:
+        dp, tp = 1, 1
+        task_cfg, vocab, engine = build_artifact_engine(args, devices)
+    else:
+        dp, tp, task_cfg, vocab, engine = build_live_engine(args, devices)
     t0 = time.monotonic()
     engine.warmup()
-    logger.info("warmed %d cells in %.1fs: %s", engine.num_executables,
-                time.monotonic() - t0, json.dumps(engine.graph_counts()))
+    logger.info("warmed %d cells in %.1fs: %s; kernels built by this process (s): %s",
+                engine.num_executables, time.monotonic() - t0,
+                json.dumps(engine.graph_counts()), json.dumps(cuda_build.built_seconds))
     stats = None
     try:
         if args.demo:

@@ -82,16 +82,11 @@ from .parallel.mesh import (barrier, check_batch, check_tensor_parallel, env_wor
 from .serve import build_model, build_vocab, parse_devices
 from .training.loop import train
 from .utils.checkpoint import init_text_bert_from_bert_base, restore_checkpoint
+from .models.encoders import apply_detectron_fc7_weights
+from .utils.compile_cache import enable_compile_cache
 from .utils.device import resolve_device
 
 logger = logging.getLogger("train")
-
-#: JAX flags not ported yet: (flag, its default, the ROADMAP queue 1 item)
-UNPORTED = (
-    ("dropout_reuse", False, "item 1, dropout_mask_reuse"),
-    ("compile_cache", None, "item 11, the compile cache"),
-)
-
 
 def _ladder(s: str):
     return [int(x) for x in s.split(",") if x]
@@ -136,18 +131,19 @@ def _parser() -> argparse.ArgumentParser:
                         "rung that holds its real OCR tokens (the same answers)")
     p.add_argument("--obj_bucket", type=_ladder, default=None, metavar="N[,N...]",
                    help="--pretrained_eval: the obj-width ladder; with --ocr_bucket a grid")
-    # JAX flags refused unless left at their defaults (UNPORTED)
-    p.add_argument("--dropout_reuse", action="store_true")
-    p.add_argument("--compile_cache", default=None, metavar="DIR")
+    p.add_argument("--dropout_reuse", action="store_true",
+                   help="draw one dropout mask per site type (attention probs, self-output, "
+                        "FFN output) and shape for all MMT layers of a step: the YAML's "
+                        "SA-M4C.dropout_mask_reuse: true")
+    p.add_argument("--compile_cache", default=None, metavar="DIR",
+                   help="build the CUDA kernels and native host passes into DIR and reuse "
+                        "them across runs (default: $SAM_COMPILE_CACHE, else build/)")
     return p
 
 
 def get_args(argv=None):
     parser = _parser()
     args = parser.parse_args(argv)
-    for flag, default, item in UNPORTED:
-        if getattr(args, flag) != default:
-            parser.error(f"--{flag} is not ported yet (ROADMAP queue 1, {item})")
     if args.multihost and missing_torchrun_env():
         parser.error(f"--multihost needs torchrun's environment "
                      f"({', '.join(missing_torchrun_env())} unset): launch with torchrun "
@@ -352,7 +348,11 @@ def main(argv=None) -> dict:
     (one dict per epoch, ``training.loop.train``). With ``--multihost``,
     ranks other than 0 return no evaluation."""
     args = get_args(argv)
+    enable_compile_cache(args.compile_cache)  # before any kernel or host pass builds
     task_cfg = load_task_config(args.config)
+    if args.dropout_reuse and not task_cfg.mmt.dropout_mask_reuse:
+        task_cfg = dataclasses.replace(
+            task_cfg, mmt=dataclasses.replace(task_cfg.mmt, dropout_mask_reuse=True))
     world = env_world_size() if args.multihost else 1
     check_batch(args.batch_size or task_cfg.batch_size, world, args.grad_accum)
     devices = None
@@ -407,11 +407,15 @@ def _run(args, task_cfg, ctx, devices) -> dict:
     if task_cfg.mmt.frcn_encoder_type == "finetune_faster_rcnn_fpn_fc7":
         wf, bf = task_cfg.mmt.detectron_weights_file, task_cfg.mmt.detectron_bias_file
         if wf and bf and os.path.exists(wf) and os.path.exists(bf):
-            raise NotImplementedError("installing the detectron fc7 weights is not ported yet")
-        logger.warning(
-            "frcn_encoder_type=finetune_faster_rcnn_fpn_fc7 but no detectron weight files "
-            "found (%r, %r) - encoders start random; the reference loads pickled detectron "
-            "fc7 weights.", wf, bf)
+            # before a --resume restores (training.loop.train) or an evaluated
+            # checkpoint loads, which then take precedence
+            logger.info("detectron fc7 weights installed into %s",
+                        apply_detectron_fc7_weights(model, wf, bf))
+        else:
+            logger.warning(
+                "frcn_encoder_type=finetune_faster_rcnn_fpn_fc7 but no detectron weight "
+                "files found (%r, %r) - encoders start random; the reference loads pickled "
+                "detectron fc7 weights.", wf, bf)
 
     # only a run that starts from scratch takes bert-base: --resume skips it
     # only when a checkpoint exists

@@ -886,3 +886,128 @@ def test_implicit_fused_decode_on_card_equals_plain(dev):
     assert (s_f - s_p).abs().max().item() < 1e-4
     with pytest.raises(ValueError, match="head counts differ"):
         greedy_decode_fast(model, batch, 1, backend="mega")
+
+
+# ---- the kernels as registered operators, through torch.export ----------
+
+class _OpModule(torch.nn.Module):
+    """Calls one kernel wrapper: what an exported program holds of it."""
+
+    def __init__(self, call):
+        super().__init__()
+        self.call = call
+
+    def forward(self, *args):
+        return self.call(*args)
+
+
+def _exported(call, args, path):
+    """``call`` exported (under no_grad, as the artifacts are), saved to
+    ``path``, loaded back; the loaded program and its callable."""
+    with torch.no_grad():
+        program = torch.export.export(_OpModule(call), tuple(args), strict=False)
+    torch.export.save(program, str(path))
+    program = torch.export.load(str(path))
+    return program, program.module()
+
+
+def _op_nodes(program):
+    return [str(n.target) for n in program.graph.nodes if "sam_textvqa_torch" in str(n.target)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)])
+def test_exported_spatial_attention_operator_matches_plain(dev, dtype, tol, tmp_path):
+    b, h, q_len, n_ctx, dec_len, d = _C3_L170
+    q, k, v, *rest = _spatial_inputs(np.random.RandomState(3), b, h, q_len, n_ctx, dec_len,
+                                     d, dev)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    kw = dict(q_len=q_len, n_ctx=n_ctx, dec_len=dec_len)
+    program, call = _exported(lambda *a: spatial_attention(*a, **kw), (q, k, v, *rest),
+                              tmp_path / "k1.pt2")
+    assert _op_nodes(program) == ["sam_textvqa_torch.spatial_attention.default"]
+    before = cuda_build.launch_counts()["spatial_attention"]
+    out = call(q, k, v, *rest)
+    assert cuda_build.launch_counts()["spatial_attention"] == before + 1
+    ref = spatial_attention_plain(q, k, v, *rest, **kw)
+    assert (out.float() - ref.float()).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+def test_exported_decode_attention_operator_matches_plain(dev, dtype, tol, tmp_path):
+    rng = np.random.RandomState(4)
+    b, d, hd, le, t_max, q_len, n_obj = 8, 768, 64, 170, 12, 20, 100
+    k_enc, v_enc, k_dec, v_dec, seg = _decode_inputs(rng, b, d, le, t_max, q_len, n_obj,
+                                                     dtype, dev)
+    q = torch.from_numpy(rng.randn(b, d).astype(np.float32)).to(dev, dtype)
+    t = torch.tensor([7], dtype=torch.int32, device=dev)
+    kw = dict(hd=hd, q_len=q_len, n_obj=n_obj)
+    args = (q, k_enc, v_enc, k_dec, v_dec, seg, t)
+    program, call = _exported(lambda *a: decode_attention(*a, **kw), args, tmp_path / "k2.pt2")
+    assert _op_nodes(program) == ["sam_textvqa_torch.decode_attention.default"]
+    before = cuda_build.launch_counts()["decode_attention"]
+    out = call(*args)
+    assert cuda_build.launch_counts()["decode_attention"] == before + 1
+    ref = decode_attention_plain(*args, **kw)
+    assert (out.float() - ref.float()).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exported_decode_step_operator_matches_plain(dev, dtype, tmp_path):
+    """The operator declares the decoder K/V buffers it writes: the exported
+    program writes row t of the caller's buffers in place, as the eager
+    call does."""
+    rng = np.random.RandomState(5)
+    n_layers, d, f, le, t_max, q_len, n_obj = _STEP_C3
+    b, step = 8, 3
+    k_enc, v_enc, k_dec, v_dec, seg = _decode_inputs(rng, b, d, le, t_max, q_len, n_obj,
+                                                     dtype, dev, layers=n_layers)
+    shapes = {"wqkv": (3 * d, d), "bqkv": (3 * d,), "wout": (d, d), "bout": (d,),
+              "wff1": (f, d), "bff1": (f,), "wff2": (d, f), "bff2": (d,)}
+    w = [torch.from_numpy(((1.0 if n.endswith("w") else 0.0) + 0.1 * rng.randn(n_layers, d))
+                          .astype(np.float32)).to(dev) if n.startswith("ln") else
+         torch.from_numpy((0.8 / np.sqrt(d) * rng.randn(n_layers, *shapes[n]))
+                          .astype(np.float32)).to(dev, dtype) for n in WEIGHT_NAMES]
+    x0 = torch.from_numpy(rng.randn(b, d).astype(np.float32)).to(dev, dtype)
+    t = torch.tensor([step], dtype=torch.int32, device=dev)
+    kw = dict(hd=64, q_len=q_len, n_obj=n_obj)
+    kd2, vd2 = k_dec.clone(), v_dec.clone()
+    args = (t, seg, x0, *w, k_enc, v_enc, k_dec, v_dec)
+    program, call = _exported(lambda *a: decode_step_fused(*a, **kw), args, tmp_path / "k3.pt2")
+    assert _op_nodes(program) == ["sam_textvqa_torch.decode_step.default"]
+    before = cuda_build.launch_counts()["decode_step"]
+    out = call(*args)
+    assert cuda_build.launch_counts()["decode_step"] == before + 1
+    ref = decode_step_plain(t, seg, x0, *w, k_enc, v_enc, kd2, vd2, **kw)
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() < 1e-4
+    else:
+        assert diff.max().item() < 0.25 and diff.mean().item() < 1e-2
+    row_tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (k_dec[0, :, step].float() - kd2[0, :, step].float()).abs().max().item() < row_tol
+    assert k_dec[:, :, step].abs().sum().item() > 0  # written through the program
+
+
+def test_artifact_on_card_equals_the_live_mega_decode(dev, tmp_path):
+    """A small f32 ``mega`` artifact exported on the card: its ids equal the
+    live decode's, and each decode launches K1 per spatial layer and K3 per
+    step through the registered operators."""
+    from sam_textvqa_tpu_torch.serving.artifact import DecodeArtifact, export_decode_artifact
+
+    task = _train_task(layer_type_list=["n", "s"], mix_list=["none", "share3"])
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, 30))
+    model = model.init_weights(torch.Generator().manual_seed(0), std=0.1).to(dev).eval()
+    export_decode_artifact(model, model.state_dict(), str(tmp_path), bos=1, eos=2,
+                           buckets=(4,), platforms=("cuda",))
+    art = DecodeArtifact(str(tmp_path), dev)
+    np_batch = make_batch(task, 3, seed=1, num_answers_vocab=30)
+    weights = art.prepare_weights(model.state_dict())
+    art.call(weights, np_batch)  # builds, loads
+    before = cuda_build.launch_counts()
+    _, ids = art.call(weights, np_batch)
+    launched = {k: v - before[k] for k, v in cuda_build.launch_counts().items()}
+    _, live = greedy_decode_fast(model, device_batch(np_batch, dev), 1, backend="mega")
+    assert torch.equal(ids, live)
+    steps = task.mmt.num_decoding_steps
+    assert launched == {"spatial_attention": task.mmt.layer_type_list.count("s"),
+                        "decode_attention": 0, "decode_step": steps}

@@ -28,6 +28,7 @@ several of them, which only slows its compile.
 import json
 import logging
 import os
+import pickle
 import signal
 import subprocess
 import sys
@@ -410,8 +411,10 @@ def test_cli_train_resume_and_pretrained_eval(cli_config):
      "item 5b"),
     (["--model_parallel", "2", "--decode_backend", "mega"], "item 9e"),
     (["--multihost"], "torchrun"),  # ported: refused without torchrun's environment
-    (["--dropout_reuse"], "item 1"),
-    (["--compile_cache", "cache"], "item 11"),
+    # items 1 and 11 are ported: the flags parse (run in
+    # test_torch_dropout_variants.py and test_torch_compile_cache.py)
+    pytest.param(["--dropout_reuse"], None, id="flags5-item 1"),
+    pytest.param(["--compile_cache", "cache"], None, id="flags6-item 11"),
     # item 4 is ported: the JAX package's decode backends parse, also under
     # tensor parallelism
     pytest.param(["--decode_backend", "xla_early"], None, id="flags7-item 4"),
@@ -426,7 +429,7 @@ def test_cli_refuses_unported_flags(flags, item, capsys, monkeypatch):
         monkeypatch.delenv(var, raising=False)
     if item is None:
         args = train_cli.get_args(["--config", "c.yml", *flags])
-        assert args.decode_backend == flags[1]
+        assert getattr(args, flags[0][2:]) == (flags[1] if len(flags) > 1 else True)
         return
     with pytest.raises(SystemExit) as exc:
         train_cli.get_args(["--config", "c.yml", *flags])
@@ -439,8 +442,8 @@ def test_cli_device_and_data_checks(cli_config, monkeypatch, tmp_path):
     """cuda unless told otherwise (raises without a card); without
     ``--synthetic`` it exits when the imdb files are missing and reads them
     when they exist (an empty file is no imdb; the real-data path itself is
-    held in ``tests/test_torch_data.py``); detectron fc7 weights are
-    refused."""
+    held in ``tests/test_torch_data.py``); detectron fc7 weights of the
+    wrong shape are refused before any training."""
     config, _ = cli_config
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -455,15 +458,16 @@ def test_cli_device_and_data_checks(cli_config, monkeypatch, tmp_path):
     monkeypatch.setitem(sys.modules, "transformers", None)  # the offline tokenizer, fast
     with pytest.raises(ValueError, match="not an imdb file"):
         train_cli.main(["--config", str(real), "--device", "cpu"])
-    # the JAX CLI installs detectron fc7 weights when the files exist; the
-    # port refuses (and, like JAX, only warns when they are missing)
+    # the CLIs install detectron fc7 weights when the files exist (and only
+    # warn when they are missing); the port raises on a shape mismatch
     raw = yaml.safe_load(open(config))
-    (tmp_path / "w.pkl").write_bytes(b"")
+    with open(tmp_path / "w.pkl", "wb") as f:
+        pickle.dump(np.zeros((3, 2), np.float32), f)
     raw["SA-M4C"].update(frcn_encoder_type="finetune_faster_rcnn_fpn_fc7",
                          detectron_weights_file=str(tmp_path / "w.pkl"),
                          detectron_bias_file=str(tmp_path / "w.pkl"))
     raw["output_dir"] = str(tmp_path)
     fc7 = tmp_path / "fc7.yml"
     fc7.write_text(yaml.safe_dump(raw))
-    with pytest.raises(NotImplementedError, match="detectron fc7"):
+    with pytest.raises(ValueError, match=r"obj_faster_rcnn_fc7\.lc\.weight has shape"):
         train_cli.main(["--config", str(fc7), "--synthetic", "8", "--device", "cpu"])

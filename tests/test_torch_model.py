@@ -176,18 +176,21 @@ def test_random_init_is_seeded():
 
 
 def test_unported_options_raise():
-    """The aux heads and implicit layers build now (held against JAX in
-    ``test_torch_implicit.py``); an aux fusion JAX does not know and a
-    layer type it does not know still raise, and the dropout variants
-    (ROADMAP item 1) are refused."""
+    """The aux heads, implicit layers and dropout variants build now (held
+    against JAX in ``test_torch_implicit.py`` and
+    ``test_torch_dropout_variants.py``); an aux fusion JAX does not know and
+    a layer type it does not know still raise."""
     task = task_config_from_dict(tiny_raw(use_aux_heads=True))
     assert SAM4C(SAM4CParams(task.mmt, task.text_bert, NUM_ANSWERS)).spatial_classifier
     task = task_config_from_dict(tiny_raw(layer_type_list=["n", "i"], mix_list=["none", "share3"]))
     assert len(SAM4C(SAM4CParams(task.mmt, task.text_bert, NUM_ANSWERS)
                      ).mmt.encoder.implicit_layers) == 1
+    for option in ("dropout_mask_reuse", "dropout_fused_draw"):
+        task = task_config_from_dict(tiny_raw(**{option: True}))
+        assert getattr(SAM4C(SAM4CParams(task.mmt, task.text_bert, NUM_ANSWERS)).mmt.config,
+                       option)
     for bad, err in ((dict(use_aux_heads=True, aux_spatial_fusion="cat"), ValueError),
-                     (dict(layer_type_list=["n", "x"], mix_list=["none", "share3"]), ValueError),
-                     (dict(dropout_mask_reuse=True), NotImplementedError)):
+                     (dict(layer_type_list=["n", "x"], mix_list=["none", "share3"]), ValueError)):
         task = task_config_from_dict(tiny_raw(**bad))
         with pytest.raises(err):
             SAM4C(SAM4CParams(task.mmt, task.text_bert, NUM_ANSWERS))

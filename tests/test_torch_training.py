@@ -45,6 +45,7 @@ from sam_textvqa_tpu.training import step as jax_step
 from sam_textvqa_tpu_torch.config import task_config_from_dict
 from sam_textvqa_tpu_torch.data.synthetic import device_batch, make_batch
 from sam_textvqa_tpu_torch.models.layers import dropout
+from sam_textvqa_tpu_torch.models.mmt import mmt_dropout_masks
 from sam_textvqa_tpu_torch.models.sa_m4c import SAM4C, SAM4CParams
 from sam_textvqa_tpu_torch.ops.decode_attention import decode_attention
 from sam_textvqa_tpu_torch.ops.decode_step import WEIGHT_NAMES, decode_step_fused
@@ -486,7 +487,24 @@ def test_train_forward_never_reaches_the_kernel(pair):
 
 @pytest.mark.parametrize("option", ["dropout_mask_reuse", "dropout_fused_draw"])
 def test_unported_dropout_options_raise(option):
-    task = task_config_from_dict(tiny_raw({option: True}))
+    """Both dropout variants are ported (item 1): the option is read from
+    the YAML, the model builds, and its MMT layers take the variant's drawn
+    masks (shared tensors under reuse, slices of one page under the fused
+    draw) in a dropout forward that differs from the deterministic one."""
+    task = task_config_from_dict(tiny_raw({option: True, "hidden_dropout_prob": 0.1,
+                                           "attention_probs_dropout_prob": 0.1}))
     assert getattr(task.mmt, option) is True  # read from the YAML, not dropped
-    with pytest.raises(NotImplementedError, match=option):
-        SAM4C(SAM4CParams(task.mmt, task.text_bert, NUM_ANSWERS))
+    model = SAM4C(SAM4CParams(task.mmt, task.text_bert, NUM_ANSWERS))
+    masks = mmt_dropout_masks(task.mmt, 2, 9, torch.Generator().manual_seed(0), "cpu")
+    hidden = [m[site] for m in masks for site in ("self_out", "ffn_out")]
+    if option == "dropout_mask_reuse":
+        assert all(m is masks[0]["self_out"] for m in hidden[::2])
+    else:
+        assert all(m._base is hidden[0]._base is not None for m in hidden)
+    batch = {k: v for k, v in make_batch(task, 2, seed=0, num_answers_vocab=NUM_ANSWERS).items()
+             if not k.startswith("_")}
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        drop = model(batch, deterministic=False, generator=torch.Generator().manual_seed(1))
+        det = model(batch)
+    assert not torch.equal(drop["scores"], det["scores"])
