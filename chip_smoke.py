@@ -66,8 +66,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    calls (step and parameters bit-identical), and at the same time the same
    in a child without the variable and without deterministic algorithms,
    as the CLI runs by default (the largest parameter difference is printed,
-   with no bar); phase 13's untimed part runs in this process meanwhile
-   (13a's exports, 13e's tp 2 parity and fc7 run); ``--pretrained_eval`` of the best model with ``auto``
+   with no bar); meanwhile this process holds the best model (below), and
+   phase 13's untimed part (13a's exports start, 13e's tp 2 parity and
+   fc7 run) and phase 6's host part run in it; ``--pretrained_eval`` of
+   the best model with ``auto``
    (K1 and K3 launched, accuracy equal to the loop's best) and with
    ``fused`` (K1 and K2 launched), both writing ``evalai_val.json``; the
    best model's f32 greedy ids over the whole val split identical across
@@ -81,7 +83,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    tokens), a fastText ``.bin`` (1,000 words, 100,000 buckets, dimension
    300) and a 5,000-word answer vocab. Each split is preprocessed natively
    and in Python (seconds of each, of PHOC, the spatial graphs and the
-   fastText lookups; the arrays must agree), then ``train.main`` runs
+   fastText lookups; the arrays must agree; the files and this
+   preprocessing run in phase 5, beside its resume children, on the
+   host), then ``train.main`` runs
    without ``--synthetic`` (c3, bf16, batch 96, 1 epoch; a missing test
    split skipped): the loop's samples/s beside phase 5's and phase 3b's,
    validation samples/s, K1 and K3 required in the validation and no
@@ -105,7 +109,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    after (K1 and K3 launched, equal to the launches recorded at capture x
    replays); in f32 the server CLI (``python -m
    sam_textvqa_tpu_torch.serve --port 0``, these ladders, ``--checkpoint``
-   of the phase's weights) as a subprocess, driven by 8 sockets, every
+   of the phase's weights) as a subprocess, started before the in-process
+   engines and driven after them by 8 sockets, every
    answer equal to the in-process engine's, ``{"stats": true}``, SIGTERM
    and a clean exit (samples/s, latencies, occupancy by bucket and width,
    graphs); in bf16 the graph's replay time per decode against the eager
@@ -116,7 +121,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
 8. data parallelism, before phase 4 too. 8a, two ranks sharing the card as
    child processes (``--ddp-child``), calling the library: first an NCCL
    group of the two on cuda:0 (NCCL refuses two ranks on one device; its
-   message is printed); then, over gloo on CUDA tensors, 3 f32 DDP steps of
+   message is printed), beside this process's reference steps; then, over
+   gloo on CUDA tensors, 3 f32 DDP steps of
    c3 at dropout 0 (TF32 off) on 48 rows each, with ``grad_accum`` 1 and 2,
    against 3 steps of this process on the whole batch of 96 from the same
    weights, the batch's halves carrying different masked counts (loss rtol
@@ -126,7 +132,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    NCCL's); one bf16 epoch of ``training.loop.train`` at batch 96 on
    synthetic data with validation (K1 and K3 required in each rank's
    validation, none in the train steps, equal validation accuracies, no
-   file of the run written by rank 1). 8b, the train CLI under ``python -m
+   file of the run written by rank 1). 8b, beside 8a's gloo ranks (the card
+   shared by the three processes, so its times are those of a shared
+   card), the train CLI under ``python -m
    torch.distributed.run --standalone --nproc_per_node 1`` with
    ``--multihost`` over NCCL, in one process (``--torchrun-child``): first
    phase 3b's bf16 train step at batch 96 without and with DDP, in turns
@@ -149,7 +157,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    counts zeroed before and read after (dp: K1 and K3; tp: K1 and K2, no
    K3), its ids of a B=2 and a B=32 batch (f32: identical to one device's;
    bf16: the agreement printed), decode ms of those batches, samples/s,
-   p50/p95, graphs and capture seconds. 9c, the serve CLI as subprocesses:
+   p50/p95, graphs and capture seconds. 9c, the serve CLI as subprocesses
+   started beside 9b (their demo numbers are printed, no more):
    ``--device cuda:0,cuda:0 --data_parallel 2`` must exit 0 and log
    ``dp=2 x tp=1``, ``--model_parallel 3`` must exit nonzero with "must
    divide";
@@ -161,7 +170,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    within phase 3b's bars (parameters: the reach of the 3 Adam steps); 2
    gloo ranks (``--ddp-child`` kind ``tp``), each a tp 2 group on the
    card, 3 f32 steps on 48 rows against the one-device run on 96 (phase
-   8a's bars, the ranks bit-identical); the bf16 train step at batch 96 of
+   8a's bars, the ranks bit-identical; started beside the 0.1 runs once
+   the dropout 0 reference is written); the bf16 train step at batch 96 of
    one device and of tp 2 in turns (CUDA events, medians of 10 after 3
    warm-up, peak memory with both resident, no kernel launched), whose tp 2
    step phase 4 profiles (idle share). 10b: the train CLI with ``--device
@@ -199,8 +209,31 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    ladders: the 64 requests (cut by quarters) from 8 threads, answers equal
    to ``run_split_beam``'s best beams, K1 through the replays (equal to
    recorded x replays) and no K2 or K3, samples/s, p50/p95, graphs, capture
-   seconds, pool bytes. 11d: ``serve --beam_size 5 --model_parallel 2`` on
-   ``cuda:0,cuda:0`` must exit nonzero naming ROADMAP item 5b;
+   seconds, pool bytes (its tensor-parallel run is phase 14c);
+14. tensor-parallel decoding on the card repeated, after phase 11 (whose
+   CLI answers it holds to), on phase 9's models (f32 and bf16, std 0.1,
+   kept on the CPU in between), requests and staged batches. 14a: the
+   decode step's two shard entries (``decode_shard_attention``: QKV,
+   attention and the partial out-projection of 6 of 12 heads;
+   ``decode_shard_ffn``: FF1 + GeLU and the partial FF2 of 1536 of 3072
+   columns) at c3's tp 2 shard shapes, phase 2's weights, B = 1, 8 and
+   32, against their plain versions in f32 and bf16 within phase 2's K3
+   bars, with phase 2's eager / device / host / plain times, bound and
+   the same part as PyTorch calls. 14b: ``mega`` over ``[cuda:0,
+   cuda:0]`` at B = 2 and 32: one decode launches K1 8 times and each
+   shard entry 144 times (no K2, no K3); f32 ids equal the one-device
+   ``mega`` ids (bf16 agreement printed), scores against it and tp 2
+   ``fused``; eager tp 2 ``mega`` and ``fused`` ms beside the one-device
+   replay; a tp 2 ``mega`` engine answers phase 9's 64 requests from 8
+   threads (K1 and both entries launched, no K2 or K3; f32 answers and
+   ids equal phase 9's one-device engine's; decode ms, samples/s). 14c,
+   f32, K = 5: tp 2 fast beams at B = 8 (K1 in the cache pass only) with
+   the one-device seqs (scores within 1e-4), ``early_exit``
+   bit-identical, the slow beams' seqs equal; a one-device (graphs) and a
+   tp 2 (eager) beam engine give the same answers to the 64 requests;
+   ``--pretrained_eval`` of phase 5's best model with ``--beam_size 5
+   --model_parallel 2 --device cuda:0,cuda:0``: answers equal phase 11b's
+   one-device f32 run, accuracy and samples/s beside it;
 12. early exit, the ``policy`` engine and implicit layers, before phase 4
    too. 12a: phase 7's kind of weights (c3, std 0.1, seed 0) on 64 raw
    requests (seed 12) at B = 1, 8 and 32 in f32 and bf16, under three EOS
@@ -235,9 +268,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    launched, K3 not);
 13. decode artifacts, the compile cache, the dropout variants and fc7
    weights, before phase 4 too, on 64 raw requests (seed 13) and phase 7's
-   kind of weights; 13a's exports and 13e's exact checks run in phase 5,
-   beside its resume children, so that nothing else runs while phase 13
-   times. 13a: ``tools/torch_export_decode.py`` in three
+   kind of weights; 13a's exports start in phase 5 and run on beside the
+   phases after it (child processes, waited for before phase 12), 13e's
+   exact checks run in phase 5 beside its resume children, and 13d's
+   children run beside phase 12 and the rest of phase 13. 13a:
+   ``tools/torch_export_decode.py`` in three
    processes at once, from one checkpoint: the bf16 ``mega`` grid (1, 8,
    32) x OCR (25, full), one f32 ``mega`` cell (B = 8, ``--check``) and
    one bf16 beam cell (B = 8, K = 5), for ``cuda``; export seconds and
@@ -251,12 +286,13 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    artifact engine against the live engine on the same requests and
    weights: f32 answers equal (bucket 8), bf16 over the grid: graphs,
    capture seconds, K1/K3 launches through the replays (= recorded x
-   replays, not 0), then samples/s and p50/p95 of 1,024 requests per turn
+   replays, not 0), then samples/s and p50/p95 of 256 requests per turn
    in turns (live, artifact, artifact, live). 13d: seconds to the first
    TCP answer of the server CLI in a child (f32, bucket 8): the live
-   engine and ``--artifact`` (no ``--config``), one child at a time, each
-   with an empty and then a warm ``--compile_cache``; a warm start builds
-   no kernel. 13e: 3 + 10 bf16
+   engine and ``--artifact`` (no ``--config``), the two at once, each
+   with an empty and then a warm ``--compile_cache``, started before phase
+   12 and run beside it and 13e to 13c (the card and the host shared); a
+   warm start builds no kernel. 13e: 3 + 10 bf16
    train steps at batch 96 under ``dropout_mask_reuse`` and
    ``dropout_fused_draw`` beside the default (ms, peak memory, losses
    finite and falling); f32 tp 2 against one device under each, at phase
@@ -275,8 +311,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    with the kernel attention must match the plain one;
 then JSON lines of the training path, of the train CLI, of the real-data
 run, of the server, of data parallelism, of multi-device serving, of
-tensor-parallel training, of beams and ladders, of phase 12, of phase 13
-and of the kernels, and the result line
+tensor-parallel training, of beams and ladders, of phase 12, of phase 13,
+of phase 14 and of the kernels (K1, K2, K3 and K3's two shard entries),
+and the result line
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --resume-check CONFIG DIR [DEVICE [MODE]]`` is that child
@@ -293,6 +330,7 @@ It imports nothing of JAX, and exits nonzero without a CUDA device.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -321,7 +359,8 @@ import torch.nn.functional as F
 
 from sam_textvqa_tpu_torch import train as train_cli
 from sam_textvqa_tpu_torch.config import load_task_config
-from sam_textvqa_tpu_torch.data import dataset, fasttext_bin, features, lmdb_io, processors
+from sam_textvqa_tpu_torch.data import (dataset, fasttext_bin, features, lmdb_io, processors,
+                                        synthetic)
 from sam_textvqa_tpu_torch.data.dataset import EpochBatcher
 from sam_textvqa_tpu_torch.data.synthetic import SyntheticDataset, device_batch, make_batch
 from sam_textvqa_tpu_torch.data.vocab import VocabDict
@@ -330,7 +369,7 @@ from sam_textvqa_tpu_torch.evaluation.metrics import decode_predictions
 from sam_textvqa_tpu_torch.models.beam_search import beam_search_decode
 from sam_textvqa_tpu_torch.models.bert import split_heads
 from sam_textvqa_tpu_torch.models.sa_m4c import SAM4C, SAM4CParams
-from sam_textvqa_tpu_torch.models.tensor_parallel import TPSAM4C
+from sam_textvqa_tpu_torch.models.tensor_parallel import SHARD_CONSTS, TPSAM4C
 from sam_textvqa_tpu_torch.models import fast_decode
 from sam_textvqa_tpu_torch.models.fast_decode import (_greedy_decode, _mega_step_consts, _seg_lens,
                                                       beam_search_decode_fast, build_mmt_cache,
@@ -343,8 +382,10 @@ from sam_textvqa_tpu_torch.ops.batcher import cast_bf16
 from sam_textvqa_tpu_torch.ops.decode_attention import (decode_attention,
                                                         decode_attention_plain,
                                                         encoder_valid)
-from sam_textvqa_tpu_torch.ops.decode_step import (WEIGHT_NAMES, decode_step_fused,
-                                                   decode_step_plain)
+from sam_textvqa_tpu_torch.ops.decode_step import (WEIGHT_NAMES, decode_shard_attention,
+                                                   decode_shard_attention_plain,
+                                                   decode_shard_ffn, decode_shard_ffn_plain,
+                                                   decode_step_fused, decode_step_plain)
 from sam_textvqa_tpu_torch.ops.fused_attention import (combined_permission,
                                                        spatial_attention,
                                                        spatial_attention_plain)
@@ -403,8 +444,44 @@ REPLACES = {
 }
 
 
+_T0 = None  # the script's start: main's log lines carry the seconds since
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(msg if _T0 is None else f"[{time.monotonic() - _T0:6.1f}] {msg}", flush=True)
+
+
+_POOLS = {}
+
+
+def _copy_batch(batch: dict) -> dict:
+    return {k: [list(row) for row in v] if isinstance(v, list) else v.copy()
+            for k, v in batch.items()}
+
+
+def pooled_make_batch(task_cfg, batch_size: int, seed: int = 0,
+                      num_answers_vocab: int = 5000) -> dict:
+    """``make_batch``, drawn once per process for each set of arguments and
+    copied out after: the script's many train CLI runs in one process draw
+    the same synthetic splits (about 5 s of ``RandomState.randn`` at c3 for
+    the CLI's three), bit-equal whichever way they come. Keyed by every
+    field ``make_batch`` reads."""
+    mmt = task_cfg.mmt
+    key = (batch_size, seed, num_answers_vocab, mmt.max_seq_length, mmt.max_obj_num,
+           mmt.max_ocr_num, mmt.num_decoding_steps, task_cfg.distance_threshold)
+    if key not in _POOLS:
+        _POOLS[key] = synthetic.make_batch.__wrapped__(task_cfg, batch_size, seed=seed,
+                                                       num_answers_vocab=num_answers_vocab)
+    return _copy_batch(_POOLS[key])
+
+
+def pool_synthetic_batches() -> None:
+    """Route ``make_batch`` (the CLI's ``SyntheticDataset`` and this
+    script's own calls) through :func:`pooled_make_batch`."""
+    global make_batch
+    if not hasattr(synthetic.make_batch, "__wrapped__"):
+        pooled_make_batch.__wrapped__ = synthetic.make_batch
+        synthetic.make_batch = make_batch = pooled_make_batch
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -825,6 +902,11 @@ def serve_path(model, vocab, samples, backend: str, n: int):
         raise AssertionError(f"serving with {backend} failed: {stats}")
     stats["decode_backend"] = engine.decode_backend
     return stats, launches, by_dtype, warmup_s
+
+
+def launch_dict(**counts) -> dict:
+    """Launch counts of every counted kernel entry, 0 but for ``counts``."""
+    return {name: counts.get(name, 0) for name in cuda_build.KERNELS}
 
 
 def require_launched(launches, names, path):
@@ -1271,44 +1353,58 @@ def train_cli_path(task, vocab, model, bare_step, gen, dev=torch.device("cuda"),
         log(f"  peak memory {out['train']['peak_memory_bytes'] / 2**30:.2f} GiB, "
             f"whole main {wall:.1f} s")
 
-        best_model = str(tmp / "full" / "best_model")
-        evals = {}
-        for backend, kernels in (("auto", ("spatial_attention", "decode_step")),
-                                 ("fused", ("spatial_attention", "decode_attention"))):
-            dumped = tmp / "full" / "evalai_val.json"
-            dumped.unlink(missing_ok=True)
-            cuda_build.reset_launch_counts()
-            t0 = time.monotonic()
-            res = train_cli.main(cli_args(config, "eval", "--pretrained_eval", best_model,
-                                          "--decode_backend", backend, dev=dev))
-            torch.cuda.synchronize()
-            launches = cuda_build.launch_counts()
-            require_launched(launches, kernels, f"--pretrained_eval, {backend}")
-            val = res["eval"]["val"]
-            if len(json.loads(dumped.read_text())) != len(val["predictions"]):
-                raise AssertionError(f"{dumped} does not hold the val predictions")
-            evals[backend] = dict(val_accuracy=val["accuracy"], launches=launches,
-                                  seconds=time.monotonic() - t0,
-                                  answers=[p["pred_answer"] for p in val["predictions"]])
-        if evals["auto"]["val_accuracy"] != best_val:
-            raise AssertionError(f"--pretrained_eval auto accuracy {evals['auto']['val_accuracy']}"
-                                 f" differs from the loop's best {best_val}")
-        agree = float(np.mean([a == b for a, b in zip(evals["auto"].pop("answers"),
-                                                      evals["fused"].pop("answers"))]))
-        out["pretrained_eval"] = dict(evals, loop_best_val_accuracy=best_val,
-                                      bf16_answer_agreement_auto_vs_fused=agree)
-        log(f"  --pretrained_eval: {json.dumps(out['pretrained_eval'])}")
-        out["best_model_f32_ids"] = f32_best_model_ids(task, vocab, best_model, dev)
-        log(f"  best model, f32 greedy ids over the val split: "
-            f"{json.dumps(out['best_model_f32_ids'])}")
-        if keep_best is not None:
-            shutil.copy(best_model, keep_best)
+        def meanwhile():  # in this process, while the resume children run
+            out.update(best_model_checks(task, vocab, config, tmp, best_val, dev, keep_best))
+            if beside is not None:
+                beside()
+
+        out.update(resume_checks(config, tmp, dev, meanwhile))
         shutil.rmtree(tmp / "full")
-        out.update(resume_checks(config, tmp, dev, beside))
 
     val_batch = device_batch(make_batch(task, TRAIN_BATCH, seed=1,
                                         num_answers_vocab=len(vocab)), dev)
     out["parity_b96"] = parity_b96(task, model, val_batch, gen)
+    return out
+
+
+def best_model_checks(task, vocab, config: str, tmp: Path, best_val: float, dev,
+                      keep_best: Path = None) -> dict:
+    """Phase 5: ``--pretrained_eval`` of the loop's best model with ``auto``
+    and ``fused``, and its f32 greedy ids over the val split; ``keep_best``:
+    where the best model is copied for phase 11."""
+    out = {}
+    best_model = str(tmp / "full" / "best_model")
+    evals = {}
+    for backend, kernels in (("auto", ("spatial_attention", "decode_step")),
+                             ("fused", ("spatial_attention", "decode_attention"))):
+        dumped = tmp / "full" / "evalai_val.json"
+        dumped.unlink(missing_ok=True)
+        cuda_build.reset_launch_counts()
+        t0 = time.monotonic()
+        res = train_cli.main(cli_args(config, "eval", "--pretrained_eval", best_model,
+                                      "--decode_backend", backend, dev=dev))
+        torch.cuda.synchronize()
+        launches = cuda_build.launch_counts()
+        require_launched(launches, kernels, f"--pretrained_eval, {backend}")
+        val = res["eval"]["val"]
+        if len(json.loads(dumped.read_text())) != len(val["predictions"]):
+            raise AssertionError(f"{dumped} does not hold the val predictions")
+        evals[backend] = dict(val_accuracy=val["accuracy"], launches=launches,
+                              seconds=time.monotonic() - t0,
+                              answers=[p["pred_answer"] for p in val["predictions"]])
+    if evals["auto"]["val_accuracy"] != best_val:
+        raise AssertionError(f"--pretrained_eval auto accuracy {evals['auto']['val_accuracy']}"
+                             f" differs from the loop's best {best_val}")
+    agree = float(np.mean([a == b for a, b in zip(evals["auto"].pop("answers"),
+                                                  evals["fused"].pop("answers"))]))
+    out["pretrained_eval"] = dict(evals, loop_best_val_accuracy=best_val,
+                                  bf16_answer_agreement_auto_vs_fused=agree)
+    log(f"  --pretrained_eval: {json.dumps(out['pretrained_eval'])}")
+    out["best_model_f32_ids"] = f32_best_model_ids(task, vocab, best_model, dev)
+    log(f"  best model, f32 greedy ids over the val split: "
+        f"{json.dumps(out['best_model_f32_ids'])}")
+    if keep_best is not None:
+        shutil.copy(best_model, keep_best)
     return out
 
 
@@ -1451,37 +1547,47 @@ def preprocess_times(task, vocab, split: str, root: Path) -> dict:
     return out
 
 
-def real_data_path(task, vocab, model, cli, bare_step, gen, dev=torch.device("cuda")) -> dict:
-    """Phase 6: the train CLI on real-format files (see the module
-    docstring). ``cli`` is phase 5's result and ``bare_step`` phase 3b's,
-    printed beside the loop's rate; ``model`` the phase 3 model, whose
-    weights K3's check uses."""
+def real_data_files(task) -> dict:
+    """Phase 6's host part, run in phase 5 beside its resume children: the
+    real-format files and each split's preprocessing, native and in Python.
+    Returns what :func:`real_data_path` goes on with."""
     import yaml
 
     out = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as tmp:
-        root = Path(tmp)
-        t0 = time.monotonic()
-        files = write_real_files(root, task)
-        out["files"] = dict(files["sizes"], write_s=time.monotonic() - t0)
-        log(f"  generated files (numpy, seed 0; no real TextVQA data): "
-            f"{json.dumps(out['files'])}")
-        raw = real_config(yaml.safe_load(CONFIG.read_text()), root)
-        config = root / "real.yml"
-        config.write_text(yaml.safe_dump(raw))
-        real_task = load_task_config(str(config))
-        real_vocab = VocabDict(str(root / "vocab.txt"))
-        out["preprocess"] = {split: preprocess_times(real_task, real_vocab, split, root)
-                             for split in REAL_QUESTIONS}
-        for split, p in out["preprocess"].items():
-            log(f"  preprocess {split} ({p['questions']} questions, {p['ocr_tokens']} OCR "
-                f"tokens): native {p['preprocess_native_s']:.3f} s, Python "
-                f"{p['preprocess_python_s']:.3f} s; PHOC {p['phoc_native_s']:.4f} / "
-                f"{p['phoc_python_s']:.3f} s, spatial graphs {p['spatial_graph_native_s']:.4f}"
-                f" / {p['spatial_graph_python_s']:.3f} s, fastText lookups "
-                f"{p['fasttext_lookups_s']:.3f} s; featurize "
-                f"{p['featurize_ms_per_question']:.3f} ms per question")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_real_"))
+    atexit.register(shutil.rmtree, root, True)
+    t0 = time.monotonic()
+    files = write_real_files(root, task)
+    out["files"] = dict(files["sizes"], write_s=time.monotonic() - t0)
+    log(f"  6: generated files (numpy, seed 0; no real TextVQA data): "
+        f"{json.dumps(out['files'])}")
+    raw = real_config(yaml.safe_load(CONFIG.read_text()), root)
+    config = root / "real.yml"
+    config.write_text(yaml.safe_dump(raw))
+    real_task = load_task_config(str(config))
+    real_vocab = VocabDict(str(root / "vocab.txt"))
+    out["preprocess"] = {split: preprocess_times(real_task, real_vocab, split, root)
+                         for split in REAL_QUESTIONS}
+    for split, p in out["preprocess"].items():
+        log(f"  6: preprocess {split} ({p['questions']} questions, {p['ocr_tokens']} OCR "
+            f"tokens): native {p['preprocess_native_s']:.3f} s, Python "
+            f"{p['preprocess_python_s']:.3f} s; PHOC {p['phoc_native_s']:.4f} / "
+            f"{p['phoc_python_s']:.3f} s, spatial graphs {p['spatial_graph_native_s']:.4f}"
+            f" / {p['spatial_graph_python_s']:.3f} s, fastText lookups "
+            f"{p['fasttext_lookups_s']:.3f} s; featurize "
+            f"{p['featurize_ms_per_question']:.3f} ms per question")
+    return dict(out=out, root=root, config=config, real_task=real_task, real_vocab=real_vocab)
 
+
+def real_data_path(task, vocab, model, cli, bare_step, gen, files: dict,
+                   dev=torch.device("cuda")) -> dict:
+    """Phase 6: the train CLI on real-format files (see the module
+    docstring), on :func:`real_data_files`' ``files``. ``cli`` is phase 5's
+    result and ``bare_step`` phase 3b's, printed beside the loop's rate;
+    ``model`` the phase 3 model, whose weights K3's check uses."""
+    out, root, config = files["out"], files["root"], files["config"]
+    real_task, real_vocab = files["real_task"], files["real_vocab"]
+    try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
@@ -1539,6 +1645,8 @@ def real_data_path(task, vocab, model, cli, bare_step, gen, dev=torch.device("cu
                                      supervised=False).epoch_batches()))
         batch = device_batch({k: val[k] for k in SAMPLE_KEYS}, dev)
         out["parity_b96"] = parity_b96(task, model, batch, gen)
+    finally:
+        shutil.rmtree(root, True)
     return out
 
 
@@ -1672,12 +1780,19 @@ def in_process_serving(engine, samples) -> dict:
                                              "service_ms_per_batch_p50")})
 
 
-def tcp_serving(tmp: Path, paths, want, weights: Path, dtype: str, config=CONFIG,
-                extra=()) -> dict:
-    """The server CLI as a subprocess on port 0 with the phase's ladders:
-    ``SERVER_CLIENTS`` sockets send every request (one outstanding each),
-    every answer must equal the in-process engine's (``want``); then
-    ``{"stats": true}``, SIGTERM, and a clean exit."""
+def _kill(proc, group: bool = False) -> None:
+    if proc.poll() is None:
+        if group:
+            os.killpg(proc.pid, signal.SIGKILL)
+        else:
+            proc.kill()
+        proc.wait()
+
+
+def start_server(tmp: Path, weights: Path, dtype: str, config=CONFIG, extra=()) -> tuple:
+    """Start the server CLI as a subprocess on port 0 with the phase's
+    ladders; :func:`tcp_serving` drives it. Its start-up (imports, weights,
+    graph warm-up) runs beside what this process does meanwhile."""
     err = open(tmp / "server.err", "w")
     cmd = [sys.executable, "-m", "sam_textvqa_tpu_torch.serve", "--config", str(config),
            "--port", "0", "--buckets", ",".join(map(str, SERVER_BUCKETS)),
@@ -1686,17 +1801,27 @@ def tcp_serving(tmp: Path, paths, want, weights: Path, dtype: str, config=CONFIG
            "--checkpoint", str(weights), *extra]
     t0 = time.monotonic()
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+    atexit.register(_kill, proc)  # should this process fail before driving it
+    first = {}
+    reader = threading.Thread(target=lambda: first.update(line=proc.stdout.readline(),
+                                                          at=time.monotonic()), daemon=True)
+    reader.start()
+    return proc, err, t0, reader, first
+
+
+def tcp_serving(tmp: Path, paths, want, server: tuple, dtype: str) -> dict:
+    """The server of :func:`start_server`: ``SERVER_CLIENTS`` sockets send
+    every request (one outstanding each), every answer must equal the
+    in-process engine's (``want``); then ``{"stats": true}``, SIGTERM, and
+    a clean exit."""
+    proc, err, t0, reader, first = server
     try:
-        first = {}
-        reader = threading.Thread(target=lambda: first.update(line=proc.stdout.readline()),
-                                  daemon=True)
-        reader.start()
         reader.join(SOCKET_TIMEOUT)
         if not first.get("line"):
             raise AssertionError(f"the server announced no port (exit {proc.poll()}): "
                                  f"{(tmp / 'server.err').read_text()[-3000:]}")
         host, port = json.loads(first["line"])["listening"]
-        startup_s = time.monotonic() - t0
+        startup_s = first["at"] - t0
         got, latency = [None] * len(paths), [None] * len(paths)
         errors = []
 
@@ -1818,6 +1943,7 @@ def server_path(task, vocab, kernel_model, gen, dev=torch.device("cuda")):
         model = model.to(dev).eval()
         weights = tmp / "serve_weights"
         torch.save({"model_state_dict": model.state_dict()}, weights)
+        server = start_server(tmp, weights, "f32")  # driven after the in-process engines
         ladders = dict(buckets=SERVER_BUCKETS, obj_buckets=OBJ_LADDER, ocr_buckets=OCR_LADDER,
                        device=dev)
         f32_ids = None
@@ -1842,7 +1968,7 @@ def server_path(task, vocab, kernel_model, gen, dev=torch.device("cuda")):
                 f"samples/s, launches {res['in_process']['launches']}")
             if dtype == torch.float32:
                 engine.close()
-                res["tcp"] = tcp_serving(tmp, paths, res["in_process"]["answers"], weights, "f32")
+                f32_answers = res["in_process"]["answers"]
                 del engine
             else:
                 res["graph_vs_eager"] = graph_vs_eager(engine, model, samples, bos)
@@ -1861,6 +1987,7 @@ def server_path(task, vocab, kernel_model, gen, dev=torch.device("cuda")):
                 engine.close()
             res["in_process"].pop("answers")
             out[name] = res
+        out["float32"]["tcp"] = tcp_serving(tmp, paths, f32_answers, server, "f32")
         torch.cuda.synchronize()
     return out, served
 
@@ -2218,6 +2345,31 @@ def _ranks(kind: str, tmp: Path, timeout: float, spec: dict) -> list:
     return [json.loads((tmp / f"{kind}_{r}.json").read_text()) for r in range(DDP_WORLD)]
 
 
+def ddp_reference(task, num_answers: int, path: Path, dev) -> tuple:
+    """8a's single-process reference: DDP_STEPS f32 steps of c3 at dropout
+    0 on the whole parity batch (losses, gradient norms, host ms per step);
+    its parameters go to ``path``. Returns them and the Adam reach."""
+    task0 = without_dropout(task)
+    batch = device_batch(_ddp_batch(task0, num_answers), dev)
+    model = build_model(task0, num_answers, torch.float32, seed=0, device=dev)
+    optimizer = make_optimizer(model, task0)
+    step, state = make_train_step(model, optimizer), create_train_state(model, optimizer)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ref = {"losses": [], "norms": [], "step_ms": []}
+    for _ in range(DDP_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        ref["losses"].append(metrics["loss"].item())
+        ref["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        ref["norms"].append(metrics["grad_norm"].item())
+    torch.save(model.state_dict(), path)
+    factor = lr_factor_schedule(task0)
+    reach = 2 * sum(task0.lr * factor(i) for i in range(DDP_STEPS))
+    del model, optimizer, step, state, batch
+    torch.cuda.empty_cache()
+    return ref, reach
+
+
 def ddp_path(task, vocab, cli, dev=torch.device("cuda"), config_path=CONFIG) -> dict:
     """Phase 8 (see the module docstring). ``cli`` is phase 5's result, the
     same CLI run without DDP; ``config_path`` is ``task``'s file."""
@@ -2229,99 +2381,95 @@ def ddp_path(task, vocab, cli, dev=torch.device("cuda"), config_path=CONFIG) -> 
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
         tmp = Path(tmp)
-        # 8a: NCCL with two ranks on the one card
-        nccl = _ranks("nccl", tmp, 120, child)
+        # 8a: NCCL with two ranks on the one card, beside the single-process
+        # reference (exact; its host ms per step are printed, no more)
+        with ThreadPoolExecutor(1) as pool:
+            nccl = pool.submit(_ranks, "nccl", tmp, 120, child)
+            reference = ddp_reference(task, num_answers, tmp / "reference.pt", dev)
+            nccl = nccl.result()
         out["nccl_two_ranks_one_card"] = nccl[0]
         log(f"  NCCL, two ranks on cuda:0: {json.dumps(nccl[0])[:1200]}")
 
-        # 8a: the single-process reference, then the DDP ranks over gloo
-        task0 = without_dropout(task)
-        batch = device_batch(_ddp_batch(task0, num_answers), dev)
-        model = build_model(task0, num_answers, torch.float32, seed=0, device=dev)
-        optimizer = make_optimizer(model, task0)
-        step, state = make_train_step(model, optimizer), create_train_state(model, optimizer)
-        gen = torch.Generator(device=dev).manual_seed(0)
-        ref = {"losses": [], "norms": [], "step_ms": []}
-        for _ in range(DDP_STEPS):
-            t0 = time.perf_counter()
-            state, metrics = step(state, batch, gen)
-            ref["losses"].append(metrics["loss"].item())
-            ref["step_ms"].append((time.perf_counter() - t0) * 1e3)
-            ref["norms"].append(metrics["grad_norm"].item())
-        torch.save(model.state_dict(), tmp / "reference.pt")
-        factor = lr_factor_schedule(task0)
-        reach = 2 * sum(task0.lr * factor(i) for i in range(DDP_STEPS))
-        del model, optimizer, step, state, batch
-        torch.cuda.empty_cache()
-        t0 = time.monotonic()
-        ranks = _ranks("ddp", tmp, 900, dict(child, save_dir=str(tmp / "loop")))
-        if any(r.get("hung") for r in ranks):
-            raise AssertionError(f"phase 8a: the gloo ranks hung: {ranks}")
-        parity = dict(batch=TRAIN_BATCH, per_rank=TRAIN_BATCH // DDP_WORLD, steps=DDP_STEPS,
-                      masked_counts=[r["count"] for r in ranks], single_process=ref,
-                      param_bar=reach, bars=DDP_PARITY, seconds=time.monotonic() - t0)
-        for accum in (1, 2):
-            r0, r1 = (r[f"accum{accum}"] for r in ranks)
-            row = dict(losses=r0["losses"], norms=r0["norms"], step_ms=[r0["step_ms"],
-                                                                       r1["step_ms"]],
-                       loss_rel_err=max(abs(a / b - 1) for a, b in zip(r0["losses"],
-                                                                        ref["losses"])),
-                       grad_norm_rel_err=max(abs(a / b - 1) for a, b in zip(r0["norms"],
-                                                                             ref["norms"])),
-                       param_max_abs_err=r0["param_max_abs_err"],
-                       ranks_bit_identical_every_step=r0["digests"] == r1["digests"])
-            parity[f"grad_accum_{accum}"] = row
-            if not (row["ranks_bit_identical_every_step"] and r0["losses"] == r1["losses"]
-                    and row["loss_rel_err"] <= DDP_PARITY["loss_rtol"]
-                    and row["grad_norm_rel_err"] <= DDP_PARITY["grad_norm_rtol"]
-                    and row["param_max_abs_err"] <= reach):
-                raise AssertionError(f"phase 8a: DDP (grad_accum {accum}) differs from one "
-                                     f"process on the whole batch: {row}")
-        if parity["masked_counts"][0] == parity["masked_counts"][1]:
-            raise AssertionError(f"the ranks' masked counts are equal: {parity['masked_counts']}")
-        out["ddp_f32_parity"] = parity
-        out["gloo_all_reduce"] = ranks[0]["gloo_all_reduce"]
-        log(f"  DDP f32 parity, 2 gloo ranks on one card: {json.dumps(parity)}")
-        log(f"  gloo all-reduce (host-staged, not NCCL): {json.dumps(out['gloo_all_reduce'])}")
-
-        loops = [r["loop"] for r in ranks]
-        for r, lp in enumerate(loops):
-            h = lp["history"][0]
-            require_launched(h["val_launches"], ("spatial_attention", "decode_step"),
-                             f"phase 8a rank {r} validation")
-            if any(h["train_launches"].values()):
-                raise AssertionError(f"rank {r}'s train steps launched kernels: "
-                                     f"{h['train_launches']}")
-        if loops[0]["history"][0]["val_accuracy"] != loops[1]["history"][0]["val_accuracy"]:
-            raise AssertionError(f"the ranks' validation accuracies differ: {loops}")
-        # rank 1 may not write where the run keeps its files (this phase's
-        # directory, the checkout); what torch itself creates elsewhere (its
-        # cache directories) is listed
-        ours = [w for w in ranks[1]["writes"] if str(tmp) in w or str(ROOT) in w]
-        if ours:
-            raise AssertionError(f"rank 1 wrote: {ours}")
-        saved = sorted(p.name for p in (tmp / "loop").iterdir())
-        if saved != ["best_model", "last_state"]:
-            raise AssertionError(f"the loop's directory holds {saved}")
-        out["ddp_bf16_loop"] = dict(ranks=loops, saved=saved, rank1_writes_of_the_run=ours,
-                                    rank1_writes_elsewhere=ranks[1]["writes"])
-        h = loops[0]["history"][0]
-        log(f"  DDP bf16 loop, 1 epoch ({h['steps']} steps of {TRAIN_BATCH}, "
-            f"{TRAIN_BATCH // DDP_WORLD} per rank): {h['samples_per_s']:.1f} samples/s "
-            f"(global); validation accuracy per rank "
-            f"{[lp['history'][0]['val_accuracy'] for lp in loops]}, launches "
-            f"{[lp['history'][0]['val_launches'] for lp in loops]}; rank 1 wrote nothing")
-
-        # 8b: under torchrun at world 1, over NCCL, in one process
+        # 8b: under torchrun at world 1, over NCCL, in one process, started
+        # here so that it runs beside 8a's gloo ranks (the card shared by the
+        # three processes)
         raw = yaml.safe_load(Path(config_path).read_text())
         raw["output_dir"] = str(tmp / "cli")
         config = tmp / "c3.yml"
         config.write_text(yaml.safe_dump(raw))
         res = tmp / "torchrun.json"
-        code = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                          "--nproc_per_node", "1", str(Path(__file__).resolve()),
-                          "--torchrun-child", str(res), str(config)]
-                         + ([] if dev.type == "cuda" else [dev.type]), 900, tmp / "torchrun.log")
+        pool = ThreadPoolExecutor(1)
+        torchrun = pool.submit(run_group, [
+            sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+            "1", str(Path(__file__).resolve()), "--torchrun-child", str(res), str(config)]
+            + ([] if dev.type == "cuda" else [dev.type]), 900, tmp / "torchrun.log")
+        try:
+            # 8a: the DDP ranks over gloo against the reference
+            ref, reach = reference
+            t0 = time.monotonic()
+            ranks = _ranks("ddp", tmp, 900, dict(child, save_dir=str(tmp / "loop")))
+            if any(r.get("hung") for r in ranks):
+                raise AssertionError(f"phase 8a: the gloo ranks hung: {ranks}")
+            parity = dict(batch=TRAIN_BATCH, per_rank=TRAIN_BATCH // DDP_WORLD, steps=DDP_STEPS,
+                          masked_counts=[r["count"] for r in ranks], single_process=ref,
+                          param_bar=reach, bars=DDP_PARITY, seconds=time.monotonic() - t0)
+            for accum in (1, 2):
+                r0, r1 = (r[f"accum{accum}"] for r in ranks)
+                row = dict(losses=r0["losses"], norms=r0["norms"], step_ms=[r0["step_ms"],
+                                                                           r1["step_ms"]],
+                           loss_rel_err=max(abs(a / b - 1) for a, b in zip(r0["losses"],
+                                                                            ref["losses"])),
+                           grad_norm_rel_err=max(abs(a / b - 1) for a, b in zip(r0["norms"],
+                                                                                 ref["norms"])),
+                           param_max_abs_err=r0["param_max_abs_err"],
+                           ranks_bit_identical_every_step=r0["digests"] == r1["digests"])
+                parity[f"grad_accum_{accum}"] = row
+                if not (row["ranks_bit_identical_every_step"] and r0["losses"] == r1["losses"]
+                        and row["loss_rel_err"] <= DDP_PARITY["loss_rtol"]
+                        and row["grad_norm_rel_err"] <= DDP_PARITY["grad_norm_rtol"]
+                        and row["param_max_abs_err"] <= reach):
+                    raise AssertionError(f"phase 8a: DDP (grad_accum {accum}) differs from one "
+                                         f"process on the whole batch: {row}")
+            if parity["masked_counts"][0] == parity["masked_counts"][1]:
+                raise AssertionError(f"the ranks' masked counts are equal: "
+                                     f"{parity['masked_counts']}")
+            out["ddp_f32_parity"] = parity
+            out["gloo_all_reduce"] = ranks[0]["gloo_all_reduce"]
+            log(f"  DDP f32 parity, 2 gloo ranks on one card: {json.dumps(parity)}")
+            log(f"  gloo all-reduce (host-staged, not NCCL): {json.dumps(out['gloo_all_reduce'])}")
+
+            loops = [r["loop"] for r in ranks]
+            for r, lp in enumerate(loops):
+                h = lp["history"][0]
+                require_launched(h["val_launches"], ("spatial_attention", "decode_step"),
+                                 f"phase 8a rank {r} validation")
+                if any(h["train_launches"].values()):
+                    raise AssertionError(f"rank {r}'s train steps launched kernels: "
+                                         f"{h['train_launches']}")
+            if loops[0]["history"][0]["val_accuracy"] != loops[1]["history"][0]["val_accuracy"]:
+                raise AssertionError(f"the ranks' validation accuracies differ: {loops}")
+            # rank 1 may not write where the run keeps its files (this phase's
+            # directory, the checkout); what torch itself creates elsewhere (its
+            # cache directories) is listed
+            ours = [w for w in ranks[1]["writes"] if str(tmp) in w or str(ROOT) in w]
+            if ours:
+                raise AssertionError(f"rank 1 wrote: {ours}")
+            saved = sorted(p.name for p in (tmp / "loop").iterdir())
+            if saved != ["best_model", "last_state"]:
+                raise AssertionError(f"the loop's directory holds {saved}")
+            out["ddp_bf16_loop"] = dict(ranks=loops, saved=saved, rank1_writes_of_the_run=ours,
+                                        rank1_writes_elsewhere=ranks[1]["writes"])
+            h = loops[0]["history"][0]
+            log(f"  DDP bf16 loop, 1 epoch ({h['steps']} steps of {TRAIN_BATCH}, "
+                f"{TRAIN_BATCH // DDP_WORLD} per rank): {h['samples_per_s']:.1f} samples/s "
+                f"(global); validation accuracy per rank "
+                f"{[lp['history'][0]['val_accuracy'] for lp in loops]}, launches "
+                f"{[lp['history'][0]['val_launches'] for lp in loops]}; rank 1 wrote nothing")
+        finally:
+            code = torchrun.result()  # before this directory goes, on a failure too
+            pool.shutdown()
+
+        # 8b's results
         if code != 0:
             raise AssertionError(f"the torchrun child exited {code}: "
                                  f"{(tmp / 'torchrun.log').read_text()[-3000:]}")
@@ -2454,6 +2602,7 @@ def run_cli(cmd: list, timeout: float):
     session and raises."""
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, start_new_session=True)
+    atexit.register(_kill, proc, True)  # should this process fail before the wait
     deadline = time.monotonic() + timeout
 
     def wait():
@@ -2468,13 +2617,18 @@ def run_cli(cmd: list, timeout: float):
     return wait
 
 
-def mesh_path(task, vocab, samples, dev=torch.device("cuda")) -> dict:
-    """Phase 9 (see the module docstring), 9b and 9c."""
+def mesh_path(task, vocab, samples, dev=torch.device("cuda")) -> tuple:
+    """Phase 9 (see the module docstring), 9b and 9c. Returns the result
+    and, per dtype, what phase 14 reuses: the model (moved to the CPU), the
+    one-device engine's run and the staged requests."""
     serve_cli = [sys.executable, "-m", "sam_textvqa_tpu_torch.serve", "--config", str(CONFIG),
                  "--device", f"{dev},{dev}"]
-    # 9c's refusal runs beside 9b: it ends before any CUDA work
+    # 9c runs beside 9b: the refusal ends before any CUDA work, and the dp 2
+    # CLI's demo numbers are printed, no more
     refused = run_cli(serve_cli + ["--model_parallel", "3", "--demo", "8"], 300)
-    out = {}
+    data_parallel = run_cli(
+        serve_cli + ["--data_parallel", "2", "--buckets", "2,8", "--demo", "32"], 600)
+    out, kept = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         model = SAM4C(SAM4CParams(task.mmt, task.text_bert, len(vocab)), dtype=dtype)
@@ -2512,11 +2666,11 @@ def mesh_path(task, vocab, samples, dev=torch.device("cuda")) -> dict:
         if len({a for a, _ in one["answers"]}) < 2:
             raise AssertionError("every request got the same answer: the comparisons cannot bite")
         out[name] = res
+        kept[name] = (model.cpu(), one, prepared)
         del model
         gc.collect()
         torch.cuda.empty_cache()
-    code, stdout, stderr = run_cli(
-        serve_cli + ["--data_parallel", "2", "--buckets", "2,8", "--demo", "32"], 300)()
+    code, stdout, stderr = data_parallel()
     if code != 0 or "dp=2 x tp=1" not in stderr:
         raise AssertionError(f"serve --data_parallel 2 exited {code}: {stderr[-3000:]}")
     stats = json.loads(stdout.strip().splitlines()[-1])
@@ -2530,7 +2684,7 @@ def mesh_path(task, vocab, samples, dev=torch.device("cuda")) -> dict:
         model_parallel_3_exit=code, model_parallel_3_message=err.strip().splitlines()[-1])
     log(f"  CLI: --data_parallel 2 {json.dumps(out['cli']['data_parallel_2'])}; "
         f"--model_parallel 3 exit {code}: {out['cli']['model_parallel_3_message']}")
-    return out
+    return out, kept
 
 
 # ---------------------------------------------------------------- phase 10
@@ -2578,13 +2732,14 @@ def _tp_model(task, num_answers: int, dtype, dev, tp: int):
     return TPSAM4C(build_model(task, num_answers, dtype, seed=0, device="cpu"), [dev] * tp)
 
 
-def tp_train_parity(task, num_answers: int, ref_path: Path, dev) -> dict:
+def tp_train_parity(task, num_answers: int, ref_path: Path, dev, on_reference=None) -> dict:
     """10a: three f32 tp 2 steps of c3 against three one-device steps on the
     96-row parity batch of phase 8 (uneven masked counts), from the same
     weights and generator, at dropout 0 and as configured (0.1): loss,
     gradient norm, clipped gradients and parameters within phase 3b's bars
     (parameters: the reach of the Adam steps taken). The one-device
-    parameters at dropout 0 go to ``ref_path`` for 10c."""
+    parameters at dropout 0 go to ``ref_path`` for 10c, and its losses and
+    norms to ``on_reference`` once they are there."""
     factor = lr_factor_schedule(task)
     reach = 2 * sum(task.lr * factor(i) for i in range(TP_STEPS))
     batch = device_batch(_ddp_batch(task, num_answers), dev)
@@ -2620,6 +2775,8 @@ def tp_train_parity(task, num_answers: int, ref_path: Path, dev) -> dict:
         if label == "dropout_0":
             torch.save({k: v.cpu() for k, v in one["params"].items()}, ref_path)
             out["reference"] = dict(losses=one["losses"], norms=one["norms"])
+            if on_reference is not None:
+                on_reference(out["reference"])
         del runs, one, tp2
         gc.collect()
         torch.cuda.empty_cache()
@@ -2978,11 +3135,14 @@ def tp_training_path(task, vocab, gen, dev=torch.device("cuda")):
     num_answers = len(vocab)
     out = {}
     t10 = time.monotonic()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_ref_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_ref_") as tmp, \
+            ThreadPoolExecutor(1) as pool:
         ref_path = Path(tmp) / "reference.pt"
-        out["parity_f32"] = tp_train_parity(task, num_answers, ref_path, dev)
-        out["dp2_x_tp2_f32"] = tp_ddp_path(task, vocab, ref_path,
-                                           out["parity_f32"]["reference"], dev)
+        ranks = {}  # 10c's ranks start once the reference is written, beside the rest of 10a
+        out["parity_f32"] = tp_train_parity(
+            task, num_answers, ref_path, dev, on_reference=lambda reference: ranks.update(
+                run=pool.submit(tp_ddp_path, task, vocab, ref_path, reference, dev)))
+        out["dp2_x_tp2_f32"] = ranks["run"].result()
     out["train_step_bf16"], call = tp_train_cost(task, num_answers, dev)
     out["cli"] = tp_cli_path(task, vocab, dev)
     val_batch = device_batch(make_batch(task, TRAIN_BATCH, seed=1, num_answers_vocab=num_answers),
@@ -3061,8 +3221,7 @@ def beam_decodes(task, vocab, model, samples, dev) -> dict:
         seqs, scores = beam_search_decode_fast(model, batch, BEAM, bos, eos)  # auto = mega
         torch.cuda.synchronize()
         res = {"launches": cuda_build.launch_counts()}
-        if res["launches"] != {"spatial_attention": n_spatial, "decode_attention": 0,
-                               "decode_step": 0}:
+        if res["launches"] != launch_dict(spatial_attention=n_spatial):
             raise AssertionError(f"fast beam B={b} launched {res['launches']}: K1 {n_spatial} "
                                  f"times in the cache pass and nothing in the steps expected")
         plain = beam_search_decode_fast(model, batch, BEAM, bos, eos, backend="plain")
@@ -3175,6 +3334,27 @@ def eval_ladders(task, vocab, model, samples) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def timing_evaluate(timed: dict):
+    """While inside, ``timed["eval_s"]`` takes the seconds of each train CLI
+    run's decode of its splits (``train._evaluate``), without the CLI's
+    set-up."""
+    evaluate = train_cli._evaluate
+
+    def timed_evaluate(*args, **kwargs):
+        t0 = time.monotonic()
+        result = evaluate(*args, **kwargs)
+        torch.cuda.synchronize()
+        timed["eval_s"] = time.monotonic() - t0
+        return result
+
+    train_cli._evaluate = timed_evaluate
+    try:
+        yield timed
+    finally:
+        train_cli._evaluate = evaluate
+
+
 def beam_cli_path(task, vocab, best_model: Path, dev) -> dict:
     """11b: ``--pretrained_eval`` of ``best_model`` (phase 5's) with beams,
     ladders and both, in bf16 and f32 (and full-width greedy in f32): each
@@ -3187,25 +3367,13 @@ def beam_cli_path(task, vocab, best_model: Path, dev) -> dict:
     config = best_model.parent / "c3.yml"
     config.write_text(yaml.safe_dump(raw))
     out, answers, timed = {}, {}, {}
-    evaluate = train_cli._evaluate
-
-    def timed_evaluate(*args, **kwargs):  # the decode of the splits, without the CLI's set-up
-        t0 = time.monotonic()
-        result = evaluate(*args, **kwargs)
-        torch.cuda.synchronize()
-        timed["eval_s"] = time.monotonic() - t0
-        return result
-
-    train_cli._evaluate = timed_evaluate
-    try:
+    with timing_evaluate(timed):
         _beam_cli_runs(best_model, config, dev, out, answers, timed)
-    finally:
-        train_cli._evaluate = evaluate
     for narrow, full in (("ladders", "full"), ("beam5_ladders", "beam5")):
         if answers["f32", narrow] != answers["f32", full]:
             raise AssertionError(f"f32 --pretrained_eval answers: {narrow} differ from {full}")
     out["f32_ladder_answers_equal_full_width"] = True
-    return out
+    return out, answers["f32", "beam5"]
 
 
 def _beam_cli_runs(best_model: Path, config: Path, dev, out: dict, answers: dict, timed: dict):
@@ -3282,10 +3450,11 @@ def beam_engine_path(task, vocab, model, samples, dev) -> dict:
     return out
 
 
-def beam_path(task, vocab, best_model: Path, dev=torch.device("cuda")) -> dict:
-    """Phase 11 (see the module docstring). Returns the result and the
-    CUDA graph of one B=32 bf16 beam decode with its batch, which phase 4
-    profiles."""
+def beam_path(task, vocab, best_model: Path, dev=torch.device("cuda")) -> tuple:
+    """Phase 11 (see the module docstring). Returns the result, the CUDA
+    graph of one B=32 bf16 beam decode with its batch, which phase 4
+    profiles, and the f32 ``--beam_size 5`` CLI run's answers, which
+    phase 14c holds the tensor-parallel run to."""
     t11 = time.monotonic()
     ft = processors.FastTextProcessor()
     samples = [build_sample(task, **r, fasttext=ft)
@@ -3296,18 +3465,10 @@ def beam_path(task, vocab, best_model: Path, dev=torch.device("cuda")) -> dict:
     out = {}
     out["decodes"], graph = beam_decodes(task, vocab, model, samples, dev)
     out["eval_ladders"] = eval_ladders(task, vocab, model, samples)
-    out["cli"] = beam_cli_path(task, vocab, best_model, dev)
+    out["cli"], beam5_f32 = beam_cli_path(task, vocab, best_model, dev)
     out["engine"] = beam_engine_path(task, vocab, model, samples, dev)
-    code, _, err = run_cli([sys.executable, "-m", "sam_textvqa_tpu_torch.serve", "--config",
-                            str(CONFIG), "--device", "cuda:0,cuda:0", "--model_parallel", "2",
-                            "--beam_size", str(BEAM), "--demo", "8"], 120)()
-    if code == 0 or "item 5b" not in err:
-        raise AssertionError(f"serve --beam_size {BEAM} --model_parallel 2 exited {code}: "
-                             f"{err[-2000:]}")
-    out["refusal"] = dict(exit=code, message=err.strip().splitlines()[-1])
-    log(f"  refusal: {json.dumps(out['refusal'])}")
     out["seconds"] = time.monotonic() - t11
-    return out, graph
+    return out, graph, beam5_f32
 
 
 # ---------------------------------------------------------------- phase 12
@@ -3384,8 +3545,7 @@ def early_exit_decodes(task, vocab, model, samples, dev) -> dict:
     sp = vocab.special_ids()
     bos, eos = sp.bos, sp.eos
     t_max = task.mmt.num_decoding_steps
-    k1_only = {"spatial_attention": task.mmt.layer_type_list.count("s"), "decode_attention": 0,
-               "decode_step": 0}
+    k1_only = launch_dict(spatial_attention=task.mmt.layer_type_list.count("s"))
     batches = {b: stack(samples[:b], dev) for b in EARLY_BATCHES}
     model.dtype = torch.float32
     zero = model.classifier.bias.detach().clone()
@@ -3521,8 +3681,8 @@ def policy_engine_path(task, vocab, model, samples, dev) -> dict:
                                              ("xla_early", 0, 0)):
             r = runs[backend]
             batches = sum(r["occupancy"].values())
-            want = {"spatial_attention": n_spatial * batches, "decode_attention": 0,
-                    "decode_step": k3_per_step * batches}
+            want = launch_dict(spatial_attention=n_spatial * batches,
+                               decode_step=k3_per_step * batches)
             if r["graphs"] != graphs or r["launches"] != want or r["occupancy"].get(1, 0) == 0:
                 raise AssertionError(f"{backend}: {r['graphs']} graphs ({graphs} expected), "
                                      f"launches {r['launches']} ({want} expected over "
@@ -3597,7 +3757,7 @@ def implicit_path(task, vocab, seg, gen, dev) -> dict:
         spatial_head_out_max_abs_err=max_err(aux, plain["spatial_head_out"]))
     log(f"  forward f32: {json.dumps(out['forward_f32'])}")
     f = out["forward_f32"]
-    if launches != {"spatial_attention": n_spatial, "decode_attention": 0, "decode_step": 0} \
+    if launches != launch_dict(spatial_attention=n_spatial) \
             or not f["scores_max_abs_err"] < FORWARD_TOL or f["argmax_agreement"] != 1.0 \
             or f["spatial_head_out_shape"] != [BATCH, 150, 150, 12] \
             or not f["spatial_head_out_finite"]:
@@ -3608,8 +3768,8 @@ def implicit_path(task, vocab, seg, gen, dev) -> dict:
     _, ids_fused = greedy_decode_fast(model, batch, sp.bos, backend="fused")
     torch.cuda.synchronize()
     launches = cuda_build.launch_counts()
-    want = {"spatial_attention": n_spatial,
-            "decode_attention": steps * len(itask.mmt.layer_type_list), "decode_step": 0}
+    want = launch_dict(spatial_attention=n_spatial,
+                       decode_attention=steps * len(itask.mmt.layer_type_list))
     out["greedy_f32"] = dict(ids_fused_equal_plain=torch.equal(ids_fused, ids_plain),
                              fused_launches=launches,
                              distinct_answers=len({tuple(r) for r in ids_plain.tolist()}))
@@ -3740,7 +3900,7 @@ ART_BUCKETS, ART_OCR = (1, 8, 32), (25,)  # the bf16 grid: 6 cells
 ART_F32_BATCH = 8      # the f32 cell, full width (13b, 13c's f32 engines, 13d)
 ART_BEAM_BATCH, ART_BEAM = 8, 5  # the bf16 beam cell
 ART_REQUESTS = 64
-ART_TIMED_REPEATS = 16  # 13c's bf16 turns: 1,024 requests each, about 32 batches of 32
+ART_TIMED_REPEATS = 4  # 13c's bf16 turns: 256 requests each, about 8 batches of 32
 ART_SCORE_TOL = 1e-5   # f32 artifact scores against the live mega decode
 COLD_START_TIMEOUT = 300.0
 ART_TRAIN_WARMUP, ART_TRAIN_TIMED = 3, 10
@@ -3778,26 +3938,37 @@ def start_exports(model, tmp: Path) -> tuple:
     }
     t0 = time.monotonic()
     procs = {}
+    atexit.register(stop_exports, procs)
     for label, flags in jobs.items():
         cmd = [sys.executable, str(ROOT / "tools" / "torch_export_decode.py"), "--config",
                str(CONFIG), "--checkpoint", str(ckpt), "--out", str(tmp / label), "--backend",
                "mega", "--platforms", "cuda", *flags]
-        procs[label] = (subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL,
-                                         stderr=open(tmp / f"export_{label}.err", "w")), cmd)
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL,
+                                stderr=open(tmp / f"export_{label}.err", "w"))
+        ended = {}  # the export's end, taken as it ends: the wait comes phases later
+        watcher = threading.Thread(target=lambda p=proc, e=ended: e.update(
+            rc=p.wait(), at=time.monotonic()), daemon=True)
+        watcher.start()
+        procs[label] = (proc, cmd, watcher, ended)
     return procs, ckpt, t0
+
+
+def stop_exports(procs: dict) -> None:
+    for proc, *_ in procs.values():
+        _kill(proc)
 
 
 def wait_exports(procs: dict, tmp: Path, t0: float) -> dict:
     """13a: wait for the exports: seconds from the start to each one's end
     and export seconds and bytes per cell."""
     out = {}
-    for label, (proc, cmd) in procs.items():
-        rc = proc.wait(COLD_START_TIMEOUT)
-        if rc != 0:
-            raise AssertionError(f"13a: {' '.join(cmd)} exited {rc}: "
+    for label, (proc, cmd, watcher, ended) in procs.items():
+        watcher.join(COLD_START_TIMEOUT)
+        if ended.get("rc") != 0:
+            raise AssertionError(f"13a: {' '.join(cmd)} exited {ended.get('rc')}: "
                                  f"{(tmp / f'export_{label}.err').read_text()[-3000:]}")
         m = json.loads((tmp / label / "manifest.json").read_text())
-        out[label] = dict(seconds=time.monotonic() - t0, cells={
+        out[label] = dict(seconds=ended["at"] - t0, cells={
             c["name"]: dict(bytes=c["bytes"], export_s=m["export_s"][f"{c['name']}.cuda"])
             for c in m["cells"]})
         log(f"  export {label}: {json.dumps(out[label])}")
@@ -3864,7 +4035,7 @@ def artifact_calls(task, vocab, model, tmp: Path, samples, dev) -> dict:
                       three_rows_ids_equal=bool(torch.equal(ids3, live3)),
                       launches_per_decode=launches, diagnostics=diagnostics,
                       program=program_contents(art, (ART_F32_BATCH, None, None)))
-    want = {"spatial_attention": n_spatial, "decode_attention": 0, "decode_step": steps}
+    want = launch_dict(spatial_attention=n_spatial, decode_step=steps)
     log(f"  f32 call: {json.dumps(out['f32'])}")
     if not (out["f32"]["ids_equal"] and out["f32"]["three_rows_ids_equal"]
             and out["f32"]["score_max_abs_err"] <= ART_SCORE_TOL and launches == want):
@@ -4013,13 +4184,16 @@ def _first_answer(cmd, req: Path, err_path: Path) -> dict:
                 built_seconds=json.loads(built[-1]) if built else None)
 
 
-def cold_start(tmp: Path, ckpt: Path, sample: dict, want: str) -> dict:
+def cold_starts(tmp: Path, ckpt: Path, sample: dict):
     """13d: seconds to the first TCP answer of ``python -m
     sam_textvqa_tpu_torch.serve`` in a child, one bucket (8, f32, full
     width) each: the live engine and ``--artifact`` (the f32 B = 8 cell, no
     ``--config``), each on an empty ``--compile_cache`` (nvcc included),
-    then both again on their warm caches, one child at a time (each builds
-    on its own cache). A warm start builds nothing."""
+    then both again on their warm caches; the two children of a state run at
+    once (each builds on its own cache, and the card is shared between
+    them), and the whole runs in a thread beside what this process does.
+    Returns a function that waits for it and checks every answer against
+    ``want``; a warm start builds nothing."""
     req = tmp / "cold_request.npz"
     np.savez(req, **{k: sample[k] for k in SAMPLE_KEYS}, ocr_tokens=np.asarray(
         sample["ocr_tokens"]))
@@ -4028,19 +4202,36 @@ def cold_start(tmp: Path, ckpt: Path, sample: dict, want: str) -> dict:
     cmds = {"live": ([*serve_cmd, "--config", str(CONFIG), "--dtype", "f32", "--buckets",
                       str(ART_F32_BATCH), "--decode_backend", "mega"], "cache_live"),
             "artifact": ([*serve_cmd, "--artifact", str(tmp / "f32_b8")], "cache_artifact")}
-    out = {}
-    for state in ("cold", "warm"):
-        for kind, (cmd, cache) in cmds.items():
-            out[f"{kind}_{state}"] = r = _first_answer(
-                [*cmd, "--compile_cache", str(tmp / cache)], req, tmp / f"{kind}_{state}.err")
-            log(f"  {kind}_{state}: {json.dumps(r)}")
-    for label, r in out.items():
-        warm = label.endswith("warm")
-        if r["exit_code"] != 0 or r["answer"] != want or r["built_seconds"] is None \
-                or (r["built_seconds"] == {}) != warm:
-            raise AssertionError(f"13d {label}: {r} (answer {want!r} expected; a warm start "
-                                 f"builds nothing, a cold one builds)")
-    return out
+    pool = ThreadPoolExecutor(len(cmds) + 1)
+
+    def states() -> dict:
+        out = {}
+        for state in ("cold", "warm"):
+            futures = {f"{kind}_{state}": pool.submit(
+                _first_answer, [*cmd, "--compile_cache", str(tmp / cache)], req,
+                tmp / f"{kind}_{state}.err") for kind, (cmd, cache) in cmds.items()}
+            for label, f in futures.items():
+                out[label] = r = f.result()
+                log(f"  13d: {label} (beside {len(cmds) - 1} other and this process): "
+                    f"{json.dumps(r)}")
+        return out
+
+    running = pool.submit(states)
+
+    def finish(want: str = None, check: bool = True) -> dict:
+        try:
+            out = running.result()
+        finally:
+            pool.shutdown(wait=True)
+        for label, r in out.items() if check else ():
+            warm = label.endswith("warm")
+            if r["exit_code"] != 0 or r["answer"] != want or r["built_seconds"] is None \
+                    or (r["built_seconds"] == {}) != warm:
+                raise AssertionError(f"13d {label}: {r} (answer {want!r} expected; a warm start "
+                                     f"builds nothing, a cold one builds)")
+        return out
+
+    return finish
 
 
 def variant_train_steps(task, vocab, dev) -> dict:
@@ -4232,41 +4423,59 @@ def artifact_untimed(task, vocab, dev=torch.device("cuda")) -> dict:
     procs, ckpt, t_export = start_exports(model, tmp)
     try:
         log("  13e: f32 tp 2 parity under the dropout variants, detectron fc7 weights")
-        out = dict(model=model, tmp=tmp, ckpt=ckpt,
+        out = dict(model=model, tmp=tmp, ckpt=ckpt, exports=(procs, t_export),
                    tp2_parity=variant_tp_parity(task, vocab, dev), fc7_cli=fc7_cli(dev))
-        out["export"] = wait_exports(procs, tmp, t_export)
-    finally:
-        for proc, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    out["export"]["checkpoint_bytes"] = ckpt.stat().st_size
+    except BaseException:
+        stop_exports(procs)
+        raise
     out["seconds"] = time.monotonic() - t0
     log(f"  phase 13's untimed part: {out['seconds']:.1f} s")
     return out
 
 
+def start_cold_starts(task, untimed: dict) -> None:
+    """Before phase 12: wait for 13a's exports (long done by then) and
+    start 13d's server children (:func:`cold_starts`) on the first of phase
+    13's requests; they run beside phases 12 and 13."""
+    procs, t_export = untimed.pop("exports")
+    try:
+        untimed["export"] = wait_exports(procs, untimed["tmp"], t_export)
+    finally:
+        stop_exports(procs)
+    untimed["export"]["checkpoint_bytes"] = untimed["ckpt"].stat().st_size
+    log("  13d: cold starts of the server CLI begin, beside phases 12 and 13")
+    sample = build_sample(task, **raw_requests(task, 1, seed=13)[0],
+                          fasttext=processors.FastTextProcessor())
+    untimed["cold"] = cold_starts(untimed["tmp"], untimed["ckpt"], sample)
+
+
 def artifact_path(task, vocab, untimed: dict, dev=torch.device("cuda")):
     """Phase 13 (see the module docstring) but 13f, which runs after phase
-    4, on :func:`artifact_untimed`'s model and exports. Returns (results,
-    the directory of the exported artifacts)."""
+    4, on :func:`artifact_untimed`'s model and exports and beside
+    :func:`start_cold_starts`' children. Returns (results, the directory
+    of the exported artifacts)."""
     t13 = time.monotonic()
     ft = processors.FastTextProcessor()
     samples = [build_sample(task, **r, fasttext=ft)
                for r in raw_requests(task, ART_REQUESTS, seed=13)]
     model, tmp = untimed["model"].to(dev), untimed["tmp"]
-    log("  13e: dropout variants' train steps")
-    out = dict(export=untimed["export"], fc7_cli=untimed["fc7_cli"], dropout_variants=dict(
-        train_steps=variant_train_steps(task, vocab, dev), tp2_parity=untimed["tp2_parity"]))
-    log("  13b: DecodeArtifact.call")
-    out["call"], arts = artifact_calls(task, vocab, model, tmp, samples, dev)
-    out["dispatch"] = dispatch_cost(task, model, dev)
-    log("  13c: artifact engine against the live engine")
-    out["engines"], f32_answers = artifact_engines(vocab, model, arts, samples, dev)
-    del arts
-    out["call"]["beam"] = artifact_beam_call(vocab, model, tmp, samples, dev)
-    log("  13d: cold start of the server CLI")
-    out["cold_start"] = cold_start(tmp, untimed["ckpt"], samples[0], f32_answers[0])
+    export, cold = untimed["export"], untimed["cold"]
+    try:
+        log("  13e: dropout variants' train steps")
+        out = dict(export=export, fc7_cli=untimed["fc7_cli"], dropout_variants=dict(
+            train_steps=variant_train_steps(task, vocab, dev), tp2_parity=untimed["tp2_parity"]))
+        log("  13b: DecodeArtifact.call")
+        out["call"], arts = artifact_calls(task, vocab, model, tmp, samples, dev)
+        out["dispatch"] = dispatch_cost(task, model, dev)
+        log("  13c: artifact engine against the live engine")
+        out["engines"], f32_answers = artifact_engines(vocab, model, arts, samples, dev)
+        del arts
+        out["call"]["beam"] = artifact_beam_call(vocab, model, tmp, samples, dev)
+    except BaseException:
+        with contextlib.suppress(Exception):
+            cold(check=False)  # the children end before this process does
+        raise
+    out["cold_start"] = cold(f32_answers[0])
     del model
     out["seconds"] = time.monotonic() - t13
     out["untimed_seconds"] = untimed["seconds"]
@@ -4324,13 +4533,373 @@ def profiling_path(tmp: Path, vocab, dev=torch.device("cuda")) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+
+#: the decode step's tensor-parallel shard entries (csrc/decode_step.cu)
+SHARD_ENTRIES = ("decode_shard_attention", "decode_shard_ffn")
+SHARD_LAYER = 0  # the stacked layer the entries are held and timed at (all are alike)
+#: the tp 2 ``mega`` engine of 14b: (kernels that must launch, must not)
+TP_MEGA_LAUNCHES = (("spatial_attention", *SHARD_ENTRIES), ("decode_attention", "decode_step"))
+
+
+def library_shard_attention(c, k_enc, v_enc, k_dec, v_dec, seg, step, hd, q_len, n_obj,
+                            layer):
+    """A shard's attention part as PyTorch calls, timed beside the entry
+    (the port never calls it): ``F.linear`` for QKV, row t written into
+    [enc; dec] K/V buffers concatenated once up front, SDPA over them with
+    an additive mask, ``F.linear`` for the partial out-projection."""
+    _, b, le, w = k_enc.shape
+    t_max, h = k_dec.shape[2], w // hd
+
+    def heads(x):  # (B, n, w) -> (B, H, n, hd)
+        return x.view(b, x.shape[1], h, hd).transpose(1, 2)
+
+    k_all = torch.cat([heads(k_enc[layer]), heads(k_dec[layer])], dim=2).contiguous()
+    v_all = torch.cat([heads(v_enc[layer]), heads(v_dec[layer])], dim=2).contiguous()
+    valid = torch.zeros(b, le + t_max, dtype=torch.bool, device=k_enc.device)
+    valid[:, :le] = encoder_valid(seg, le, q_len, n_obj)
+    valid[:, le:le + step + 1] = True
+    mask = torch.where(valid, 0.0, -10000.0).to(k_enc.dtype)[:, None, None, :]
+
+    def run(x):
+        q, k, v = F.linear(x, c["wqkv"][layer], c["bqkv"][layer]).split(w, dim=-1)
+        k_all[:, :, le + step] = k.view(b, h, hd)
+        v_all[:, :, le + step] = v.view(b, h, hd)
+        ctx = F.scaled_dot_product_attention(q.view(b, h, 1, hd), k_all, v_all,
+                                             attn_mask=mask).reshape(b, w)
+        return F.linear(ctx, c["wout"][layer])
+
+    return run
+
+
+def bench_shard_entries(task, model, seg32, gen) -> dict:
+    """14a: the two shard entries at c3's tp 2 shapes (shard 1: heads
+    6..11, FFN columns 1536..3071, with phase 2's weights) against their
+    plain versions in f32 and bf16 at each serving bucket, within phase 2's
+    K3 bars (the partial product and, for the attention part, the decoder
+    K/V it writes); bf16 eager / device / host / plain times beside the
+    bound and the same part as PyTorch calls. One row per entry: batch 32's
+    numbers at the top, every bucket's under ``buckets``."""
+    mmt = task.mmt
+    d, f, t_max = mmt.hidden_size, mmt.intermediate_size, mmt.num_decoding_steps
+    n_layers = len(mmt.layer_type_list)
+    hd = d // mmt.num_attention_heads
+    w, wf = d // SHARD_TP, f // SHARD_TP
+    q_len, n_obj = mmt.max_seq_length, mmt.max_obj_num
+    le = q_len + n_obj + mmt.max_ocr_num
+    step = t_max - 1  # the last step reads the most decoder rows
+    t = torch.tensor([step], dtype=torch.int32, device="cuda")
+    kw = dict(layer=SHARD_LAYER, hd=hd, q_len=q_len, n_obj=n_obj)
+    shard = TPSAM4C(model, [torch.device("cuda")] * SHARD_TP).shards[SHARD_RANK]
+    consts = {dt: _mega_step_consts(shard.mmt, dt, SHARD_CONSTS)
+              for dt in (torch.float32, torch.bfloat16)}
+    del shard
+    esize = 2
+    rows = {name: {} for name in SHARD_ENTRIES}
+    for b in STEP_BUCKETS:
+        seg = seg32[:b].contiguous()
+        att, ffn = {"step": step}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            c, name = consts[dtype], str(dtype)[6:]
+            x = rand(gen, b, d, dtype=dtype)
+            k_enc, v_enc = (rand(gen, n_layers, b, le, w, dtype=dtype) for _ in range(2))
+            k_dec, v_dec = (rand(gen, n_layers, b, t_max, w, dtype=dtype) for _ in range(2))
+            kd2, vd2 = k_dec.clone(), v_dec.clone()
+            a_w = (c["wqkv"], c["bqkv"], c["wout"], k_enc, v_enc)
+            mine = decode_shard_attention(t, seg, x, *a_w, k_dec, v_dec, **kw)
+            plain = decode_shard_attention_plain(t, seg, x, *a_w, kd2, vd2, **kw)
+            err = max(max_err(mine, plain), max_err(k_dec, kd2), max_err(v_dec, vd2))
+            mean = mean_err(mine, plain)
+            log(f"  decode_shard_attention B={b}:")
+            check("decode_step", dtype, err, mean)
+            att[f"max_abs_err_{name}"], att[f"mean_abs_err_{name}"] = err, mean
+            xf = rand(gen, b, d, dtype=dtype)
+            f_w = (c["wff1"], c["bff1"], c["wff2"])
+            mine_f = decode_shard_ffn(xf, *f_w, layer=SHARD_LAYER)
+            plain_f = decode_shard_ffn_plain(xf, *f_w, layer=SHARD_LAYER)
+            err, mean = max_err(mine_f, plain_f), mean_err(mine_f, plain_f)
+            log(f"  decode_shard_ffn B={b}:")
+            check("decode_step", dtype, err, mean)
+            ffn[f"max_abs_err_{name}"], ffn[f"mean_abs_err_{name}"] = err, mean
+        # times in bf16, the serving dtype (the last inputs of the loop)
+        lib = library_shard_attention(c, k_enc, v_enc, k_dec.clone(), v_dec.clone(), seg, step,
+                                      hd, q_len, n_obj, SHARD_LAYER)
+        att["library_vs_plain_max_abs_err"] = max_err(lib(x), plain)
+        n_valid = _n_valid(seg, step)  # valid encoder rows and decoder rows 0..t
+        nbytes = esize * (2 * b * d + 4 * w * d + 3 * w + 2 * w * n_valid) + seg.numel() * 4 + 4
+        ops = 2.0 * b * 4 * w * d + 4.0 * w * n_valid
+        att.update(times(lambda: decode_shard_attention(t, seg, x, *a_w, k_dec, v_dec, **kw),
+                         lambda: decode_shard_attention_plain(t, seg, x, *a_w, kd2, vd2, **kw),
+                         lambda: lib(x)),
+                   bytes=nbytes, ops=ops)
+        att["bound_ms"], att["bound_by"] = bound(nbytes, ops, torch.bfloat16)
+
+        def lib_ffn(xf=xf, c=c):
+            return F.linear(F.gelu(F.linear(xf, c["wff1"][SHARD_LAYER], c["bff1"][SHARD_LAYER])),
+                            c["wff2"][SHARD_LAYER])
+
+        ffn["library_vs_plain_max_abs_err"] = max_err(lib_ffn(), plain_f)
+        nbytes = esize * (2 * b * d + 2 * wf * d + wf)
+        ops = 4.0 * b * wf * d
+        ffn.update(times(lambda: decode_shard_ffn(xf, *f_w, layer=SHARD_LAYER),
+                         lambda: decode_shard_ffn_plain(xf, *f_w, layer=SHARD_LAYER), lib_ffn),
+                   bytes=nbytes, ops=ops)
+        ffn["bound_ms"], ffn["bound_by"] = bound(nbytes, ops, torch.bfloat16)
+        for entry, row in zip(SHARD_ENTRIES, (att, ffn)):
+            log(f"  {entry} B={b} bf16: device {row['device_ms']:.5f} ms (bound "
+                f"{row['bound_ms']:.5f}, {row['bound_by']}), eager {row['ms']:.4f}, host "
+                f"{row['host_ms']:.4f}, plain {row['plain_ms']:.4f}; library device "
+                f"{row['library_device_ms']:.5f}, eager {row['library_ms']:.4f}")
+            rows[entry][b] = row
+    shapes = {
+        "decode_shard_attention":
+            f"tp {SHARD_TP} shard {SHARD_RANK}: x (B,{d}), Wqkv ({3 * w},{d}), Wout ({d},{w}), "
+            f"enc K/V ({n_layers},B,{le},{w}), dec K/V ({n_layers},B,{t_max},{w}) bf16, t={step}",
+        "decode_shard_ffn":
+            f"tp {SHARD_TP} shard {SHARD_RANK}: x (B,{d}), Wff1 ({wf},{d}), Wff2 ({d},{wf}) bf16",
+    }
+    libraries = {
+        "decode_shard_attention": "the same part as PyTorch calls: F.linear (QKV), SDPA over "
+                                  "concatenated [enc; dec] K/V with an additive mask, F.linear "
+                                  "(partial out-projection)",
+        "decode_shard_ffn": "the same part as PyTorch calls: F.linear, erf F.gelu, F.linear",
+    }
+    return {name: dict(by_b[STEP_BUCKETS[-1]], buckets=by_b, dtype="bfloat16",
+                       max_abs_err=max(r["max_abs_err_bfloat16"] for r in by_b.values()),
+                       shape=shapes[name] + f", B={STEP_BUCKETS[-1]}; also B = 1, 8 under "
+                                            f"buckets", library=libraries[name])
+            for name, by_b in rows.items()}
+
+
+def tp_mega_decodes(task, model, batch, bos: int, dev) -> dict:
+    """14b: ``mega`` of phase 9's model over ``[dev, dev]`` (tp 2) at B = 2
+    and 32 of its staged batch: ids and scores against the one-device
+    ``mega`` decode and tp 2 ``fused``, the launches of one decode (K1 and
+    the two shard entries, no K2 or K3), the eager tp 2 ``mega`` and
+    ``fused`` ms beside the one-device ``mega`` graph replay's."""
+    mmt = task.mmt
+    n_spatial, steps, n_layers = (mmt.layer_type_list.count("s"), mmt.num_decoding_steps,
+                                  len(mmt.layer_type_list))
+    tp_model = TPSAM4C(model, [dev] * TP)
+    consts_tp, consts_one = tp_model.decode_consts(), _mega_step_consts(model.mmt, model.dtype)
+    want = launch_dict(spatial_attention=n_spatial * TP,
+                       decode_shard_attention=steps * n_layers * TP,
+                       decode_shard_ffn=steps * n_layers * TP)
+    out = {}
+    for b in (2, BATCH):
+        part = {k: v[:b] for k, v in batch.items()}
+        s_one, ids_one = greedy_decode_fast(model, part, bos, backend="mega")
+        cuda_build.reset_launch_counts()
+        s_tp, ids_tp = greedy_decode_fast(tp_model, part, bos, backend="mega")
+        torch.cuda.synchronize()
+        launches = cuda_build.launch_counts()
+        if launches != want:
+            raise AssertionError(f"tp 2 mega B={b} launched {launches}, {want} expected")
+        s_fused, ids_fused = greedy_decode_fast(tp_model, part, bos, backend="fused")
+
+        def decode(m, backend, consts):
+            return lambda: greedy_decode_fast(m, part, bos, backend=backend, check_masks=False,
+                                              consts=consts)
+
+        out[b] = dict(
+            launches=launches, ids_equal_one_device_mega=bool(torch.equal(ids_tp, ids_one)),
+            token_agreement_one_device_mega=(ids_tp == ids_one).float().mean().item(),
+            score_max_abs_err_vs_one_device_mega=max_err(s_tp, s_one),
+            ids_equal_tp_fused=bool(torch.equal(ids_tp, ids_fused)),
+            score_max_abs_err_vs_tp_fused=max_err(s_tp, s_fused),
+            tp_mega_eager_ms=cuda_ms(decode(tp_model, "mega", consts_tp), iters=5, warmup=1),
+            tp_fused_eager_ms=cuda_ms(decode(tp_model, "fused", consts_tp), iters=5, warmup=1),
+            one_device_mega_replay_ms=graph_ms(decode(model, "mega", consts_one), calls=1,
+                                               replays=10))
+    return out
+
+
+def tp_mega_engine(vocab, model, samples, one, prepared, dev) -> dict:
+    """14b: a tp 2 ``mega`` engine over ``[dev, dev]`` with phase 9's model,
+    requests and staged batches (``mesh_engine_run``): launches, answers
+    and ids against phase 9's one-device engine, decode ms."""
+    engine = ServingEngine(model, vocab, buckets=MESH_BUCKETS, devices=[dev] * TP,
+                           model_parallel=TP, decode_backend="mega")
+    with engine:
+        run = mesh_engine_run(engine, samples, prepared)
+    must, must_not = TP_MEGA_LAUNCHES
+    require_launched(run["launches"], must, "tp 2 mega serving")
+    if any(run["launches"][k] for k in must_not):
+        raise AssertionError(f"tp 2 mega serving launched {run['launches']}")
+    answers, ids = run.pop("answers"), run.pop("ids")
+    run["answer_agreement"] = float(np.mean([a == b for a, b in zip(answers, one["answers"])]))
+    run["ids_equal_one_device"] = all(torch.equal(ids[b], one["ids"][b]) for b in ids)
+    run["token_agreement"] = {b: (ids[b] == one["ids"][b]).float().mean().item() for b in ids}
+    run["one_device_decode_ms"] = one["decode_ms"]
+    return run
+
+
+def tp_beams(task, vocab, model, samples, dev) -> dict:
+    """14c: f32 beams (K = 5) of phase 9's model at B = 8 over ``[dev,
+    dev]``: fast beams against one device's (seqs equal, scores within
+    ``BEAM_SCORE_TOL``), with K1 in the cache pass and no other kernel;
+    ``early_exit`` bit-identical; the slow path's seqs equal the fast
+    path's; eager ms of the tp 2 and one-device fast beams."""
+    sp = vocab.special_ids()
+    bos, eos = sp.bos, sp.eos
+    n_spatial = task.mmt.layer_type_list.count("s")
+    tp_model = TPSAM4C(model, [dev] * TP)
+    batch = stack(samples[:BEAM_BATCHES[0]], dev)
+    ref = beam_search_decode_fast(model, batch, BEAM, bos, eos)
+    cuda_build.reset_launch_counts()
+    seqs, scores = beam_search_decode_fast(tp_model, batch, BEAM, bos, eos)  # auto = fused
+    torch.cuda.synchronize()
+    out = {"launches": cuda_build.launch_counts()}
+    early = beam_search_decode_fast(tp_model, batch, BEAM, bos, eos, early_exit=True)
+    cuda_build.reset_launch_counts()
+    slow = beam_search_decode(tp_model, batch, BEAM, bos, eos)
+    torch.cuda.synchronize()
+    out.update(
+        slow_launches=cuda_build.launch_counts(),
+        seqs_equal_one_device=bool(torch.equal(seqs, ref[0])),
+        score_max_abs_err_vs_one_device=max_err(scores, ref[1]),
+        early_exit_bit_identical=bool(torch.equal(early[0], seqs) and torch.equal(early[1],
+                                                                                  scores)),
+        slow_seqs_equal_fast=bool(torch.equal(slow[0], seqs)),
+        slow_vs_fast_max_abs_err=max_err(slow[1], scores),
+        distinct_best_beams=len({tuple(r) for r in seqs[:, 0].tolist()}),
+        tp_fast_eager_ms=cuda_ms(lambda: beam_search_decode_fast(tp_model, batch, BEAM, bos, eos),
+                                 iters=3, warmup=1),
+        one_device_fast_eager_ms=cuda_ms(lambda: beam_search_decode_fast(model, batch, BEAM, bos,
+                                                                         eos), iters=3, warmup=1))
+    log(f"  tp 2 beams B={BEAM_BATCHES[0]} f32: {json.dumps(out)}")
+    if out["launches"] != launch_dict(spatial_attention=n_spatial * TP) or \
+            out["slow_launches"] != launch_dict():
+        raise AssertionError(f"tp 2 beams launched {out['launches']} (slow "
+                             f"{out['slow_launches']}): K1 in the cache pass only expected")
+    if not (out["seqs_equal_one_device"] and out["early_exit_bit_identical"]
+            and out["slow_seqs_equal_fast"]) or out["distinct_best_beams"] < 2 or \
+            out["score_max_abs_err_vs_one_device"] > BEAM_SCORE_TOL or \
+            out["slow_vs_fast_max_abs_err"] > BEAM_SCORE_TOL:
+        raise AssertionError(f"tp 2 beams differ: {out}")
+    return out
+
+
+def tp_beam_engines(vocab, model, samples, dev) -> dict:
+    """14c: a one-device beam engine (K = 5, f32, one CUDA graph per
+    bucket) and a tp 2 beam engine (eager) over phase 9's buckets on its
+    64 requests: the same answers; the tp 2 engine launches K1 only."""
+    out, answers = {}, {}
+    for label, where in (("one_device", dict(device=dev)),
+                         ("tp2", dict(devices=[dev] * TP, model_parallel=TP))):
+        engine = ServingEngine(model, vocab, buckets=MESH_BUCKETS, beam_size=BEAM, **where)
+        try:
+            t0 = time.monotonic()
+            engine.warmup()
+            warmup_s = time.monotonic() - t0
+            cuda_build.reset_launch_counts()
+            results, wall = flood(engine, samples)
+            torch.cuda.synchronize()
+            launches = cuda_build.launch_counts()
+            stats, graphs = engine.stats.summary(), engine.graph_counts()["graphs"]
+        finally:
+            engine.close()
+        answers[label] = [r["answer"] for r in results]
+        out[label] = dict(samples_per_s=len(samples) / wall, wall_s=wall, warmup_s=warmup_s,
+                          graphs=graphs, launches=launches,
+                          **{k: stats.get(k) for k in ("latency_ms_p50", "latency_ms_p95")})
+    out["answers_equal"] = answers["tp2"] == answers["one_device"]
+    out["distinct_answers"] = len(set(answers["tp2"]))
+    log(f"  beam engines f32: {json.dumps(out)}")
+    require_launched(out["tp2"]["launches"], ("spatial_attention",), "tp 2 beam engine")
+    if any(out["tp2"]["launches"][k] for k in ("decode_attention", "decode_step",
+                                               *SHARD_ENTRIES)):
+        raise AssertionError(f"the tp 2 beam engine launched {out['tp2']['launches']}")
+    if not out["answers_equal"]:
+        raise AssertionError("the tp 2 beam engine's f32 answers differ from one device's")
+    return out
+
+
+def card_pair(dev) -> str:
+    """``--device`` of a tp 2 CLI on the card repeated: ``cuda:0,cuda:0``."""
+    cuda = f"cuda:{dev.index or 0}" if dev.type == "cuda" else str(dev)
+    return f"{cuda},{cuda}"
+
+
+def tp_beam_cli(best_model: Path, one_device: dict, one_answers: dict, dev) -> dict:
+    """14c: ``--pretrained_eval`` of phase 5's best model with ``--beam_size
+    5 --model_parallel 2 --device cuda:0,cuda:0`` in f32 (phase 11's config
+    file): its answers equal phase 11b's one-device f32 run's, K1 launched
+    and no other kernel, its accuracy and decode samples/s beside that
+    run's (``one_device``)."""
+    config = best_model.parent / "c3.yml"  # phase 11b's
+    cuda_build.reset_launch_counts()
+    t0 = time.monotonic()
+    with timing_evaluate({}) as timed:
+        res = train_cli.main(cli_args(str(config), "beam_tp2", "--pretrained_eval",
+                                      str(best_model), "--beam_size", str(BEAM), "--dtype", "f32",
+                                      "--device", card_pair(dev), "--model_parallel", str(TP)))
+    torch.cuda.synchronize()
+    launches = cuda_build.launch_counts()
+    n = sum(len(r["predictions"]) for r in res["eval"].values())
+    answers = {s: [p["pred_answer"] for p in r["predictions"]] for s, r in res["eval"].items()}
+    val = res["eval"]["val"]
+    out = dict(eval_samples_per_s=n / timed["eval_s"], eval_s=timed["eval_s"],
+               cli_s=time.monotonic() - t0, samples=n, launches=launches,
+               val_accuracy=val["accuracy"], val_anls=val.get("anls"),
+               answers_equal_one_device=answers == one_answers,
+               one_device_eval_samples_per_s=one_device["eval_samples_per_s"],
+               one_device_val_accuracy=one_device["val_accuracy"])
+    log(f"  --pretrained_eval --beam_size {BEAM} --model_parallel {TP} f32: {json.dumps(out)}")
+    require_launched(launches, ("spatial_attention",), "tp 2 --pretrained_eval --beam_size 5")
+    if any(launches[k] for k in ("decode_attention", "decode_step", *SHARD_ENTRIES)):
+        raise AssertionError(f"the tp 2 beam CLI launched {launches}")
+    if not out["answers_equal_one_device"]:
+        raise AssertionError("tp 2 --pretrained_eval --beam_size 5 answers differ from one "
+                             "device's")
+    return out
+
+
+def tp_decode_path(task, vocab, kept, samples, best_model: Path, beam_cli: dict,
+                   beam5_f32: dict, dev=torch.device("cuda")) -> dict:
+    """Phase 14 (see the module docstring), 14b and 14c, on phase 9's
+    models, requests and staged batches (``kept``, per dtype: the model on
+    the CPU, the one-device engine's run, the staged requests); ``beam_cli``
+    and ``beam5_f32`` are phase 11b's results and f32 beam answers."""
+    bos = vocab.special_ids().bos
+    out = {"mega": {}}
+    for name, (model, one, prepared) in kept.items():
+        model = model.to(dev)
+        batch = stack(samples[:BATCH], dev)
+        res = {"decodes": tp_mega_decodes(task, model, batch, bos, dev),
+               "engine": tp_mega_engine(vocab, model, samples, one, prepared, dev)}
+        eng, dec = res["engine"], res["decodes"]
+        log(f"  tp 2 mega {name}: decodes {json.dumps(dec)}")
+        log(f"  tp 2 mega engine {name}: {eng['samples_per_s']:.1f} samples/s, p50 "
+            f"{eng['latency_ms_p50']:.2f} / p95 {eng['latency_ms_p95']:.2f} ms, decode ms B=2 "
+            f"{eng['decode_ms'][2]:.3f} / B=32 {eng['decode_ms'][BATCH]:.3f} (one device "
+            f"{one['decode_ms'][2]:.3f} / {one['decode_ms'][BATCH]:.3f}), launches "
+            f"{eng['launches']}, agreement answers {eng['answer_agreement']:.3f} tokens "
+            f"{eng['token_agreement']}")
+        if name == "float32" and not (eng["answer_agreement"] == 1.0 and eng["ids_equal_one_device"]
+                                      and all(r["ids_equal_one_device_mega"]
+                                              for r in dec.values())):
+            raise AssertionError(f"tp 2 mega f32 ids differ from one device's: {res}")
+        out["mega"][name] = res
+        if name == "float32":
+            out["beams"] = tp_beams(task, vocab, model, samples, dev)
+            out["beam_engines"] = tp_beam_engines(vocab, model, samples, dev)
+        kept[name] = None
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["beam_cli"] = tp_beam_cli(best_model, beam_cli["beam5_f32"], beam5_f32, dev)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.monotonic()
+    global _T0
+    t_start = _T0 = time.monotonic()
     marks = []  # (phase header, its start)
 
     def mark(msg: str) -> None:
@@ -4390,12 +4959,16 @@ def main() -> int:
     mark("== phase 5: the train CLI (c3, bf16, batch 96, --synthetic 480)")
     beam_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_beam_"))  # phase 11's checkpoint
     atexit.register(shutil.rmtree, beam_dir, True)
-    untimed = {}
+    untimed, real_files = {}, {}
+
+    def beside():  # phase 13's and phase 6's untimed parts, beside the resume children
+        untimed.update(artifact_untimed(task, vocab))
+        real_files.update(real_data_files(task))
+
     cli = train_cli_path(task, vocab, model, training["train"], gen,
-                         keep_best=beam_dir / "best_model",
-                         beside=lambda: untimed.update(artifact_untimed(task, vocab)))
+                         keep_best=beam_dir / "best_model", beside=beside)
     mark("== phase 6: the train CLI on real-format files (c3, bf16, batch 96, 1 epoch)")
-    real = real_data_path(task, vocab, model, cli, training["train"], gen)
+    real = real_data_path(task, vocab, model, cli, training["train"], gen, real_files)
     mark("== phase 7: the server (c3, obj ladder 50, OCR ladder 10,25, one CUDA graph per cell; "
         "in-process f32 and bf16, TCP f32)")
     server, served = server_path(task, vocab, model, gen)
@@ -4406,14 +4979,23 @@ def main() -> int:
         "9b: dp2, tp2, dp2 x tp2 engines, f32 and bf16; 9c: the serve CLI)")
     t9 = time.monotonic()
     mesh = {"shard_kernels": shard_kernels(task, batch, seg, gen)}
-    mesh.update(mesh_path(task, vocab, samples))
+    mesh_run, kept = mesh_path(task, vocab, samples)  # phase 14 reuses its models
+    mesh.update(mesh_run)
     mesh["seconds"] = time.monotonic() - t9
     mark("== phase 10: tensor-parallel training on the repeated card (10a: f32 tp 2 vs one "
         "device, dp 2 x tp 2 over gloo, bf16 step; 10b: the train CLI --model_parallel 2)")
     tp_training, tp_call = tp_training_path(task, vocab, gen)
     mark("== phase 11: beams and the evaluator's width ladders (11a: fast and slow beams, "
-        "evaluator ladders; 11b: the train CLI; 11c: the beam engine; 11d: refusal)")
-    beam, beam_graph = beam_path(task, vocab, beam_dir / "best_model")
+        "evaluator ladders; 11b: the train CLI; 11c: the beam engine)")
+    beam, beam_graph, beam5_f32 = beam_path(task, vocab, beam_dir / "best_model")
+    mark("== phase 14: tensor-parallel decoding on the repeated card (14a: the shard entries; "
+         "14b: mega under tp 2; 14c: beams under tp 2)")
+    t14 = time.monotonic()
+    tp_decode = {"shard_entries": bench_shard_entries(task, model, seg, gen)}
+    tp_decode.update(tp_decode_path(task, vocab, kept, samples, beam_dir / "best_model",
+                                    beam["cli"], beam5_f32))
+    tp_decode["seconds"] = time.monotonic() - t14
+    start_cold_starts(task, untimed)
     mark("== phase 12: early exit, policy and implicit layers (12a: xla_early / xla_flat; "
         "12b: the policy engine; 12c: the implicit config with the aux head)")
     early = early_exit_path(task, vocab, seg, gen)
@@ -4515,6 +5097,9 @@ def main() -> int:
             "artifact_engine_launches": {dt: artifact["engines"][dt]["artifact"]["launches"][name]
                                          for dt in ("float32", "bfloat16")},
             "operator_dispatch_host_ms": artifact["dispatch"][name],
+            "tp_mega_engine_launches": {dt: tp_decode["mega"][dt]["engine"]["launches"][name]
+                                        for dt in ("float32", "bfloat16")},
+            "tp_beam_launches_b8": tp_decode["beams"]["launches"][name],
             "parity": "ok", **res,
         })
         for key, shard in mesh["shard_kernels"].items():
@@ -4522,6 +5107,19 @@ def main() -> int:
                 rows[-1][f"shard_{key[len(name) + 1:] or 'tp2'}"] = shard
         if fused:
             rows[-1]["head_dim_32"] = early["implicit"]["decode_attention_hd32"]
+    for name, res in tp_decode["shard_entries"].items():
+        rows.append({
+            "name": name, "route": "cuda", "source": "sam_textvqa_tpu_torch/csrc/decode_step.cu",
+            "replaces": REPLACES["decode_step"],
+            "launches": tp_decode["mega"]["bfloat16"]["engine"]["launches"][name],
+            "path": "tp 2 serving on the repeated card, backend mega",
+            "tp_mega_engine_launches": {dt: tp_decode["mega"][dt]["engine"]["launches"][name]
+                                        for dt in ("float32", "bfloat16")},
+            "tp_mega_launches_per_decode": {
+                dt: {b: r["launches"][name] for b, r in tp_decode["mega"][dt]["decodes"].items()}
+                for dt in ("float32", "bfloat16")},
+            "parity": "ok", **res,
+        })
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"train_cli": cli}), flush=True)
     print(json.dumps({"real_data": real}), flush=True)
@@ -4532,6 +5130,7 @@ def main() -> int:
     print(json.dumps({"beam": beam}), flush=True)
     print(json.dumps({"early_exit": early}), flush=True)
     print(json.dumps({"artifact": artifact}), flush=True)
+    print(json.dumps({"tp_decode": tp_decode}), flush=True)
     ends = [t for _, t in marks[1:]] + [time.monotonic()]
     log("seconds per phase (in run order): " + json.dumps(
         {name: round(end - start, 1) for (name, start), end in zip(marks, ends)}))
@@ -4544,6 +5143,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    pool_synthetic_batches()
     if sys.argv[1:2] == ["--resume-check"]:
         sys.exit(resume_child(*sys.argv[2:6]))
     if sys.argv[1:2] == ["--ddp-child"]:

@@ -57,6 +57,21 @@
 //   which the product after it takes as its residual.
 // The step index t is an int32 device scalar, so every launch is the same
 // and the step is capturable in a CUDA graph.
+//
+// Tensor parallelism sums two products inside every layer across shards, so
+// it cannot run the whole step from one entry. Two more entries run one
+// layer of one shard (its H/tp heads and F/tp FFN columns), from inputs
+// already normalised on the first device, which sums the shards' partials
+// and applies the replicated biases, residuals and LayerNorms
+// (models/tensor_parallel.py):
+//   attention part: qkv = x @ Wqkv_r^T + b_r, the decode attention over the
+//                    shard's heads (K/V row t written in place), then the
+//                    partial out-projection ctx_r @ Wout_r^T (3 launches)
+//   FFN part:        h_r = gelu_erf(x @ Wff1_r^T + b_r), then the partial
+//                    h_r @ Wff2_r^T (2 launches)
+// The partials are rounded to the compute dtype once, with no bias and no
+// residual (the rounding points of the fused tp step). Same product kernel,
+// same attention code: the shard widths D/tp and F/tp only change K or N.
 #include <cooperative_groups.h>
 
 #include "decode_attention.cuh"
@@ -74,7 +89,8 @@ constexpr size_t kMaxSmem = 232448;
 constexpr int kLnThreads = 256;
 constexpr float kLnEps = 1e-12f;
 
-enum Epilogue { kBias = 0, kBiasGelu = 1, kBiasResidual = 2 };
+// kPartial: a tensor-parallel shard's partial product, rounded, no bias
+enum Epilogue { kBias = 0, kBiasGelu = 1, kBiasResidual = 2, kPartial = 3 };
 
 template <typename T>
 struct Product {
@@ -84,7 +100,7 @@ struct Product {
   const float2* stats_in;  // (groups, K / kRows, kGroup) per-tile (mean, M2) of x
   T* x_norm;               // (B, K) normalised rows, written by the CTAs of tile 0
   const T* w;              // (N, K)
-  const T* bias;           // (N)
+  const T* bias;           // (N), unread under kPartial
   const T* res;            // (B, N) residual, or null
   T* out;                  // (B, N)
   float2* stats_out;       // (groups, N / kRows, kGroup) per-tile (mean, M2) of out, or null
@@ -314,7 +330,7 @@ __global__ void __launch_bounds__(kThreads) product_kernel(const Product<T> p) {
       const int row = i % kRows, col = split + p.splits * (i / kRows);
       sum[q] = 0.f;
       for (int sp = 0; sp < p.splits; ++sp) sum[q] += recv[(sp * per + i / kRows) * kRows + row];
-      bias[q] = sam::to_f(p.bias[tile * kRows + row]);
+      bias[q] = EPI == kPartial ? 0.f : sam::to_f(p.bias[tile * kRows + row]);
       res[q] = EPI == kBiasResidual
                    ? sam::to_f(p.res[static_cast<size_t>(b0 + col) * p.N + tile * kRows + row])
                    : 0.f;
@@ -324,7 +340,8 @@ __global__ void __launch_bounds__(kThreads) product_kernel(const Product<T> p) {
       const int i = i0 + q * kThreads;
       if (i >= items) break;
       const int row = i % kRows, col = split + p.splits * (i / kRows);
-      float y = sam::round_to<T>(sam::round_to<T>(sum[q]) + bias[q]);
+      float y = EPI == kPartial ? sam::round_to<T>(sum[q])
+                                : sam::round_to<T>(sam::round_to<T>(sum[q]) + bias[q]);
       if (EPI == kBiasGelu) y = sam::round_to<T>(y * 0.5f * (1.f + erff(y / 1.41421356f)));
       if (EPI == kBiasResidual) y = sam::round_to<T>(y + res[q]);
       p.out[static_cast<size_t>(b0 + col) * p.N + tile * kRows + row] = sam::from_f<T>(y);
@@ -559,7 +576,120 @@ int decode_step(const int* t, const int* seg_lens, const T* x0, const T* wqkv,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// K-splits of a shard part's two products, (n1, K = D) then (D, K = w):
+// the attention part's QKV (n1 = 3 w) and out-projection (w = D/tp), or the
+// FFN part's FF1 (n1 = w) and FF2 (w = F/tp). False where a width is not
+// whole 64-row tiles or no split fits.
+template <typename T>
+bool shard_plan(int B, int D, int n1, int w, int (&splits)[2]) {
+  if (B < 1 || D % kRows || n1 % kRows || w % kRows) return false;
+  splits[0] = splits_for<T>(B, n1, D, false);
+  splits[1] = splits_for<T>(B, D, w, false);
+  return splits[0] > 0 && splits[1] > 0;
+}
+
+// part 0 (attention): qkv (3 w) and ctx (w) per batch row; part 1 (FFN):
+// the gelu rows (w). 0 where the widths do not fit.
+template <typename T>
+size_t shard_workspace(int part, int B, int D, int w) {
+  int splits[2];
+  if (!shard_plan<T>(B, D, part == 0 ? 3 * w : w, w, splits)) return 0;
+  return align256(sizeof(T) * static_cast<size_t>(B) * (part == 0 ? 4 * w : w));
+}
+
+template <typename T>
+Product<T> plain_product(const T* x, const T* w, const T* bias, T* out, int B, int N, int K,
+                         int splits) {
+  return Product<T>{x, nullptr, nullptr, nullptr, nullptr, w, bias, nullptr, out, nullptr,
+                    B, N, K, splits};
+}
+
+// One layer of one shard's attention part. Weights and caches are the
+// shard's stacks over all layers, offset here to ``layer``: wqkv (L, 3w, D),
+// bqkv (L, 3w), wout (L, D, w), k_enc/v_enc (L, B, le, w), k_dec/v_dec
+// (L, B, t_max, w); x (B, D) normalised; out (B, D) the partial product.
+template <typename T>
+int shard_attention(const int* t, const int* seg_lens, const T* x, const T* wqkv, const T* bqkv,
+                    const T* wout, const T* k_enc, const T* v_enc, T* k_dec, T* v_dec, T* out,
+                    void* workspace, int layer, int B, int D, int w, int le, int t_max, int hd,
+                    int q_len, int n_obj, cudaStream_t stream) {
+  int splits[2];
+  if (!shard_plan<T>(B, D, 3 * w, w, splits) || w % hd) return cudaErrorInvalidValue;
+  const size_t l = layer, bw = static_cast<size_t>(B) * w;
+  T* qkv = static_cast<T*>(workspace);  // B x 3w
+  T* ctx = qkv + 3 * bw;                // B x w
+  cudaError_t err = product<T, kBias>(
+      plain_product(x, wqkv + l * 3 * w * D, bqkv + l * 3 * w, qkv, B, 3 * w, D, splits[0]),
+      stream);
+  if (err != cudaSuccess) return err;
+  const size_t enc_layer = bw * le, dec_layer = bw * t_max;
+  err = sam::launch_decode_attention<T>(
+      qkv, 3 * w, qkv + w, 3 * w, k_enc + l * enc_layer, v_enc + l * enc_layer,
+      k_dec + l * dec_layer, v_dec + l * dec_layer, ctx, seg_lens, t, B, w / hd, hd, le, t_max,
+      q_len, n_obj, 1.f / sqrtf(static_cast<float>(hd)), stream, /*dependent=*/true);
+  if (err != cudaSuccess) return err;
+  return product<T, kPartial>(plain_product(ctx, wout + l * D * w, static_cast<const T*>(nullptr),
+                                            out, B, D, w, splits[1]),
+                              stream);
+}
+
+// One layer of one shard's FFN part: wff1 (L, w, D), bff1 (L, w), wff2
+// (L, D, w); x (B, D) normalised (LN1 of the layer); out (B, D) partial.
+template <typename T>
+int shard_ffn(const T* x, const T* wff1, const T* bff1, const T* wff2, T* out, void* workspace,
+              int layer, int B, int D, int w, cudaStream_t stream) {
+  int splits[2];
+  if (!shard_plan<T>(B, D, w, w, splits)) return cudaErrorInvalidValue;
+  const size_t l = layer;
+  T* inter = static_cast<T*>(workspace);  // B x w
+  const cudaError_t err = product<T, kBiasGelu>(
+      plain_product(x, wff1 + l * w * D, bff1 + l * w, inter, B, w, D, splits[0]), stream);
+  if (err != cudaSuccess) return err;
+  return product<T, kPartial>(plain_product(static_cast<const T*>(inter), wff2 + l * D * w,
+                                            static_cast<const T*>(nullptr), out, B, D, w,
+                                            splits[1]),
+                              stream);
+}
+
 }  // namespace
+
+// Bytes of device workspace one shard part needs (part 0 attention, 1 FFN;
+// w = D/tp or F/tp); 0 where the kernels do not take these widths.
+SAM_EXPORT size_t sam_decode_shard_workspace(int dtype, int part, int B, int D, int w) {
+  return dtype == 0 ? shard_workspace<float>(part, B, D, w)
+                    : shard_workspace<__nv_bfloat16>(part, B, D, w);
+}
+
+SAM_EXPORT int sam_decode_shard_attention(int dtype, const int* t, const int* seg_lens,
+                                          const void* x, const void* wqkv, const void* bqkv,
+                                          const void* wout, const void* k_enc,
+                                          const void* v_enc, void* k_dec, void* v_dec,
+                                          void* out, void* workspace, int layer, int B, int D,
+                                          int w, int le, int t_max, int hd, int q_len,
+                                          int n_obj, cudaStream_t stream) {
+#define SAM_PART(T)                                                                          \
+  shard_attention<T>(t, seg_lens, static_cast<const T*>(x), static_cast<const T*>(wqkv),     \
+                     static_cast<const T*>(bqkv), static_cast<const T*>(wout),               \
+                     static_cast<const T*>(k_enc), static_cast<const T*>(v_enc),             \
+                     static_cast<T*>(k_dec), static_cast<T*>(v_dec), static_cast<T*>(out),   \
+                     workspace, layer, B, D, w, le, t_max, hd, q_len, n_obj, stream)
+  if (dtype == 0) return SAM_PART(float);
+  return SAM_PART(__nv_bfloat16);
+#undef SAM_PART
+}
+
+SAM_EXPORT int sam_decode_shard_ffn(int dtype, const void* x, const void* wff1,
+                                    const void* bff1, const void* wff2, void* out,
+                                    void* workspace, int layer, int B, int D, int w,
+                                    cudaStream_t stream) {
+#define SAM_PART(T)                                                                          \
+  shard_ffn<T>(static_cast<const T*>(x), static_cast<const T*>(wff1),                        \
+               static_cast<const T*>(bff1), static_cast<const T*>(wff2), static_cast<T*>(out), \
+               workspace, layer, B, D, w, stream)
+  if (dtype == 0) return SAM_PART(float);
+  return SAM_PART(__nv_bfloat16);
+#undef SAM_PART
+}
 
 // Bytes of device workspace one step needs (activation buffers and row
 // statistics); 0 where the kernel does not take these widths.

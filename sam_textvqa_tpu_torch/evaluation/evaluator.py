@@ -11,11 +11,12 @@ position. Each batch decodes through
 ``mega`` on the card: the spatial-attention kernel in the encoder-cache
 pass, the decode-step kernel per greedy step; for a tensor-parallel
 ``TPSAM4C`` it is ``fused``: K1 and the decode-attention kernel on each
-shard's heads; ``xla_early`` stops each batch once all its rows have
-emitted EOS, with the same answers). The kernel backends' stacked weights
-are made anew in every decode, from the weights as they are then. ``fast_decode=False`` decodes
-with the full-recompute paths instead (``sa_m4c.greedy_decode``,
-``beam_search.beam_search_decode``).
+shard's heads, or with ``mega`` the decode step's shard entries;
+``xla_early`` stops each batch once all its rows have emitted EOS, with
+the same answers); its beams run each shard's heads too. The kernel
+backends' stacked weights are made anew in every decode, from the weights
+as they are then. ``fast_decode=False`` decodes with the full-recompute
+paths instead (``sa_m4c.greedy_decode``, ``beam_search.beam_search_decode``).
 
 Width ladders (``ocr_bucket`` / ``obj_bucket``): each batch runs at the
 narrowest (obj, OCR) cell of the ladders' grid that holds every real token
@@ -37,11 +38,11 @@ import torch.distributed as dist
 
 from ..data.prefetch import cast_features_for_transfer
 from ..data.vocab import VocabDict
-from ..models.beam_search import BEAM_TP_REFUSAL, beam_search_decode
+from ..models.beam_search import beam_search_decode
 from ..models.fast_decode import (KERNEL_STEP_BACKENDS, MASK_KEYS, beam_search_decode_fast,
                                   check_prefix_masks, greedy_decode_fast, resolve_backend)
 from ..models.sa_m4c import greedy_decode, with_widths
-from ..models.tensor_parallel import TPSAM4C, home_device
+from ..models.tensor_parallel import home_device
 from ..serving.engine import SAMPLE_KEYS
 from ..serving.ladder import normalize_ladder
 from .metrics import (
@@ -321,8 +322,6 @@ class Evaluator:
         ``obj_bucket`` as in :meth:`run_split`."""
         if beam_size < 1:
             raise ValueError(f"beam_size must be >= 1, got {beam_size}")
-        if isinstance(self.model, TPSAM4C):
-            raise ValueError(BEAM_TP_REFUSAL)
         bos, eos = self.special.bos, self.special.eos
         all_preds: List[Dict] = []
         scored_preds: List[Dict] = []

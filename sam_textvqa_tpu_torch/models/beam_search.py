@@ -28,10 +28,6 @@ import torch.nn.functional as F
 
 NEG_INF = -1e30
 
-#: the still unported combination, named by the CLIs, the evaluator and the engine
-BEAM_TP_REFUSAL = ("beam search under tensor parallelism is not ported yet (ROADMAP queue 1, "
-                   "item 5b: a tp beam step with per-shard heads and the pointer sum)")
-
 #: the batch arrays a beam path tiles across the beams besides the encodings
 TILED_KEYS = ("question_mask", "pad_obj_mask", "pad_ocr_mask", "spatial_classes")
 
@@ -85,7 +81,9 @@ def beam_search_decode(model, batch: Dict[str, torch.Tensor], beam_size: int, bo
     """Beam decode with a full MMT recompute per step (``SAM4C.decode_step``
     on the K-fold tiled encodings and masks; its spatial layers follow
     ``model.mmt.attention_backend``, so ``"kernel"`` runs the spatial-
-    attention kernel at the full joint length every step).
+    attention kernel at the full joint length every step). ``model`` may
+    be a ``models.tensor_parallel.TPSAM4C`` (``batch`` on its first
+    device), whose ``decode_step`` runs each shard's heads.
 
     Returns:
       seqs: (B, K, T) int64, BOS then the decoded tokens (the last step's

@@ -41,16 +41,20 @@ in that pass, as JAX runs Pallas only for spatial layers: the kernel has
 one relation LUT for all heads and cuts quadrants on every head.
 
 A tensor-parallel model (``models/tensor_parallel.py``) decodes through the
-same functions, each shard on its own heads: ``plain``, ``xla_early`` and
-``fused`` (its ``auto`` on CUDA), never ``mega``, whose one launch runs
-every layer while tensor parallelism sums two products inside each.
+same functions, each shard on its own heads: ``plain``, ``xla_early``,
+``fused`` (its ``auto`` on CUDA) and ``mega``. Tensor parallelism sums two
+products inside every layer, so ``mega`` there runs the decode step's two
+per-layer shard entries (``ops/decode_step.py:decode_shard_attention`` and
+``decode_shard_ffn``) on each shard, and the first device sums their
+partials.
 
 :func:`beam_search_decode_fast` is the beam search on the same cache: K
 decoder rows per sample against the untiled encoder K/V, per-beam decoder
-K/V reordered after every step. Its steps are PyTorch calls whatever the
-backend (as JAX computes them outside any Pallas kernel); a backend other
-than ``plain`` runs the encoder-cache pass through the spatial-attention
-kernel.
+K/V reordered after every step; for a tensor-parallel model each shard
+runs its own heads and the OCR pointer's partial scores are summed before
+the top-k. Its steps are PyTorch calls whatever the backend (as JAX
+computes them outside any Pallas kernel); a backend other than ``plain``
+runs the encoder-cache pass through the spatial-attention kernel.
 """
 
 from __future__ import annotations
@@ -64,11 +68,12 @@ import torch
 
 from ..config import MATRIX_TYPE_MAP, MMTConfig
 from ..ops.decode_attention import decode_attention
-from ..ops.decode_step import WEIGHT_NAMES, decode_step_fused
+from ..ops.decode_step import (WEIGHT_NAMES, decode_shard_attention, decode_shard_ffn,
+                               decode_step_fused)
 from ..ops.fused_attention import HEAD_DIMS as SPATIAL_HEAD_DIMS, spatial_attention
 from ..ops.spatial_graph import build_spatial_allowed, relation_head_lut
 from ..parallel.tensor import reduce_sum
-from .beam_search import BEAM_TP_REFUSAL, beam_step, init_beams
+from .beam_search import beam_step, init_beams
 from .bert import merge_heads, split_heads
 from .layers import MASK_BIAS, gelu_erf, layer_norm_tf, row_alive_from_bias
 from .mmt import implicit_split, layer_heads
@@ -320,40 +325,51 @@ def _decode_one_row(mmt, cfg: MMTConfig, cache: MMTCache, x, dec_kv, t: int):
     return x
 
 
+def _beam_context(ap, layer_type: str, cfg: MMTConfig, cache: MMTCache, li: int, x, dec_kv,
+                  t: int, dec_col_bias, first_head: int = 0):
+    """One layer's attention for one decoder row per beam, ``x`` (B, K, D),
+    of ``ap``'s heads (global heads ``first_head`` onward: a
+    tensor-parallel shard's; 0 on one device). The K beams of a sample ride
+    the query dimension against its cached encoder K/V of layer ``li``,
+    viewed per head and never tiled (tiling would read it K times per
+    step); ``dec_kv`` is the beams' own decoder K/V (k, v) of shape (B, K,
+    H, T, hd), row t written in place. Spatial layers take the quadrant
+    7/8/9 cuts and zero fully masked rows as :func:`_one_row_context`
+    does. Returns the merged context (B, K, H * hd)."""
+    b, k = x.shape[:2]
+    h = ap.num_heads
+    le = cache.k_enc.shape[2]
+    q = ap.query(x)
+    hd = q.shape[-1] // h
+    q = q.view(b, k, h, hd)
+    k_buf, v_buf = dec_kv
+    k_buf[:, :, :, t] = ap.key(x).view(b, k, h, hd)
+    v_buf[:, :, :, t] = ap.value(x).view(b, k, h, hd)
+    k_enc = split_heads(cache.k_enc[li], h)  # (B, H, Le, hd)
+    v_enc = split_heads(cache.v_enc[li], h)
+    scale = 1.0 / math.sqrt(hd)
+    scores_enc = torch.einsum("bkhd,bhld->bkhl", q, k_enc) * scale
+    scores_dec = torch.einsum("bkhd,bkhtd->bkht", q, k_buf) * scale
+    enc_bias, dec_bias = cache.enc_bias_cols, dec_col_bias  # broadcast over (K, H)
+    if cache.spatial_dec_masked[li]:
+        qe, qd = (torch.from_numpy(a).to(x.device)
+                  for a in _dec_quadrant_bias(cfg, layer_type, h, first_head))
+        enc_bias = torch.minimum(enc_bias, qe[None, None])
+        dec_bias = torch.minimum(dec_bias, qd[None, None])
+    probs = _row_probs(scores_enc, scores_dec, enc_bias, dec_bias, cache.spatial_dec_masked[li])
+    ctx = (torch.einsum("bkhl,bhld->bkhd", probs[..., :le], v_enc)
+           + torch.einsum("bkht,bkhtd->bkhd", probs[..., le:], v_buf))
+    return _with_head_bias(ap, ctx.reshape(b, k, h * hd))
+
+
 def _decode_one_row_beams(mmt, cfg: MMTConfig, cache: MMTCache, x, dec_kv, t: int):
     """One decoder row per beam, ``x`` (B, K, D), through all layers (plain
-    PyTorch). The K beams of a sample ride the query dimension against its
-    cached encoder K/V, viewed per head and never tiled (tiling would read
-    it K times per step); ``dec_kv`` holds per layer the beams' own decoder
-    K/V (k, v) of shape (B, K, H, T, hd), row t written in place. Spatial
-    layers take the quadrant 7/8/9 cuts and zero fully masked rows as
-    :func:`_one_row_context` does. Returns (B, K, D)."""
-    b, k, d = x.shape
-    le = cache.k_enc.shape[2]
+    PyTorch): per layer :func:`_beam_context` with ``dec_kv[li]``, then the
+    output projection and the FFN. Returns (B, K, D)."""
     dec_col_bias = _dec_col_bias(cfg, t, x.device)
     for li, (layer_type, _, layer) in enumerate(mmt.iter_layers()):
-        ap = layer.attention.self
-        h = ap.num_heads
-        q = ap.query(x).view(b, k, h, d // h)
-        k_buf, v_buf = dec_kv[li]
-        k_buf[:, :, :, t] = ap.key(x).view(b, k, h, d // h)
-        v_buf[:, :, :, t] = ap.value(x).view(b, k, h, d // h)
-        k_enc = split_heads(cache.k_enc[li], h)  # (B, H, Le, hd)
-        v_enc = split_heads(cache.v_enc[li], h)
-        scale = 1.0 / math.sqrt(d // h)
-        scores_enc = torch.einsum("bkhd,bhld->bkhl", q, k_enc) * scale
-        scores_dec = torch.einsum("bkhd,bkhtd->bkht", q, k_buf) * scale
-        enc_bias, dec_bias = cache.enc_bias_cols, dec_col_bias  # broadcast over (K, H)
-        if cache.spatial_dec_masked[li]:
-            qe, qd = (torch.from_numpy(a).to(x.device)
-                      for a in _dec_quadrant_bias(cfg, layer_type, h))
-            enc_bias = torch.minimum(enc_bias, qe[None, None])
-            dec_bias = torch.minimum(dec_bias, qd[None, None])
-        probs = _row_probs(scores_enc, scores_dec, enc_bias, dec_bias,
-                           cache.spatial_dec_masked[li])
-        ctx = (torch.einsum("bkhl,bhld->bkhd", probs[..., :le], v_enc)
-               + torch.einsum("bkht,bkhtd->bkhd", probs[..., le:], v_buf))
-        ctx = _with_head_bias(ap, ctx.reshape(b, k, d))
+        ctx = _beam_context(layer.attention.self, layer_type, cfg, cache, li, x, dec_kv[li], t,
+                            dec_col_bias)
         x = layer.ffn(layer.attention.output(ctx, x))
     return x
 
@@ -401,10 +417,18 @@ def _mega_supported(cfg: MMTConfig) -> bool:
     return not _kernel_violations(cfg, uniform=True)
 
 
-#: why ``mega`` cannot decode a tensor-parallel model
-MEGA_TP_REFUSAL = ("decode backend 'mega' runs all layers of a step in one launch, and "
-                   "tensor parallelism sums two products inside every layer: use 'fused' "
-                   "(a per-layer decode-step entry is ROADMAP queue 1, item 9e)")
+def check_kernel_backend(backend: str, cfg: MMTConfig, tp: int = 1) -> None:
+    """Raise ValueError naming the preconditions that the kernel steps of
+    ``backend`` (``fused`` or ``mega``; any other passes) miss for ``cfg``
+    on ``tp`` tensor-parallel shards (:func:`_kernel_violations`). The
+    decode checks it; the engine and the CLIs check it before any work."""
+    backend = JAX_ALIASES.get(backend, backend)
+    if backend in KERNEL_STEP_BACKENDS:
+        problems = _kernel_violations(cfg, uniform=backend == "mega", tp=tp)
+        if problems:
+            shards = f" on {tp} tensor-parallel shards" if tp > 1 else ""
+            raise ValueError(f"decode backend {backend!r} unsupported{shards}: "
+                             f"{'; '.join(problems)}")
 
 
 def resolve_backend(backend: str, cfg: MMTConfig, device: torch.device, tp: int = 1) -> str:
@@ -412,12 +436,13 @@ def resolve_backend(backend: str, cfg: MMTConfig, device: torch.device, tp: int 
     :data:`JAX_ALIASES`); ``auto`` picks ``mega`` on CUDA when the config
     allows it and ``plain`` otherwise, and logs why. For a model of ``tp`` >
     1 tensor-parallel shards ``auto`` picks ``fused`` on CUDA where the
-    shards meet its preconditions, and ``mega`` raises."""
+    shards meet its preconditions; ``mega`` runs there too, through the
+    decode step's per-layer shard entries, where the shards meet the
+    :func:`_kernel_violations` of ``uniform`` (:func:`check_kernel_backend`
+    raises elsewhere)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown decode backend {backend!r} (expected {' | '.join(BACKENDS)})")
     backend = JAX_ALIASES.get(backend, backend)
-    if tp > 1 and backend == "mega":
-        raise ValueError(MEGA_TP_REFUSAL)
     if backend != "auto":
         return backend
     if device.type != "cuda":
@@ -472,7 +497,7 @@ def _mega_step_consts(mmt, dtype, names=WEIGHT_NAMES) -> Dict[str, torch.Tensor]
 
 
 def _decode_one_row_fused(cfg: MMTConfig, consts, caches, seg_lens, x, k_dec, v_dec,
-                          t: int, t_dev):
+                          t: int, t_dev, shard_entries: bool = False):
     """One decoder row (B, D) through all layers with the decode-attention
     kernel. The arguments other than ``x`` are lists with one entry per
     tensor-parallel shard (one entry on one device), each on its shard's
@@ -481,27 +506,45 @@ def _decode_one_row_fused(cfg: MMTConfig, consts, caches, seg_lens, x, k_dec, v_
     place, and the step index. Each shard attends over its own heads; the
     attention output and the FFN's second product are summed over the
     shards on ``x``'s device, where the replicated biases and LayerNorms of
-    shard 0 apply once. Returns (B, D)."""
+    shard 0 apply once: each shard's partial product is rounded to the
+    compute dtype, then summed, then the bias added, then the residual.
+
+    ``shard_entries`` (``mega`` on a tensor-parallel model): each shard's
+    two parts of a layer run as the decode step's shard entries
+    (``decode_shard_attention``: QKV, attention and the partial
+    out-projection; ``decode_shard_ffn``: FF1 with GeLU and the partial
+    FF2), whose plain versions are the arithmetic below. Returns (B, D)."""
     home = consts[0]
+    q_len, n_obj = cfg.max_seq_length, cfg.max_obj_num
+    shards = list(zip(consts, caches, seg_lens, k_dec, v_dec, t_dev))
     for li, layer_type in enumerate(cfg.layer_type_list):
         hd = cfg.hidden_size // layer_heads(cfg, layer_type)
-        ctxs = []
-        for c, cache, seg, kd, vd, td in zip(consts, caches, seg_lens, k_dec, v_dec, t_dev):
-            qkv = torch.matmul(x.to(td.device), c["wqkv"][li].t()) + c["bqkv"][li]
+        parts = []
+        for c, cache, seg, kd, vd, td in shards:
+            xr = x.to(td.device)
+            if shard_entries:
+                parts.append(decode_shard_attention(
+                    td, seg, xr, c["wqkv"], c["bqkv"], c["wout"], cache.k_enc, cache.v_enc,
+                    kd, vd, layer=li, hd=hd, q_len=q_len, n_obj=n_obj))
+                continue
+            qkv = torch.matmul(xr, c["wqkv"][li].t()) + c["bqkv"][li]
             q, k_row, v_row = qkv.chunk(3, dim=-1)
             kd[li, :, t] = k_row
             vd[li, :, t] = v_row
-            ctxs.append(decode_attention(
-                q.contiguous(), cache.k_enc[li], cache.v_enc[li], kd[li], vd[li], seg, td,
-                hd=hd, q_len=cfg.max_seq_length, n_obj=cfg.max_obj_num,
-            ))
-        attn = reduce_sum([torch.matmul(ctx, c["wout"][li].t()) for ctx, c in zip(ctxs, consts)],
-                          x.device) + home["bout"][li] + x
+            ctx = decode_attention(q.contiguous(), cache.k_enc[li], cache.v_enc[li], kd[li],
+                                   vd[li], seg, td, hd=hd, q_len=q_len, n_obj=n_obj)
+            parts.append(torch.matmul(ctx, c["wout"][li].t()))
+        attn = reduce_sum(parts, x.device) + home["bout"][li] + x
         attn_out = layer_norm_tf(attn, home["ln1w"][li], home["ln1b"][li])
-        inters = [gelu_erf(torch.matmul(attn_out.to(td.device), c["wff1"][li].t()) + c["bff1"][li])
-                  for c, td in zip(consts, t_dev)]
-        out = reduce_sum([torch.matmul(i, c["wff2"][li].t()) for i, c in zip(inters, consts)],
-                         x.device) + home["bff2"][li] + attn_out
+        parts = []
+        for c, *_, td in shards:
+            ar = attn_out.to(td.device)
+            if shard_entries:
+                parts.append(decode_shard_ffn(ar, c["wff1"], c["bff1"], c["wff2"], layer=li))
+            else:
+                inter = gelu_erf(torch.matmul(ar, c["wff1"][li].t()) + c["bff1"][li])
+                parts.append(torch.matmul(inter, c["wff2"][li].t()))
+        out = reduce_sum(parts, x.device) + home["bff2"][li] + attn_out
         x = layer_norm_tf(out, home["ln2w"][li], home["ln2b"][li])
     return x
 
@@ -627,17 +670,13 @@ def _checked_backend(backend: str, cfg: MMTConfig, device: torch.device, tp: int
     ``plain`` runs its cache pass through the spatial-attention kernel,
     which needs the spatial layers' head dim in ``HEAD_DIMS[dtype]``."""
     backend = resolve_backend(backend, cfg, device, tp)
-    problems = []
-    if backend in KERNEL_STEP_BACKENDS:
-        problems = _kernel_violations(cfg, uniform=backend == "mega", tp=tp)
+    check_kernel_backend(backend, cfg, tp)
     hd = cfg.hidden_size // layer_heads(cfg, "s")
     if (device.type == "cuda" and backend != "plain" and "s" in cfg.layer_type_list
             and hd not in SPATIAL_HEAD_DIMS[dtype]):
-        problems.append(f"the spatial-attention kernel of the encoder-cache pass takes head "
-                        f"dims {SPATIAL_HEAD_DIMS[dtype]} in {dtype}, not {hd} (decode with "
-                        f"'plain')")
-    if problems:
-        raise ValueError(f"decode backend {backend!r} unsupported: {'; '.join(problems)}")
+        raise ValueError(f"decode backend {backend!r} unsupported: the spatial-attention kernel "
+                         f"of the encoder-cache pass takes head dims {SPATIAL_HEAD_DIMS[dtype]} "
+                         f"in {dtype}, not {hd} (decode with 'plain')")
     return backend
 
 
@@ -682,8 +721,8 @@ def greedy_decode_fast(model, batch, bos_idx: int, backend: str = "auto",
     ``backend``: ``plain`` (``xla``, ``xla_flat``) | ``xla_early`` |
     ``fused`` | ``mega`` | ``auto`` (see the module docstring); the backends
     but ``plain`` raise for configs they do not cover
-    (:func:`_checked_backend`), and ``mega`` for a tensor-parallel model;
-    ``xla_early`` needs ``eos_idx``.
+    (:func:`_checked_backend`, on a tensor-parallel model at the shards'
+    widths); ``xla_early`` needs ``eos_idx``.
     ``fused`` and ``mega`` need prefix-contiguous masks, which
     ``check_masks`` checks on a host copy, waiting for the device: the
     engine and the evaluator check their host arrays with
@@ -760,6 +799,11 @@ def beam_search_decode_fast(model, batch, beam_size: int, bos_idx: int, eos_idx:
     ``beam_search.beam_search_decode``: (seqs (B, K, T) with BOS at 0,
     scores (B, K) best first).
 
+    ``model``: a ``SAM4C``, or a ``models.tensor_parallel.TPSAM4C`` (with
+    ``batch`` on its first device), whose shards run their own heads
+    (``tensor_parallel.beam_tensor_parallel``); the step rule runs on the
+    first device.
+
     ``backend``: any but ``plain`` (resolved as :func:`greedy_decode_fast`
     resolves it, and refused where it refuses it) runs the encoder-cache
     pass through the spatial-attention kernel; the steps are PyTorch calls.
@@ -770,29 +814,60 @@ def beam_search_decode_fast(model, batch, beam_size: int, bos_idx: int, eos_idx:
     fixed steps: a done beam only appends EOS at an unchanged total, and
     with every beam done the top-k keeps the beams in place (ties go to the
     lowest index)."""
-    from .tensor_parallel import TPSAM4C  # it imports this module
+    from .tensor_parallel import TPSAM4C, beam_tensor_parallel  # it imports this module
 
-    if isinstance(model, TPSAM4C):
-        raise ValueError(BEAM_TP_REFUSAL)
     if beam_size < 1:
         raise ValueError(f"beam_size must be >= 1, got {beam_size}")
     cfg = model.params_cfg.mmt
     device = batch["question_indices"].device
-    cache, embed, head = _encoder_pass(model, batch,
-                                      _checked_backend(backend, cfg, device, dtype=model.dtype))
-    b, k, t_max, d = cache.enc_out.shape[0], beam_size, cfg.num_decoding_steps, cfg.hidden_size
-    dec_kv = []
-    for lt in cfg.layer_type_list:
-        h = layer_heads(cfg, lt)
-        dec_kv.append(tuple(cache.k_enc.new_zeros(b, k, h, t_max, d // h) for _ in range(2)))
+    tp = model.tp if isinstance(model, TPSAM4C) else 1
+    backend = _checked_backend(backend, cfg, device, tp, model.dtype)
+    b, k = batch["question_indices"].shape[0], beam_size
+    if tp > 1:
+        embed, head, step, reorder = beam_tensor_parallel(model, batch, k, backend)
+    else:
+        cache, embed, head = _encoder_pass(model, batch, backend)
+        t_max, d = cfg.num_decoding_steps, cfg.hidden_size
+        dec_kv = []
+        for lt in cfg.layer_type_list:
+            h = layer_heads(cfg, lt)
+            dec_kv.append(tuple(cache.k_enc.new_zeros(b, k, h, t_max, d // h) for _ in range(2)))
+
+        def step(x, t):
+            return _decode_one_row_beams(model.mmt, cfg, cache, x, dec_kv, t)
+
+        def reorder(prev_beam):
+            dec_kv[:] = reorder_beams(dec_kv, prev_beam)
+
+    return _beam_steps(cfg, b, k, device, bos_idx, eos_idx, embed, head, step, reorder,
+                       early_exit)
+
+
+def reorder_beams(dec_kv, prev_beam):
+    """Per layer the beams' decoder K/V (k, v), each (B, K, H, T, hd),
+    gathered along the beam dim by ``prev_beam`` (B, K) (copied to their
+    device): the surviving beams' histories follow them."""
+    out = []
+    for kv in dec_kv:
+        rows = prev_beam.to(kv[0].device)[:, :, None, None, None]
+        out.append(tuple(buf.gather(1, rows.expand_as(buf)) for buf in kv))
+    return out
+
+
+def _beam_steps(cfg: MMTConfig, b: int, k: int, device, bos_idx: int, eos_idx: int, embed,
+                head, step, reorder, early_exit: bool):
+    """The beam loop shared by one device and a tensor-parallel model:
+    ``embed(tokens (B, K), t)`` the beams' row embeddings, ``step(x, t)``
+    the final-layer rows, ``head(x)`` their scores, ``reorder(prev_beam)``
+    the decoder K/V after each step's choice (see
+    :func:`beam_search_decode_fast`)."""
+    t_max = cfg.num_decoding_steps
     seqs, scores, done = init_beams(b, k, t_max, bos_idx, device)
     t_final = t_max
     for t in range(t_max):
-        x = _decode_one_row_beams(model.mmt, cfg, cache, embed(seqs[:, :, t], t), dec_kv, t)
+        x = step(embed(seqs[:, :, t], t), t)
         seqs, scores, done, prev_beam = beam_step(head(x), scores, done, seqs, t, eos_idx)
-        # the surviving beams' decoder histories follow them
-        rows = prev_beam[:, :, None, None, None]
-        dec_kv = [tuple(buf.gather(1, rows.expand_as(buf)) for buf in kv) for kv in dec_kv]
+        reorder(prev_beam)
         if early_exit and bool(done.all()):
             t_final = t + 1
             break

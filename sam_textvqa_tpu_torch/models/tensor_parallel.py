@@ -28,7 +28,10 @@ is drawn at its full shape on home, in the one-device model's order, from
 the step's generator, and each shard takes its heads' slice of the
 attention-probs masks, so a train step equals the one-device step (JAX
 draws the global array's masks too). :func:`decode_tensor_parallel` is
-``fast_decode.greedy_decode_fast``'s path for this model.
+``fast_decode.greedy_decode_fast``'s path for this model and
+:func:`beam_tensor_parallel` ``fast_decode.beam_search_decode_fast``'s;
+:meth:`TPSAM4C.decode_step` is ``SAM4C.decode_step`` (the slow beam path's
+full recompute).
 """
 
 from __future__ import annotations
@@ -50,13 +53,13 @@ from ..parallel.tensor import (ShardState, broadcast, column_parallel, reduce_su
                                row_parallel, shard_state_dict, unshard_state_dict,
                                vocab_parallel_embedding, vocab_parallel_logits)
 from .bert import BertSelfAttention, merge_heads, split_heads
-from .fast_decode import (KERNEL_STEP_BACKENDS, MMTCache, _cache_attention, _dec_col_bias,
-                          _dec_row_embedding, _dec_rows_masked, _decode_one_row_fused,
-                          _device_lut, _greedy_steps, _mega_step_consts, _one_row_context,
-                          _row_kv, _seg_lens)
+from .fast_decode import (KERNEL_STEP_BACKENDS, MMTCache, _beam_context, _cache_attention,
+                          _dec_col_bias, _dec_row_embedding, _dec_rows_masked,
+                          _decode_one_row_fused, _device_lut, _greedy_steps, _mega_step_consts,
+                          _one_row_context, _row_kv, _seg_lens, reorder_beams)
 from .layers import (MASK_BIAS, apply_keep_mask, dropout, dropout_generator, gelu_erf,
                      keep_mask, layer_norm_tf, masked_softmax_attention)
-from .mmt import implicit_split, mmt_dropout_masks
+from .mmt import implicit_split, layer_heads, mmt_dropout_masks
 from .sa_m4c import SAM4C
 from .spatial import SpatialBertSelfAttention
 
@@ -184,8 +187,9 @@ class TPSAM4C:
 
     @torch.no_grad()
     def decode_consts(self) -> List[Dict[str, torch.Tensor]]:
-        """Each shard's stacked weights for the ``fused`` decode: all of them
-        on home, a later shard its own slices (:data:`SHARD_CONSTS`)."""
+        """Each shard's stacked weights for the ``fused`` and ``mega``
+        decodes: all of them on home, a later shard its own slices
+        (:data:`SHARD_CONSTS`)."""
         return [_mega_step_consts(s.mmt, self.dtype, WEIGHT_NAMES if r == 0 else SHARD_CONSTS)
                 for r, s in enumerate(self.shards)]
 
@@ -325,12 +329,26 @@ class TPSAM4C:
         dropout site draws from ``generator`` (on home) the one-device
         model's masks; the spatial layers then take the plain attention, as
         ``SAM4C`` does (the kernel has no backward)."""
+        g = dropout_generator(deterministic, generator, self.shards[0]._dropout_rates())
+        out = self.decode_step(self.encode(batch, g), batch, batch["train_prev_inds"],
+                               deterministic, g)
+        if self.params_cfg.mmt.use_aux_heads:  # replicated weights: home's modules
+            out["spatial_head_out"] = self.shards[0].aux_head(out["mmt_seq_output"])
+        return out
+
+    def decode_step(self, encodings, batch: Dict[str, torch.Tensor], prev_inds,
+                    deterministic: bool = True,
+                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """``SAM4C.decode_step``: one MMT and output-heads pass over
+        ``encodings`` (:meth:`encode`'s) for the previous predictions
+        ``prev_inds``, on home; the MMT outputs and ``scores``. Dropout as
+        in :meth:`forward`."""
         cfg = self.params_cfg.mmt
         home = self.shards[0]
         g = dropout_generator(deterministic, generator, home._dropout_rates())
-        enc = self.encode(batch, g)
-        dec_emb = self._prev_pred_embeddings(enc["ocr_mmt_in"], batch["train_prev_inds"], g)
-        x = torch.cat([enc["text_bert_emb"], enc["obj_mmt_in"], enc["ocr_mmt_in"], dec_emb], 1)
+        dec_emb = self._prev_pred_embeddings(encodings["ocr_mmt_in"], prev_inds, g)
+        x = torch.cat([encodings["text_bert_emb"], encodings["obj_mmt_in"],
+                       encodings["ocr_mmt_in"], dec_emb], 1)
         b, dec_len = x.shape[0], dec_emb.shape[1]
         classes = batch["spatial_classes"]
         q_len = cfg.max_seq_length
@@ -386,16 +404,13 @@ class TPSAM4C:
             self.ptr_project(dec_out, "query"), self.ptr_project(ocr_out, "key"))],
             x.device) / self.ptr_norm()
         ocr_bias = ((1.0 - batch["pad_ocr_mask"].to(self.dtype)) * MASK_BIAS)[:, None, :]
-        out = {
+        return {
             "mmt_seq_output": x,
             "mmt_txt_output": x[:, :q_len],
             "mmt_ocr_output": ocr_out,
             "mmt_dec_output": dec_out,
             "scores": torch.cat([self.classify(dec_out), dyn + ocr_bias.to(dyn.dtype)], dim=-1),
         }
-        if cfg.use_aux_heads:  # replicated weights: home's modules
-            out["spatial_head_out"] = home.aux_head(x)
-        return out
 
     # ----- encoder cache -----
 
@@ -433,15 +448,15 @@ def home_device(model) -> torch.device:
     return model.home if isinstance(model, TPSAM4C) else next(model.parameters()).device
 
 
-def decode_tensor_parallel(model: TPSAM4C, batch, bos_idx: int, backend: str,
-                           check_masks: bool, consts=None, eos_idx=None):
-    """``fast_decode._greedy_decode`` of a tensor-parallel model with a
-    resolved ``backend``: ``plain`` and ``xla_early`` (with ``eos_idx``)
-    run their PyTorch steps on each shard's heads, ``fused`` its kernel (``consts``: ``decode_consts()``). The shards' tables, caches
-    and decoder K/V stay on their devices; the scores, ids and the number of
-    steps run come back on home."""
+def _decode_tables(model: TPSAM4C, batch, backend: str):
+    """The step-invariant part of a tensor-parallel decode: the shards'
+    encoder caches (through the spatial-attention kernel unless ``backend``
+    is ``plain``), ``embed(tokens, t)``, the row embeddings of the previous
+    tokens, (B,) or one per beam (B, K), in the compute dtype, and
+    ``head(x)``, the scores of final-layer rows (B, D) or (B, K, D), whose
+    OCR pointer sums the shards' partial scores on home."""
     cfg = model.params_cfg.mmt
-    dtype, home, devices, tp = model.dtype, model.home, model.devices, model.tp
+    dtype, home = model.dtype, model.home
     enc = model.encode(batch)
     caches = model.build_mmt_cache(enc, batch, "plain" if backend == "plain" else "kernel")
     pp = model.shards[0].mmt.prev_pred_embeddings
@@ -453,16 +468,37 @@ def decode_tensor_parallel(model: TPSAM4C, batch, bos_idx: int, backend: str,
     keys = model.ptr_project(ocr_out, "key")
     ocr_bias = ((1.0 - batch["pad_ocr_mask"].float()) * MASK_BIAS).to(dtype)
     ans_num = model.num_answers
-    b, t_max, n_layers = ocr_out.shape[0], cfg.num_decoding_steps, len(cfg.layer_type_list)
 
-    def embed(token, t):
+    def embed(tokens, t):
         return _dec_row_embedding(pp, lambda ids: vocab_parallel_embedding(ids, tables, home),
-                                  ocr_emb, ans_num, token, t).to(dtype)
+                                  ocr_emb, ans_num, tokens, t).to(dtype)
 
     def head(x):
-        dyn = reduce_sum([torch.matmul(k, q[:, :, None])[:, :, 0] for k, q in zip(
-            keys, model.ptr_project(x, "query"))], home) / model.ptr_norm()
-        return torch.cat([model.classify(x), dyn + ocr_bias], dim=-1)
+        rows = (1,) * (x.dim() - 2)  # the beam axis, broadcast
+        dyn = reduce_sum([torch.matmul(k.view(k.shape[0], *rows, *k.shape[1:]),
+                                       q[..., None])[..., 0]
+                          for k, q in zip(keys, model.ptr_project(x, "query"))],
+                         home) / model.ptr_norm()
+        bias = ocr_bias.view(ocr_bias.shape[0], *rows, -1)
+        return torch.cat([model.classify(x), dyn + bias], dim=-1)
+
+    return caches, embed, head
+
+
+def decode_tensor_parallel(model: TPSAM4C, batch, bos_idx: int, backend: str,
+                           check_masks: bool, consts=None, eos_idx=None):
+    """``fast_decode._greedy_decode`` of a tensor-parallel model with a
+    resolved ``backend``: ``plain`` and ``xla_early`` (with ``eos_idx``)
+    run their PyTorch steps on each shard's heads, ``fused`` its kernel and
+    ``mega`` the decode step's per-layer shard entries on each shard, the
+    partials summed on home (``consts``: ``decode_consts()``). The shards'
+    tables, caches and decoder K/V stay on their devices; the scores, ids
+    and the number of steps run come back on home."""
+    cfg = model.params_cfg.mmt
+    home, devices, tp = model.home, model.devices, model.tp
+    caches, embed, head = _decode_tables(model, batch, backend)
+    b, t_max = batch["question_indices"].shape[0], cfg.num_decoding_steps
+    n_layers = len(cfg.layer_type_list)
 
     if backend not in KERNEL_STEP_BACKENDS:
         dec_kv = [_row_kv(cfg, c.k_enc, b, tp) for c in caches]
@@ -488,6 +524,42 @@ def decode_tensor_parallel(model: TPSAM4C, batch, bos_idx: int, backend: str,
 
     def step(x, t):
         return _decode_one_row_fused(cfg, consts, caches, segs, x, k_dec, v_dec, t,
-                                     [s[t:t + 1] for s in steps])
+                                     [s[t:t + 1] for s in steps],
+                                     shard_entries=backend == "mega")
 
     return _greedy_steps(cfg, b, home, bos_idx, embed, head, step)
+
+
+def beam_tensor_parallel(model: TPSAM4C, batch, beam_size: int, backend: str):
+    """The parts of ``fast_decode.beam_search_decode_fast`` for a
+    tensor-parallel model with a resolved ``backend``: (embed, head, step,
+    reorder). ``step(x, t)`` runs the beams' rows (B, K, D) through every
+    layer, each shard attending over its own heads against its cache
+    (``fast_decode._beam_context``) with the shards' out-projection and FFN
+    summed on home (:meth:`TPSAM4C._layer`); ``reorder(prev_beam)`` gathers
+    each shard's beams' decoder K/V on its own device."""
+    cfg = model.params_cfg.mmt
+    caches, embed, head = _decode_tables(model, batch, backend)
+    b, k, t_max = batch["question_indices"].shape[0], beam_size, cfg.num_decoding_steps
+    d = cfg.hidden_size
+    dec_kv = []  # per shard, per layer (k, v) of shape (B, K, H/tp, T, hd)
+    for cache in caches:
+        bufs = []
+        for lt in cfg.layer_type_list:
+            h = layer_heads(cfg, lt)
+            shape = (b, k, h // model.tp, t_max, d // h)
+            bufs.append((cache.k_enc.new_zeros(shape), cache.k_enc.new_zeros(shape)))
+        dec_kv.append(bufs)
+
+    def step(x, t):
+        col_bias = [_dec_col_bias(cfg, t, dev) for dev in model.devices]
+        for li, (layer_type, _, layers) in enumerate(model._mmt_layers()):
+            x = model._layer(layers, x, lambda r, m, xr, drop: _beam_context(
+                m.attention.self, layer_type, cfg, caches[r], li, xr, dec_kv[r][li], t,
+                col_bias[r], r * m.attention.self.num_heads))
+        return x
+
+    def reorder(prev_beam):
+        dec_kv[:] = [reorder_beams(bufs, prev_beam) for bufs in dec_kv]
+
+    return embed, head, step, reorder

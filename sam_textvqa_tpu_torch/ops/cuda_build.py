@@ -43,6 +43,9 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "sam_textvqa_tpu_torch"
 SOURCES = ("spatial_attention", "decode_attention", "decode_step")
+#: the kernel entries whose launches are counted: one per source, and the
+#: decode step's two tensor-parallel shard entries (``decode_step.cu``)
+KERNELS = (*SOURCES, "decode_shard_attention", "decode_shard_ffn")
 #: the ``torch.library`` namespace of the kernels' operators
 OP_NAMESPACE = "sam_textvqa_torch"
 NVCC_FLAGS = (
@@ -101,7 +104,7 @@ def add_launches(record: Counter) -> None:
 
 def launch_counts() -> Dict[str, int]:
     with _count_lock:
-        return {name: _launches[name] for name in SOURCES}
+        return {name: _launches[name] for name in KERNELS}
 
 
 def launch_counts_by_dtype() -> Dict[str, int]:

@@ -67,9 +67,8 @@ import torch
 from .config import TaskConfig, load_task_config
 from .data.synthetic import make_batch
 from .data.vocab import VocabDict, synthetic_vocab
-from .models.beam_search import BEAM_TP_REFUSAL
 from .models.fast_decode import BACKENDS as DECODE_BACKENDS
-from .models.fast_decode import MEGA_TP_REFUSAL
+from .models.fast_decode import check_kernel_backend
 from .models.sa_m4c import SAM4C, SAM4CParams
 from .ops import cuda_build
 from .parallel.mesh import check_tensor_parallel
@@ -165,9 +164,6 @@ def get_args(argv=None):
             p.error("--demo needs --config for its synthetic requests")
     if args.beam_size < 1:
         p.error(f"--beam_size {args.beam_size} must be at least 1")
-    if args.beam_size > 1 and args.model_parallel > 1:
-        p.error(f"--beam_size {args.beam_size} with --model_parallel {args.model_parallel}: "
-                f"{BEAM_TP_REFUSAL}")
     if not args.config and not args.artifact:
         p.error("--config is required without --artifact")
     if not args.demo and args.port is None:
@@ -391,10 +387,9 @@ def build_live_engine(args, devices):
     devices = devices[:dp * tp]
     task_cfg = load_task_config(args.config)
     if tp > 1:
-        if args.decode_backend == "mega":
-            raise SystemExit(MEGA_TP_REFUSAL)
         try:
             check_tensor_parallel(task_cfg, tp)
+            check_kernel_backend(args.decode_backend, task_cfg.mmt, tp)
         except ValueError as e:
             raise SystemExit(str(e)) from None
     if dp > 1 or tp > 1:

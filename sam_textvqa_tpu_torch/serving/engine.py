@@ -30,8 +30,8 @@ package ``serving/engine.py``).
   replica: its own copy of the weights, stacked decode weights, streams,
   graph pool and one CUDA graph per cell. A group of several devices is a
   tensor-parallel model (``models/tensor_parallel.py``) and decodes eagerly
-  (graphs across devices are ROADMAP queue 1, item 9d). A device may repeat
-  (``cuda:0,cuda:0``, ``cpu,cpu``).
+  (graphs for a group are a speed item, ROADMAP queue 2, item 9d). A
+  device may repeat (``cuda:0,cuda:0``, ``cpu,cpu``).
 * **Coalescing.** One batcher thread blocks on the request queue, then takes
   whatever else arrives within ``max_wait_ms`` (or until the largest bucket
   fills).
@@ -63,8 +63,9 @@ package ``serving/engine.py``).
   beam's tokens without BOS, so the consumer is the same for both modes.
   The decode runs its fixed steps: JAX's engine stops once every beam is
   done (``early_exit``, bit-identical), but that test reads the device from
-  the host at every step, which a CUDA graph cannot hold. dp replicas serve
-  beams; a tensor-parallel group does not yet (ROADMAP queue 1, item 5b).
+  the host at every step, which a CUDA graph cannot hold. dp replicas and
+  tensor-parallel groups serve beams (a group decodes eagerly, as its
+  greedy decode does).
 
 The reference has no serving layer (offline batch eval only, reference
 evaluator.py:52-63); :func:`build_sample` mirrors its dataset-time
@@ -91,7 +92,6 @@ import torch
 from ..data.prefetch import cast_features_for_transfer
 from ..data.vocab import VocabDict
 from ..evaluation.metrics import decode_predictions
-from ..models.beam_search import BEAM_TP_REFUSAL
 from ..models.fast_decode import (KERNEL_STEP_BACKENDS, MASK_KEYS, _mega_step_consts,
                                   beam_search_decode_fast, check_prefix_masks,
                                   greedy_decode_fast, resolve_backend)
@@ -367,8 +367,6 @@ class ServingEngine:
             raise ValueError(f"buckets must be positive ints, got {buckets}")
         if beam_size < 1:
             raise ValueError(f"beam_size must be >= 1, got {beam_size}")
-        if beam_size > 1 and model_parallel > 1:
-            raise ValueError(BEAM_TP_REFUSAL)
         self.beam_size = int(beam_size)
         if auto_tune_every < 0:
             raise ValueError(f"auto_tune_every must be >= 0, got {auto_tune_every}")

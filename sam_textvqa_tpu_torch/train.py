@@ -46,12 +46,11 @@ a,b`` lists them, a device may repeat; by default ``cuda:0`` .. ``cuda:M-1``,
 under ``--multihost`` the M cards from ``cuda:<LOCAL_RANK * M>``), with
 ``--multihost`` one group per process: dp across processes x tp within one.
 Each update equals the one-device model's, validation decodes the shards
-(``auto`` = ``fused``; ``mega`` is refused), and the checkpoints hold the
-whole model, so they resume under any ``--model_parallel`` and load into
-one device. A device list longer than M is refused: data parallelism runs
-across processes.
-JAX flags that this port does not cover yet are refused with the ROADMAP
-item that covers them.
+(``auto`` = ``fused``; ``mega`` runs the decode step's shard entries;
+``--beam_size`` beams over the shards' heads), and the checkpoints hold
+the whole model, so they resume under any ``--model_parallel`` and load
+into one device. A device list longer than M is refused: data parallelism
+runs across processes.
 """
 
 from __future__ import annotations
@@ -73,9 +72,8 @@ from .data.features import open_feature_source
 from .data.processors import FastTextProcessor, SimpleWordpieceTokenizer, load_bert_tokenizer
 from .data.synthetic import SyntheticDataset
 from .evaluation.evaluator import Evaluator
-from .models.beam_search import BEAM_TP_REFUSAL
 from .models.fast_decode import BACKENDS as DECODE_BACKENDS
-from .models.fast_decode import MEGA_TP_REFUSAL
+from .models.fast_decode import check_kernel_backend
 from .models.tensor_parallel import TPSAM4C
 from .parallel.mesh import (barrier, check_batch, check_tensor_parallel, env_world_size,
                             init_distributed, missing_torchrun_env)
@@ -156,12 +154,6 @@ def get_args(argv=None):
         parser.error(f"--model_parallel {tp} must be at least 1")
     if args.beam_size < 1:
         parser.error(f"--beam_size {args.beam_size} must be at least 1")
-    if tp > 1 and args.beam_size > 1:
-        parser.error(f"--beam_size {args.beam_size} with --model_parallel {tp}: "
-                     f"{BEAM_TP_REFUSAL}")
-    if tp > 1 and args.decode_backend == "mega":
-        parser.error(f"--decode_backend mega under --model_parallel is not ported yet: "
-                     f"{MEGA_TP_REFUSAL}")
     n = len(parse_devices(args.device)) if args.device else 0
     if n % tp:
         parser.error(f"--model_parallel {tp} must divide the {n} available devices")
@@ -359,6 +351,7 @@ def main(argv=None) -> dict:
     if args.model_parallel > 1:
         try:
             check_tensor_parallel(task_cfg, args.model_parallel)
+            check_kernel_backend(args.decode_backend, task_cfg.mmt, args.model_parallel)
         except ValueError as e:
             raise SystemExit(str(e)) from None
         devices = plan_devices(args)

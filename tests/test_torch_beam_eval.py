@@ -197,12 +197,14 @@ def test_beam_early_exit_and_refusals(pair, model, gt, monkeypatch):
 def test_engine_beams_equal_offline_best_beam(pair, model, gt):
     """The engine's beam answers (through its width grid, the batch reduced
     to the best beam on the device) equal the evaluator's best beams, on
-    one device and on two data-parallel replicas."""
+    one device, on two data-parallel replicas and on a tensor-parallel
+    group of two (item 5b)."""
     want = {p["question_id"]: p["pred_answer"] for p in Evaluator(
         model, VocabDict(WORDS)).run_split_beam(port_batches(pair), K)["predictions"]}
     pool = routed_split(synthetic, pair.task).pool
-    for where in (dict(device="cpu", buckets=(1, 4)), dict(devices=["cpu", "cpu"],
-                                                           buckets=(2, 4))):
+    for where in (dict(device="cpu", buckets=(1, 4)),
+                  dict(devices=["cpu", "cpu"], buckets=(2, 4)),
+                  dict(devices=["cpu", "cpu"], model_parallel=2, buckets=(1, 4))):
         engine = ServingEngine(model, VocabDict(WORDS), beam_size=K, ocr_buckets=[2, 4],
                                obj_buckets=[4], max_wait_ms=50.0, **where)
         try:
@@ -217,9 +219,6 @@ def test_engine_beams_equal_offline_best_beam(pair, model, gt):
         assert stats["requests"] == SIZE and stats["ocr_width_occupancy"], where
     with pytest.raises(ValueError, match="beam_size"):
         ServingEngine(model, VocabDict(WORDS), device="cpu", beam_size=0)
-    with pytest.raises(ValueError, match="item 5b"):
-        ServingEngine(model, VocabDict(WORDS), devices=["cpu", "cpu"], model_parallel=2,
-                      beam_size=K)
 
 
 def _load_tool(name):

@@ -28,8 +28,11 @@ from sam_textvqa_tpu_torch.models.fast_decode import greedy_decode_fast
 from sam_textvqa_tpu_torch.models.sa_m4c import SAM4C, SAM4CParams
 from sam_textvqa_tpu_torch.ops import cuda_build
 from sam_textvqa_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
-from sam_textvqa_tpu_torch.ops.decode_step import (WEIGHT_NAMES, decode_step_fused,
-                                                   decode_step_plain)
+from sam_textvqa_tpu_torch.models.tensor_parallel import TPSAM4C
+from sam_textvqa_tpu_torch.ops.decode_step import (WEIGHT_NAMES, decode_shard_attention,
+                                                   decode_shard_attention_plain,
+                                                   decode_shard_ffn, decode_shard_ffn_plain,
+                                                   decode_step_fused, decode_step_plain)
 from sam_textvqa_tpu_torch.ops.fused_attention import spatial_attention, spatial_attention_plain
 from sam_textvqa_tpu_torch.ops.spatial_graph import build_spatial_graph, relation_head_lut
 from sam_textvqa_tpu_torch.training.optimizer import lr_factor_schedule, make_optimizer
@@ -37,6 +40,9 @@ from sam_textvqa_tpu_torch.training.step import (create_train_state, make_eval_s
                                                  make_train_step)
 
 pytestmark = pytest.mark.cuda
+#: the decode step's tensor-parallel shard entries, counted beside the
+#: three kernels, which no one-device path launches
+NO_SHARD_ENTRIES = {"decode_shard_attention": 0, "decode_shard_ffn": 0}
 
 
 @pytest.fixture
@@ -202,7 +208,8 @@ def test_decode_step_matches_plain(dev, dtype, shape, b, step, mode):
     assert torch.equal(k_dec[:, :, rows], kd2[:, :, rows])
 
 
-def test_greedy_backends_agree_on_card(dev):
+def _small_decode_model(dev):
+    """A model of hidden 256, 4 heads of 64, FFN 512, and a batch of 6."""
     cfg = task_config_from_dict({"SA-M4C": {}, "TextBERT": {"num_hidden_layers": 1}})
     mmt = dataclasses.replace(
         cfg.mmt, hidden_size=256, intermediate_size=512, ptr_query_size=256,
@@ -213,13 +220,86 @@ def test_greedy_backends_agree_on_card(dev):
                              num_attention_heads=4)
     task = dataclasses.replace(cfg, mmt=mmt, text_bert=tb)
     model = SAM4C(SAM4CParams(mmt, tb, 40)).init_weights(torch.Generator().manual_seed(0))
-    model = model.to(dev)
-    batch = device_batch(make_batch(task, 6, num_answers_vocab=40), dev)
+    return model.to(dev), device_batch(make_batch(task, 6, num_answers_vocab=40), dev)
+
+
+def test_greedy_backends_agree_on_card(dev):
+    model, batch = _small_decode_model(dev)
     s_p, p_p = greedy_decode_fast(model, batch, 1, backend="plain")
     for backend in ("fused", "mega"):
         s_k, p_k = greedy_decode_fast(model, batch, 1, backend=backend)
         assert torch.equal(p_k, p_p), backend
         assert (s_k - s_p).abs().max().item() < 1e-4, backend
+
+
+# (layers, D, F, Le, T, q_len, n_obj): the decode step's shapes, cut into tp 2
+# shards (w = D/2 wide, FFN F/2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,b", [(_STEP_SMALL, 5)] + [(_STEP_C3, b) for b in (1, 8, 32)])
+def test_shard_entries_match_plain(dev, dtype, shape, b):
+    """Both shard entries of the first and the last layer against their
+    plain versions, at the decode step's bars (the partials are products of
+    unit scale); the attention part's K/V row writes as in that test."""
+    rng = np.random.RandomState(2)
+    n_layers, d, f, le, t_max, q_len, n_obj = shape
+    w, wf, hd, step = d // 2, f // 2, 64, t_max - 1
+    k_enc, v_enc, k_dec, v_dec, seg = _decode_inputs(rng, b, w, le, t_max, q_len, n_obj, dtype,
+                                                     dev, layers=n_layers)
+
+    def weight(*shape, k):  # products over k inputs of unit scale
+        return torch.from_numpy((0.8 / np.sqrt(k) * rng.randn(n_layers, *shape))
+                                .astype(np.float32)).to(dev, dtype)
+
+    wqkv, bqkv, wout = weight(3 * w, d, k=d), weight(3 * w, k=d), weight(d, w, k=w)
+    wff1, bff1, wff2 = weight(wf, d, k=d), weight(wf, k=d), weight(d, wf, k=wf)
+    x = torch.from_numpy(rng.randn(b, d).astype(np.float32)).to(dev, dtype)
+    t = torch.tensor([step], dtype=torch.int32, device=dev)
+    kw = dict(hd=hd, q_len=q_len, n_obj=n_obj)
+    row_tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for layer in (0, n_layers - 1):
+        kd2, vd2 = k_dec.clone(), v_dec.clone()
+        before = cuda_build.launch_counts()
+        out = decode_shard_attention(t, seg, x, wqkv, bqkv, wout, k_enc, v_enc, k_dec, v_dec,
+                                     layer=layer, **kw)
+        out_f = decode_shard_ffn(x, wff1, bff1, wff2, layer=layer)
+        torch.cuda.synchronize()
+        after = cuda_build.launch_counts()
+        assert [after[k] - before[k] for k in ("decode_shard_attention", "decode_shard_ffn",
+                                               "decode_step")] == [1, 1, 0]
+        refs = (decode_shard_attention_plain(t, seg, x, wqkv, bqkv, wout, k_enc, v_enc, kd2,
+                                             vd2, layer=layer, **kw),
+                decode_shard_ffn_plain(x, wff1, bff1, wff2, layer=layer))
+        for mine, ref in zip((out, out_f), refs):
+            diff = (mine.float() - ref.float()).abs()
+            if dtype == torch.float32:
+                assert diff.max().item() < 1e-4, diff.max().item()
+            else:
+                assert diff.max().item() < 0.25 and diff.mean().item() < 1e-2, (
+                    diff.max().item(), diff.mean().item())
+        for mine, plain in ((k_dec, kd2), (v_dec, vd2)):
+            err = (mine[layer, :, step].float() - plain[layer, :, step].float()).abs().max()
+            assert err.item() < row_tol, err.item()
+            rows = [r for r in range(t_max) if r != step]
+            assert torch.equal(mine[:, :, rows], plain[:, :, rows])
+
+
+def test_tp2_mega_equals_one_device_on_card(dev):
+    """A tp 2 ``mega`` decode on the card repeated (shards 128 wide, FFN
+    256) through the shard entries: the one-device ``mega`` ids, scores
+    within 1e-4 (f32), and no one-device decode step launched."""
+    model, batch = _small_decode_model(dev)
+    s_one, ids_one = greedy_decode_fast(model, batch, 1, backend="mega")
+    before = cuda_build.launch_counts()
+    s_tp, ids_tp = greedy_decode_fast(TPSAM4C(model, [dev, dev]), batch, 1, backend="mega")
+    torch.cuda.synchronize()
+    after = cuda_build.launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    mmt = model.params_cfg.mmt
+    per_decode = 2 * mmt.num_decoding_steps * len(mmt.layer_type_list)  # per shard, layer, step
+    assert launched["decode_step"] == 0 and launched["decode_attention"] == 0
+    assert launched["decode_shard_attention"] == launched["decode_shard_ffn"] == per_decode
+    assert torch.equal(ids_tp, ids_one)
+    assert (s_tp - s_one).abs().max().item() < 1e-4
 
 
 # ---------------------------------------------------------------- training
@@ -854,7 +934,7 @@ def test_xla_early_on_card_equals_plain(dev, eos_bias):
     torch.cuda.synchronize()
     launches = cuda_build.launch_counts()
     assert launches == {"spatial_attention": task.mmt.layer_type_list.count("s"),
-                        "decode_attention": 0, "decode_step": 0}, launches
+                        "decode_attention": 0, "decode_step": 0, **NO_SHARD_ENTRIES}, launches
     for row, ref in zip(ids.tolist(), ids_p.tolist()):
         stop = ref.index(2) + 1 if 2 in ref else len(ref)
         assert row[:stop] == ref[:stop]
@@ -881,7 +961,7 @@ def test_implicit_fused_decode_on_card_equals_plain(dev):
     launches = cuda_build.launch_counts()
     steps = task.mmt.num_decoding_steps
     assert launches == {"spatial_attention": 1, "decode_attention": 3 * steps,
-                        "decode_step": 0}, launches
+                        "decode_step": 0, **NO_SHARD_ENTRIES}, launches
     assert torch.equal(p_f, p_p)
     assert (s_f - s_p).abs().max().item() < 1e-4
     with pytest.raises(ValueError, match="head counts differ"):
@@ -1010,4 +1090,4 @@ def test_artifact_on_card_equals_the_live_mega_decode(dev, tmp_path):
     assert torch.equal(ids, live)
     steps = task.mmt.num_decoding_steps
     assert launched == {"spatial_attention": task.mmt.layer_type_list.count("s"),
-                        "decode_attention": 0, "decode_step": steps}
+                        "decode_attention": 0, "decode_step": steps, **NO_SHARD_ENTRIES}

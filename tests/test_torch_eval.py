@@ -405,12 +405,21 @@ def test_dump_evalai_and_unported_options(eval_pair, jax_run, tmp_path):
     ref = jax_evaluator.Evaluator(eval_pair.jax_model, JaxVocabDict(WORDS)).dump_evalai(
         result, str(tmp_path / "ref.json"))
     assert json.loads(open(path).read()) == json.loads(open(ref).read())
-    # beams and the width ladders are ported (tests/test_torch_beam_eval.py);
-    # beams of a tensor-parallel model are not, and rungs must lie below
-    # full width
-    with pytest.raises(ValueError, match="item 5b"):
-        Evaluator(TPSAM4C(eval_pair.model(), ["cpu", "cpu"]),
-                  VocabDict(WORDS)).run_split_beam([], beam_size=2)
+    # beams and the width ladders are ported (tests/test_torch_beam_eval.py),
+    # and so are beams of a tensor-parallel model (item 5b): the same beams
+    # as one device's, scores within 1e-4 (the shards' products summed in
+    # another order, then 4 steps of log-sigmoids summed; the cross-framework
+    # bar of test_torch_beam.py); rungs must lie below full width
+    split = list(batches("smaller_than_batch", eval_pair.task, synthetic, EpochBatcher))
+    tp_run = Evaluator(TPSAM4C(eval_pair.model(), ["cpu", "cpu"]),
+                       VocabDict(WORDS)).run_split_beam(split, beam_size=2)
+    one_run = ev.run_split_beam(split, beam_size=2)
+    assert len(tp_run["predictions"]) == 5
+    for got, want in zip(tp_run["predictions"], one_run["predictions"]):
+        assert [b["pred_ids"] for b in got["beams"]] == [b["pred_ids"] for b in want["beams"]]
+        assert got["best_beam"] == want["best_beam"]
+        np.testing.assert_allclose([b["topkscore"] for b in got["beams"]],
+                                   [b["topkscore"] for b in want["beams"]], rtol=0, atol=1e-4)
     with pytest.raises(ValueError, match="out of range"):
         ev.run_split([], ocr_bucket=[4, 6])
     with pytest.raises(ValueError, match="beam_size"):

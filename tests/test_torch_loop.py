@@ -402,14 +402,16 @@ def test_cli_train_resume_and_pretrained_eval(cli_config):
 
 
 @pytest.mark.parametrize("flags,item", [
-    # beams and the width ladders are ported; beams under tensor parallelism
-    # are not, with or without the ladders and in --pretrained_eval
-    (["--beam_size", "2", "--model_parallel", "2"], "item 5b"),
-    (["--beam_size", "2", "--model_parallel", "2", "--ocr_bucket", "2,4", "--obj_bucket", "4"],
-     "item 5b"),
-    (["--beam_size", "5", "--model_parallel", "2", "--pretrained_eval", "best_model"],
-     "item 5b"),
-    (["--model_parallel", "2", "--decode_backend", "mega"], "item 9e"),
+    # beams and the width ladders are ported, and so are beams under tensor
+    # parallelism (item 5b), with or without the ladders and in
+    # --pretrained_eval, and mega under it (item 9e): the flags parse (run
+    # in test_torch_tp_decode.py and test_torch_tp_beam.py)
+    pytest.param(["--beam_size", "2", "--model_parallel", "2"], None, id="flags0-item 5b"),
+    pytest.param(["--beam_size", "2", "--model_parallel", "2", "--ocr_bucket", "2,4",
+                  "--obj_bucket", "4"], None, id="flags1-item 5b"),
+    pytest.param(["--beam_size", "5", "--model_parallel", "2", "--pretrained_eval",
+                  "best_model"], None, id="flags2-item 5b"),
+    pytest.param(["--model_parallel", "2", "--decode_backend", "mega"], None, id="flags3-item 9e"),
     (["--multihost"], "torchrun"),  # ported: refused without torchrun's environment
     # items 1 and 11 are ported: the flags parse (run in
     # test_torch_dropout_variants.py and test_torch_compile_cache.py)
@@ -423,13 +425,13 @@ def test_cli_train_resume_and_pretrained_eval(cli_config):
     pytest.param(["--decode_backend", "xla"], None, id="xla"),
 ])
 def test_cli_refuses_unported_flags(flags, item, capsys, monkeypatch):
-    """Each JAX flag the port lacks is refused with its ROADMAP item; the
-    ported ones (``item`` None) parse."""
+    """Each JAX flag the port lacks is refused with its ROADMAP item (none is
+    left); the ported ones (``item`` None) parse."""
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(var, raising=False)
     if item is None:
-        args = train_cli.get_args(["--config", "c.yml", *flags])
-        assert getattr(args, flags[0][2:]) == (flags[1] if len(flags) > 1 else True)
+        value = getattr(train_cli.get_args(["--config", "c.yml", *flags]), flags[0][2:])
+        assert str(value) == flags[1] if len(flags) > 1 else value is True
         return
     with pytest.raises(SystemExit) as exc:
         train_cli.get_args(["--config", "c.yml", *flags])

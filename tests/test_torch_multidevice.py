@@ -27,6 +27,7 @@ shared by two batches of one shape, no subprocess.
 """
 
 import copy
+import dataclasses
 import logging
 from pathlib import Path
 
@@ -232,18 +233,29 @@ def test_tp_greedy_ids_equal_jax(env, tp2, jax_greedy, backend):
     assert len({tuple(r) for r in ids.tolist()}) > 1  # the ids depend on the inputs
 
 
-def test_tp_refuses_mega_and_auto_picks_fused(env, tp2):
+def test_tp_mega_equals_jax_and_auto_picks_fused(env, tp2, jax_greedy):
+    """``mega`` decodes a tp 2 model through the decode step's shard entries
+    (their plain versions here) with JAX's ids; ``auto`` stays ``fused``
+    under tensor parallelism; ``mega`` needs 64-column shards."""
     pair, _ = env
-    with pytest.raises(ValueError, match="item 9e"):
-        greedy_decode_fast(tp2, pair.batch, BOS, backend="mega")
+    s_ref, ids_ref = jax_greedy(pair.np_batch)
+    scores, ids = greedy_decode_fast(tp2, pair.batch, BOS, backend="mega")
+    np.testing.assert_array_equal(ids.numpy(), ids_ref)
+    np.testing.assert_allclose(scores.numpy(), s_ref, **TOL)
     cfg = pair.task.mmt
     assert fast_decode.resolve_backend("auto", cfg, torch.device("cuda"), tp=2) == "fused"
     assert fast_decode.resolve_backend("auto", cfg, CPU, tp=2) == "plain"
-    # a c3 shard at tp 4 is 192 wide: the decode attention takes it, the
-    # decode step (64-column tiles of D/tp and of the FFN) is refused anyway
+    # a c3 shard at tp 4 is 192 wide, its FFN 768: both kernel steps take it
     c3 = load_task_config(C3).mmt
-    assert fast_decode._kernel_violations(c3, uniform=False, tp=4) == []
+    assert fast_decode._kernel_violations(c3, uniform=True, tp=4) == []
     assert fast_decode.resolve_backend("auto", c3, torch.device("cuda"), tp=4) == "fused"
+    assert fast_decode.resolve_backend("mega", c3, torch.device("cuda"), tp=4) == "mega"
+    # with 4 heads per layer this width cuts into shards 32 wide at tp 4
+    four = dataclasses.replace(cfg, num_attention_heads=4, num_spatial_relations=4)
+    with pytest.raises(ValueError, match="width 32 or FFN width 64 is not a multiple of 64"):
+        fast_decode.check_kernel_backend("mega", four, tp=4)
+    fast_decode.check_kernel_backend("fused", four, tp=4)
+    fast_decode.check_kernel_backend("mega", cfg, tp=2)
 
 
 def test_device_lut_gives_each_shard_its_heads(quad, monkeypatch):
@@ -342,9 +354,6 @@ def test_engine_refuses_what_the_mesh_cannot_take(env):
     pair, vocab = env
     with pytest.raises(ValueError, match=r"buckets \[1\] not divisible by dp=2"):
         ServingEngine(pair.model, vocab, buckets=(1, 4), devices=["cpu", "cpu"])
-    with pytest.raises(ValueError, match="item 9e"):
-        ServingEngine(pair.model, vocab, devices=["cpu", "cpu"], model_parallel=2,
-                      decode_backend="mega")
     with pytest.raises(ValueError, match="not both"):
         ServingEngine(pair.model, vocab, device="cpu", devices=["cpu"])
 
@@ -358,15 +367,17 @@ def test_engine_refuses_what_the_mesh_cannot_take(env):
      "--data_parallel 3 x --model_parallel 1 needs 3 devices; only 2 available"),
     (["--device", "cpu,cpu", "--data_parallel", "2", "--buckets", "1,4"],
      "buckets [1] not divisible by dp=2"),
-    (["--device", "cpu,cpu", "--model_parallel", "2", "--decode_backend", "mega"], "item 9e"),
+    # mega under tensor parallelism is ported (item 9e): the mesh checks apply
+    (["--device", "cpu,cpu,cpu,cpu,cpu", "--model_parallel", "5", "--decode_backend", "mega"],
+     "model_parallel 5 does not divide the TextBERT layers' 12 heads"),
     (["--device", "cpu,cpu,cpu,cpu,cpu", "--model_parallel", "5"],
      "model_parallel 5 does not divide the TextBERT layers' 12 heads"),
     (["--device", "cpu", "--model_parallel", "0"], "must be positive"),
 ])
 def test_cli_refusals(flags, message):
     """JAX ``serve.py``'s mesh checks with its messages, and the port's own
-    refusals (``mega`` and a head split under tensor parallelism), before
-    any model is built."""
+    refusal of a head split under tensor parallelism, before any model is
+    built."""
     argv = ["--config", C3, "--port", "0", *flags]
     assert serve.get_args(argv).device == flags[1]
     with pytest.raises(SystemExit) as exc:

@@ -435,10 +435,12 @@ def test_cli_trains_resumes_and_evaluates_under_tp(cli_config, caplog):
 
 @pytest.mark.parametrize("flags,message", [
     (["--model_parallel", "3", "--device", "cpu,cpu"], "--model_parallel 3 must divide the 2"),
-    (["--model_parallel", "2", "--device", "cpu,cpu", "--decode_backend", "mega"], "item 9e"),
-    (["--model_parallel", "2", "--device", "cpu,cpu,cpu,cpu"], "torchrun --nproc_per_node 2"),
-    (["--device", "cpu,cpu"], "data parallelism runs across processes"),
-    (["--model_parallel", "0"], "must be at least 1"),
+    # flags1 was mega under tp, ported since (test_cli_refuses_mega_on_narrow_shards)
+    pytest.param(["--model_parallel", "2", "--device", "cpu,cpu,cpu,cpu"],
+                 "torchrun --nproc_per_node 2", id="flags2-torchrun --nproc_per_node 2"),
+    pytest.param(["--device", "cpu,cpu"], "data parallelism runs across processes",
+                 id="flags3-data parallelism runs across processes"),
+    pytest.param(["--model_parallel", "0"], "must be at least 1", id="flags4-must be at least 1"),
 ])
 def test_cli_refusals(cli_config, capsys, monkeypatch, flags, message):
     """Each exits in the argument checks, before any model exists."""
@@ -448,6 +450,18 @@ def test_cli_refusals(cli_config, capsys, monkeypatch, flags, message):
     with pytest.raises(SystemExit):
         train_cli.main(["--config", config, "--synthetic", "8", *flags])
     assert message in capsys.readouterr().err
+    assert not save.exists()
+
+
+def test_cli_refuses_mega_on_narrow_shards(cli_config):
+    """``--decode_backend mega`` under ``--model_parallel`` is ported (item
+    9e) where the shards meet the decode step's 64-column tiles; at tp 4
+    this config's shards are 32 wide, which the CLI refuses after reading
+    the config, before any model exists."""
+    config, save = cli_config
+    with pytest.raises(SystemExit, match="width 32 or FFN width 64 is not a multiple of 64"):
+        train_cli.main(["--config", config, "--synthetic", "8", "--model_parallel", "4",
+                        "--device", "cpu,cpu,cpu,cpu", "--decode_backend", "mega"])
     assert not save.exists()
 
 
