@@ -332,6 +332,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
@@ -4572,14 +4573,47 @@ def library_shard_attention(c, k_enc, v_enc, k_dec, v_dec, seg, step, hd, q_len,
     return run
 
 
-def bench_shard_entries(task, model, seg32, gen) -> dict:
+def same_bits(fn, mutated=()) -> dict:
+    """Whether two calls of ``fn`` back to back, and two replays of a CUDA
+    graph of one call, give the first call's bits (its output and the
+    tensors in ``mutated``, which it rewrites with the same values)."""
+    first = fn()
+    torch.cuda.synchronize()
+    state = [m.clone() for m in mutated]
+    again = fn()
+    torch.cuda.synchronize()
+    twice = torch.equal(again, first) and all(torch.equal(m, x) for m, x in zip(mutated, state))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    replayed = True
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = replayed and torch.equal(captured, first)
+    replayed = replayed and all(torch.equal(m, x) for m, x in zip(mutated, state))
+    del graph
+    return {"back_to_back": twice, "graph_replay": replayed}
+
+
+#: phase 14b as it read when the shard entries were 3 and 2 launches (NVIDIA
+#: H100 80GB HBM3, 700.00 W): eager tp 2 mega ms at B = 2 / 32 and the tp 2
+#: mega engine's samples/s
+MULTI_LAUNCH_TP_MEGA = {"float32": {"eager_ms": {2: 75.39, 32: 80.81}, "engine_samples_per_s": 197.3},
+                "bfloat16": {"eager_ms": {2: 96.40, 32: 79.52}, "engine_samples_per_s": 146.4}}
+
+
+def bench_shard_entries(task, model, seg32, gen):
     """14a: the two shard entries at c3's tp 2 shapes (shard 1: heads
     6..11, FFN columns 1536..3071, with phase 2's weights) against their
     plain versions in f32 and bf16 at each serving bucket, within phase 2's
     K3 bars (the partial product and, for the attention part, the decoder
-    K/V it writes); bf16 eager / device / host / plain times beside the
-    bound and the same part as PyTorch calls. One row per entry: batch 32's
-    numbers at the top, every bucket's under ``buckets``."""
+    K/V it writes); the same bits across two calls and a graph replay; bf16
+    eager / device / host / plain times beside the bound and the same part
+    as PyTorch calls. One row per entry: batch 32's numbers at the top,
+    every bucket's under ``buckets``. Also returns the bf16 call of each
+    entry and bucket, which phase 4 profiles (kernels per call)."""
     mmt = task.mmt
     d, f, t_max = mmt.hidden_size, mmt.intermediate_size, mmt.num_decoding_steps
     n_layers = len(mmt.layer_type_list)
@@ -4596,6 +4630,7 @@ def bench_shard_entries(task, model, seg32, gen) -> dict:
     del shard
     esize = 2
     rows = {name: {} for name in SHARD_ENTRIES}
+    calls = {}
     for b in STEP_BUCKETS:
         seg = seg32[:b].contiguous()
         att, ffn = {"step": step}, {}
@@ -4645,11 +4680,20 @@ def bench_shard_entries(task, model, seg32, gen) -> dict:
                          lambda: decode_shard_ffn_plain(xf, *f_w, layer=SHARD_LAYER), lib_ffn),
                    bytes=nbytes, ops=ops)
         ffn["bound_ms"], ffn["bound_by"] = bound(nbytes, ops, torch.bfloat16)
+        calls["decode_shard_attention", b] = functools.partial(
+            decode_shard_attention, t, seg, x, *a_w, k_dec, v_dec, **kw)
+        calls["decode_shard_ffn", b] = functools.partial(decode_shard_ffn, xf, *f_w,
+                                                         layer=SHARD_LAYER)
+        att["same_bits"] = same_bits(calls["decode_shard_attention", b], (k_dec, v_dec))
+        ffn["same_bits"] = same_bits(calls["decode_shard_ffn", b])
         for entry, row in zip(SHARD_ENTRIES, (att, ffn)):
+            if not all(row["same_bits"].values()):
+                raise AssertionError(f"{entry} B={b}: not the same bits {row['same_bits']}")
             log(f"  {entry} B={b} bf16: device {row['device_ms']:.5f} ms (bound "
                 f"{row['bound_ms']:.5f}, {row['bound_by']}), eager {row['ms']:.4f}, host "
                 f"{row['host_ms']:.4f}, plain {row['plain_ms']:.4f}; library device "
-                f"{row['library_device_ms']:.5f}, eager {row['library_ms']:.4f}")
+                f"{row['library_device_ms']:.5f}, eager {row['library_ms']:.4f}; same bits "
+                f"back to back and in a graph replay")
             rows[entry][b] = row
     shapes = {
         "decode_shard_attention":
@@ -4668,7 +4712,31 @@ def bench_shard_entries(task, model, seg32, gen) -> dict:
                        max_abs_err=max(r["max_abs_err_bfloat16"] for r in by_b.values()),
                        shape=shapes[name] + f", B={STEP_BUCKETS[-1]}; also B = 1, 8 under "
                                             f"buckets", library=libraries[name])
-            for name, by_b in rows.items()}
+            for name, by_b in rows.items()}, calls
+
+
+def profile_shard_entries(rows: dict, calls: dict) -> None:
+    """Phase 4's part of 14a: the kernels one bf16 call of each entry runs,
+    by the profiler over a CUDA graph of that one call (as K3's step),
+    into each bucket's row; raises unless it is one."""
+    for (entry, b), fn in calls.items():
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        prof = device_profile(graph.replay)
+        if "kernels" not in prof:
+            raise AssertionError(f"{entry} B={b}: {prof}")
+        kernels = prof.get("kernels", [])
+        row = rows[entry]["buckets"][b]
+        row["kernels_per_call_profile"] = sum(k["count"] for k in kernels)
+        row["profile_kernels"] = [k["name"][:80] for k in kernels]
+        row["profile_span_ms"] = prof.get("span_ms")
+        if b == STEP_BUCKETS[-1]:
+            rows[entry]["kernels_per_call_profile"] = row["kernels_per_call_profile"]
+        log(f"  {entry} B={b}: {row['kernels_per_call_profile']} kernel(s) per call in the "
+            f"profile ({', '.join(row['profile_kernels'])}), span {row['profile_span_ms']}")
+        if row["kernels_per_call_profile"] != 1:
+            raise AssertionError(f"{entry} B={b} ran {kernels} in one call, one kernel expected")
 
 
 def tp_mega_decodes(task, model, batch, bos: int, dev) -> dict:
@@ -4876,6 +4944,12 @@ def tp_decode_path(task, vocab, kept, samples, best_model: Path, beam_cli: dict,
             f"{one['decode_ms'][2]:.3f} / {one['decode_ms'][BATCH]:.3f}), launches "
             f"{eng['launches']}, agreement answers {eng['answer_agreement']:.3f} tokens "
             f"{eng['token_agreement']}")
+        before = MULTI_LAUNCH_TP_MEGA[name]
+        log(f"  tp 2 mega {name} beside the entries as 3 and 2 launches: eager ms B=2 "
+            f"{dec[2]['tp_mega_eager_ms']:.2f} (then {before['eager_ms'][2]}), B=32 "
+            f"{dec[BATCH]['tp_mega_eager_ms']:.2f} (then {before['eager_ms'][BATCH]}); engine "
+            f"{eng['samples_per_s']:.1f} samples/s (then {before['engine_samples_per_s']})")
+        res["multi_launch_entries"] = before
         if name == "float32" and not (eng["answer_agreement"] == 1.0 and eng["ids_equal_one_device"]
                                       and all(r["ids_equal_one_device_mega"]
                                               for r in dec.values())):
@@ -4991,7 +5065,8 @@ def main() -> int:
     mark("== phase 14: tensor-parallel decoding on the repeated card (14a: the shard entries; "
          "14b: mega under tp 2; 14c: beams under tp 2)")
     t14 = time.monotonic()
-    tp_decode = {"shard_entries": bench_shard_entries(task, model, seg, gen)}
+    shard_rows, shard_calls = bench_shard_entries(task, model, seg, gen)
+    tp_decode = {"shard_entries": shard_rows}
     tp_decode.update(tp_decode_path(task, vocab, kept, samples, beam_dir / "best_model",
                                     beam["cli"], beam5_f32))
     tp_decode["seconds"] = time.monotonic() - t14
@@ -5031,6 +5106,8 @@ def main() -> int:
     main["profile_b32"] = device_profile(
         lambda: greedy_decode_fast(model, main["batch"], vocab.special_ids().bos,
                                    backend="mega"))
+    profile_shard_entries(tp_decode["shard_entries"], shard_calls)
+    del shard_calls
     training["profile_train_step"] = device_profile(train_call)
     tp_training["train_step_bf16"]["tp2"]["profile"] = device_profile(tp_call)
     log(f"  tp 2 bf16 train step: idle share "

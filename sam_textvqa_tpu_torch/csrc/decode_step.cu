@@ -63,18 +63,73 @@
 // layer of one shard (its H/tp heads and F/tp FFN columns), from inputs
 // already normalised on the first device, which sums the shards' partials
 // and applies the replicated biases, residuals and LayerNorms
-// (models/tensor_parallel.py):
+// (models/tensor_parallel.py), each as ONE launch:
 //   attention part: qkv = x @ Wqkv_r^T + b_r, the decode attention over the
-//                    shard's heads (K/V row t written in place), then the
-//                    partial out-projection ctx_r @ Wout_r^T (3 launches)
-//   FFN part:        h_r = gelu_erf(x @ Wff1_r^T + b_r), then the partial
-//                    h_r @ Wff2_r^T (2 launches)
+//                    shard's heads (K/V row t written in place), and the
+//                    partial out-projection ctx_r @ Wout_r^T
+//   FFN part:        h_r = gelu_erf(x @ Wff1_r^T + b_r) and the partial
+//                    h_r @ Wff2_r^T
 // The partials are rounded to the compute dtype once, with no bias and no
-// residual (the rounding points of the fused tp step). Same product kernel,
-// same attention code: the shard widths D/tp and F/tp only change K or N.
+// residual (the rounding points of the fused tp step).
+//
+// Why one launch: run as 3 and 2 product / attention launches, the entries
+// spent most of their time outside the arithmetic (tools/torch_shard_probe.py
+// at c3 tp 2, B = 32, H100): per product launch 0.6 to 1.1 us issuing the
+// weights, 0.5 to 0.8 us more until the operands landed, 2.1 to 2.4 us of
+// scalar DSMEM stores and cluster barriers and 2.2 to 2.8 us of epilogue,
+// against 0.4 to 0.8 us of MMA; each intermediate (qkv, ctx, h) went
+// through device memory between launches. The design:
+// - A thread-block cluster of S CTAs owns a block of the work that
+//   needs nothing from outside the cluster until its final sum: for the FFN
+//   16 S of F/tp's columns (each CTA computes 16 of h, sends them to every
+//   CTA's shared memory, then computes D / S output rows of FF2 over the
+//   cluster's 16 S columns), for the attention a block of hc heads (hc = 1
+//   unless the head is too narrow for the tiles): each CTA computes 3 hd hc
+//   / S of the block's q/k/v rows, sends each batch row's values to that
+//   row's owner CTA, which runs K2's arithmetic over the head's valid K/V
+//   (same rounding points; row t from q/k/v, also written to k_dec/v_dec)
+//   and sends the context to every CTA; each CTA then multiplies it by D / S
+//   rows of Wout's head-block columns. h, q/k/v and the context never leave
+//   the cluster: 16-byte stores into the peers' shared memory and one
+//   cluster barrier per exchange. The FFN takes clusters of 16 (a
+//   non-portable size) where a group of them fits on the card at once: the
+//   fewer the clusters, the fewer partial tiles the last CTA sums; the
+//   attention takes the size whose CTAs each take in the fewest bytes.
+// - Weights are issued at entry, before griddepcontrol.wait: no earlier
+//   kernel writes them. W1's and Wqkv's 16-row tiles lie whole in memory:
+//   one bulk copy (cp.async.bulk, completing on an mbarrier) each; the
+//   strided slices (W2's, Wout's) and biases are 16-byte cp.async from
+//   every thread (a bulk copy per row measured about 30 ns of issue each,
+//   from one warp). The activation rows are copied once per cluster by
+//   multicast bulk copies; the attention's K/V rows by cp.async, per (row,
+//   head), into one or two buffers (one may lie over Wqkv's tiles once QKV
+//   has read them); with two buffers and two or more pairs, each half of
+//   the CTA attends for every other pair, both at once.
+// - Across clusters the partial tiles (f32, in MMA fragment order) go to a
+//   workspace; the last CTA to arrive on a (group, rank) counter sums them
+//   in cluster order, rounds once and resets the counter, so back-to-back
+//   calls and graph replays give the same bits. The counters are zero
+//   between calls (the caller keeps them per device); no float atomics, no
+//   memset per call.
+// - Batch rows: groups of at most 32 (8 NT) along grid.y, as many as keep
+//   every cluster resident at once (cudaOccupancyMaxActiveClusters).
+// - Tensor cores: mma.sync as in the products (bf16 m16n8k16, f32 as three
+//   TF32 m16n8k8), the batch on the n8 side. wgmma's 64-row warpgroup tile
+//   and shared-memory B operand buy nothing at N = 8 to 32: the MMA was
+//   under a tenth of the entries' time; bytes and latency bound them
+//   (bounds: 0.00144 ms FFN, 0.00262 ms attention at B = 32, bf16).
 #include <cooperative_groups.h>
 
+#include <algorithm>
+#include <map>
+#include <tuple>
+
 #include "decode_attention.cuh"
+
+// a probe point of tools/torch_shard_probe.py, which builds with it defined
+#ifndef SAM_PROBE
+#define SAM_PROBE(kernel, point)
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -89,8 +144,7 @@ constexpr size_t kMaxSmem = 232448;
 constexpr int kLnThreads = 256;
 constexpr float kLnEps = 1e-12f;
 
-// kPartial: a tensor-parallel shard's partial product, rounded, no bias
-enum Epilogue { kBias = 0, kBiasGelu = 1, kBiasResidual = 2, kPartial = 3 };
+enum Epilogue { kBias = 0, kBiasGelu = 1, kBiasResidual = 2 };
 
 template <typename T>
 struct Product {
@@ -100,7 +154,7 @@ struct Product {
   const float2* stats_in;  // (groups, K / kRows, kGroup) per-tile (mean, M2) of x
   T* x_norm;               // (B, K) normalised rows, written by the CTAs of tile 0
   const T* w;              // (N, K)
-  const T* bias;           // (N), unread under kPartial
+  const T* bias;           // (N)
   const T* res;            // (B, N) residual, or null
   T* out;                  // (B, N)
   float2* stats_out;       // (groups, N / kRows, kGroup) per-tile (mean, M2) of out, or null
@@ -330,7 +384,7 @@ __global__ void __launch_bounds__(kThreads) product_kernel(const Product<T> p) {
       const int row = i % kRows, col = split + p.splits * (i / kRows);
       sum[q] = 0.f;
       for (int sp = 0; sp < p.splits; ++sp) sum[q] += recv[(sp * per + i / kRows) * kRows + row];
-      bias[q] = EPI == kPartial ? 0.f : sam::to_f(p.bias[tile * kRows + row]);
+      bias[q] = sam::to_f(p.bias[tile * kRows + row]);
       res[q] = EPI == kBiasResidual
                    ? sam::to_f(p.res[static_cast<size_t>(b0 + col) * p.N + tile * kRows + row])
                    : 0.f;
@@ -340,8 +394,7 @@ __global__ void __launch_bounds__(kThreads) product_kernel(const Product<T> p) {
       const int i = i0 + q * kThreads;
       if (i >= items) break;
       const int row = i % kRows, col = split + p.splits * (i / kRows);
-      float y = EPI == kPartial ? sam::round_to<T>(sum[q])
-                                : sam::round_to<T>(sam::round_to<T>(sum[q]) + bias[q]);
+      float y = sam::round_to<T>(sam::round_to<T>(sum[q]) + bias[q]);
       if (EPI == kBiasGelu) y = sam::round_to<T>(y * 0.5f * (1.f + erff(y / 1.41421356f)));
       if (EPI == kBiasResidual) y = sam::round_to<T>(y + res[q]);
       p.out[static_cast<size_t>(b0 + col) * p.N + tile * kRows + row] = sam::from_f<T>(y);
@@ -576,32 +629,923 @@ int decode_step(const int* t, const int* seg_lens, const T* x0, const T* wqkv,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// K-splits of a shard part's two products, (n1, K = D) then (D, K = w):
-// the attention part's QKV (n1 = 3 w) and out-projection (w = D/tp), or the
-// FFN part's FF1 (n1 = w) and FF2 (w = F/tp). False where a width is not
-// whole 64-row tiles or no split fits.
-template <typename T>
-bool shard_plan(int B, int D, int n1, int w, int (&splits)[2]) {
-  if (B < 1 || D % kRows || n1 % kRows || w % kRows) return false;
-  splits[0] = splits_for<T>(B, n1, D, false);
-  splits[1] = splits_for<T>(B, D, w, false);
-  return splits[0] > 0 && splits[1] > 0;
+// ---- the tensor-parallel shard entries: one launch each ------------------
+
+constexpr int kShardThreads = 256, kShardWarps = kShardThreads / 32;
+constexpr int kShardHeader = 64;  // two mbarriers (x, weights), the last-arrival flag
+
+// mbarrier and bulk-copy (TMA) helpers; a bulk copy reports its bytes to
+// the barrier at the same shared-memory offset of every CTA it writes to
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(sam::smem_addr(bar)) : "memory");
 }
 
-// part 0 (attention): qkv (3 w) and ctx (w) per batch row; part 1 (FFN):
-// the gelu rows (w). 0 where the widths do not fit.
+// the one arrival of the barrier's phase, which then waits for ``bytes``
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   sam::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the barrier's phase ``parity`` to complete. A phase that never
+// completes (bytes expected that no copy delivers) traps after about a
+// second instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = sam::smem_addr(bar);
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 31)) __trap();
+  }
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(sam::smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(sam::smem_addr(bar))
+      : "memory");
+}
+
+// one copy from device memory into the same offset of every CTA in ``mask``
+__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src, uint32_t bytes,
+                                                    uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(sam::smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(sam::smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+
+// the first cluster barrier, split: arrive (the mbarriers' initialisation
+// is already fenced), wait once a peer's shared memory is to be written
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Rows [0, rows) of src (``bytes`` each, consecutive) into every CTA of the
+// cluster at dst (byte stride ``stride``), completing on ``bar``: CTA
+// ``rank`` of S copies rows rank, rank + S, ..., each once, multicast. One
+// warp calls.
+__device__ __forceinline__ void multicast_rows(unsigned char* dst, int stride, const void* src,
+                                               int bytes, int rows, int rank, int S,
+                                               uint64_t* bar) {
+  const char* from = static_cast<const char*>(src);
+  for (int r = rank + S * (threadIdx.x & 31); r < rows; r += 32 * S) {
+    if (S > 1)
+      bulk_load_multicast(dst + r * stride, from + static_cast<size_t>(r) * bytes, bytes, bar,
+                          static_cast<uint16_t>((1u << S) - 1));
+    else
+      bulk_load(dst + r * stride, from + static_cast<size_t>(r) * bytes, bytes, bar);
+  }
+}
+
+// zeroes rows [from, to) of ``bytes`` each at base (byte stride ``stride``)
+__device__ __forceinline__ void zero_rows(unsigned char* base, int stride, int from, int to,
+                                          int bytes) {
+  const int pieces = bytes / 16;
+  for (int i = threadIdx.x; i < (to - from) * pieces; i += kShardThreads)
+    *reinterpret_cast<uint4*>(base + (from + i / pieces) * stride + (i % pieces) * 16) =
+        make_uint4(0, 0, 0, 0);
+}
+
+// ``rows`` rows of ``bytes`` each (a multiple of 16) from src (row stride
+// ld elements) into shared memory at dst (byte stride ``stride``), 16 bytes
+// a cp.async, spread over the CTA's threads
 template <typename T>
-size_t shard_workspace(int part, int B, int D, int w) {
-  int splits[2];
-  if (!shard_plan<T>(B, D, part == 0 ? 3 * w : w, w, splits)) return 0;
-  return align256(sizeof(T) * static_cast<size_t>(B) * (part == 0 ? 4 * w : w));
+__device__ __forceinline__ void load_rows(unsigned char* dst, int stride, const T* src, int ld,
+                                          int rows, int bytes) {
+  const int pieces = bytes / 16;
+  for (int i = threadIdx.x; i < rows * pieces; i += kShardThreads) {
+    const int r = i / pieces, c = i - r * pieces;
+    sam::cp_async16(dst + r * stride + c * 16,
+                    reinterpret_cast<const char*>(src + static_cast<size_t>(r) * ld) + c * 16);
+  }
+}
+
+// acc += 16 weight rows (at w, byte stride ws) x 8 NT staged activation rows
+// (at x, byte stride xs) over the 64-byte chunks [c0, c1) of their K
+template <typename T, int NT>
+__device__ __forceinline__ void mma_chunks(float (&acc)[NT][4], const unsigned char* w, int ws,
+                                           const unsigned char* x, int xs, int c0, int c1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const unsigned char* wl = w + tq * 16;
+  const unsigned char* xl = x + tq * 16;
+  for (int c = 64 * c0; c < 64 * c1; c += 64) {
+    const uint4 lo = *reinterpret_cast<const uint4*>(wl + g * ws + c);
+    const uint4 hi = *reinterpret_cast<const uint4*>(wl + (g + 8) * ws + c);
+    uint4 xv[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      xv[j] = *reinterpret_cast<const uint4*>(xl + (8 * j + g) * xs + c);
+    chunk_mma<T, NT>(acc, lo, hi, xv);
+  }
+}
+
+// (row, batch column) of element e of lane ``lane``'s fragment of n8 tile j
+__device__ __forceinline__ int frag_row(int lane, int e) { return (lane >> 2) + (e >= 2 ? 8 : 0); }
+__device__ __forceinline__ int frag_col(int lane, int j, int e) {
+  return 8 * j + 2 * (lane & 3) + (e & 1);
+}
+
+// The sum across clusters. ``tiles`` holds one f32 partial tile per
+// cluster (``mt`` tiles of 16 output rows x 8 NT batch columns each, in
+// fragment order), this CTA's among them, for out's rows [n0, n0 + 16 mt)
+// and batch rows [b0, b0 + rows). The CTA that arrives last on ``counter``
+// (of ``arrivals``) sums the tiles in cluster order, rounds once, writes
+// the rows and zeroes the counter for the next call. (Spreading the sum
+// over the arrivals behind a barrier measured slower: the barrier's waits
+// cost more than the last CTA's reads.)
+template <typename T, int NT>
+__device__ void fixup(const float* tiles, int mt, int arrivals, int* counter, int* last, T* out,
+                      int ld, int n0, int b0, int rows) {
+  __syncthreads();  // every thread's stores of the tile precede thread 0's fence
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *last = atomicAdd(counter, 1) == arrivals - 1;
+  }
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  const int count = mt * NT * 32;  // float4s of a tile
+  const float4* src = reinterpret_cast<const float4*>(tiles);
+  for (int i = threadIdx.x; i < count; i += kShardThreads) {
+    float4 s = __ldcg(src + i);
+    for (int k0 = 1; k0 < arrivals; k0 += 8) {  // 8 loads in flight, then the sums in order
+      float4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (k0 + u < arrivals) v[u] = __ldcg(src + static_cast<size_t>(k0 + u) * count + i);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (k0 + u < arrivals) s.x += v[u].x, s.y += v[u].y, s.z += v[u].z, s.w += v[u].w;
+    }
+    const int lane = i & 31, j = (i >> 5) % NT, m = (i >> 5) / NT;
+    const float v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = frag_col(lane, j, e);
+      if (col < rows)
+        out[static_cast<size_t>(b0 + col) * ld + n0 + 16 * m + frag_row(lane, e)] =
+            sam::from_f<T>(v[e]);
+    }
+  }
+  if (threadIdx.x == 0) *counter = 0;
+}
+
+// the CTA's partial tile in fragment order: tile m's (j, lane) as a float4
+template <int NT>
+__device__ __forceinline__ void store_tile(float* tile, int m, const float (&acc)[NT][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    reinterpret_cast<float4*>(tile)[(m * NT + j) * 32 + lane] =
+        make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+}
+
+// Shared memory of a shard CTA: byte offsets, laid out on the host
+struct ShardSmem {
+  int w_a, w_b, x, act, own, stage, red, att, kv, kv2, mine, bias, total;
+};
+
+template <typename T>
+struct FfnArgs {
+  const T* x;       // (B, D) the layer's LN1 output
+  const T* w1;      // (w, D) FF1 rows of the layer
+  const T* b1;      // (w)
+  const T* w2;      // (D, w)
+  T* out;           // (B, D) the partial FF2 product
+  float* partial;   // (groups, S, blocks, D * 8 NT) f32 partial tiles
+  int* counters;    // (groups, S) arrivals, zero between calls
+  int B, D, w, S, group;
+  ShardSmem sm;
+};
+
+// FFN part. A cluster of S CTAs owns 16 S consecutive FF1 columns (each CTA
+// 16) and is the K-slice of FF2 over those columns; CTA ``rank`` of it owns
+// FF2's output rows [rank D / S, +D / S). h never leaves the cluster: each
+// CTA's GeLU columns go to every CTA's shared memory. Cluster ``blk``'s
+// partial tiles are summed across the clusters by the last to arrive.
+template <typename T, int NT>
+__global__ void __launch_bounds__(kShardThreads) shard_ffn_kernel(const FfnArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  SAM_PROBE(11, 0);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = a.S, rank = static_cast<int>(cluster.block_rank());
+  const int blk = blockIdx.x / S, blocks = gridDim.x / S;
+  const int b0 = blockIdx.y * a.group, rows = min(a.group, a.B - b0);
+  const int row_x = a.D * static_cast<int>(sizeof(T)), xs = slice_stride(row_x);
+  const int row_h = 16 * S * static_cast<int>(sizeof(T)), hs = slice_stride(row_h);
+  const int n2 = a.D / S, c0 = 16 * blockIdx.x;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // x, then W1
+  int* last = reinterpret_cast<int*>(smem + 32);
+  unsigned char* w1s = smem + a.sm.w_a;  // W1's 16 rows as they lie in memory
+  unsigned char* w2s = smem + a.sm.w_b;
+  unsigned char* xsm = smem + a.sm.x;
+  unsigned char* hsm = smem + a.sm.act;
+  float* red = reinterpret_cast<float*>(smem + a.sm.red);
+  T* mine = reinterpret_cast<T*>(smem + a.sm.mine);  // this CTA's 16 columns of h, row-major
+  T* bias = reinterpret_cast<T*>(smem + a.sm.bias);
+
+  // The weights depend on no earlier kernel: issue them all now. W1's 16
+  // rows are one contiguous block: one bulk copy; W2's slice and the bias
+  // are 16-byte cp.async from every thread.
+  if (tid == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(&bar[0], rows * row_x);
+    mbar_expect(&bar[1], 16 * row_x);
+    bulk_load(w1s, a.w1 + static_cast<size_t>(c0) * a.D, 16 * row_x, &bar[1]);
+  }
+  load_rows(w2s, hs, a.w2 + static_cast<size_t>(rank) * n2 * a.w + 16 * S * blk, a.w, n2, row_h);
+  load_rows(reinterpret_cast<unsigned char*>(bias), 0, a.b1 + c0, 0, 1,
+            16 * static_cast<int>(sizeof(T)));
+  sam::cp_async_commit();
+  __syncthreads();
+  SAM_PROBE(11, 1);
+  cluster_arrive_relaxed();  // this CTA's barrier is initialised
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  SAM_PROBE(11, 2);
+  cluster_wait();  // and every peer's: x may be multicast into them
+  if (warp == 0) multicast_rows(xsm, xs, a.x + static_cast<size_t>(b0) * a.D, row_x, rows, rank, S,
+                                &bar[0]);
+  zero_rows(xsm, xs, rows, 8 * NT, row_x);  // padding rows: read by the products, never stored
+  zero_rows(hsm, hs, rows, 8 * NT, row_h);
+  SAM_PROBE(11, 3);
+  sam::cp_async_wait<0>();
+  mbar_wait(&bar[0], 0);
+  mbar_wait(&bar[1], 0);
+  __syncthreads();
+  SAM_PROBE(11, 4);
+
+  {  // FF1: the warps split K; their sums meet in shared memory, in warp order
+    const int chunks = row_x / 64, per = (chunks + kShardWarps - 1) / kShardWarps;
+    float acc[NT][4] = {};
+    mma_chunks<T, NT>(acc, w1s, row_x, xsm, xs, min(chunks, warp * per),
+                      min(chunks, (warp + 1) * per));
+    store_tile<NT>(red + warp * 128 * NT, 0, acc);
+  }
+  __syncthreads();
+  for (int i = tid; i < 128 * NT; i += kShardThreads) {
+    float s = 0.f;
+    for (int k = 0; k < kShardWarps; ++k) s += red[k * 128 * NT + i];
+    const int ln = (i >> 2) & 31, e = i & 3, row = frag_row(ln, e), col = frag_col(ln, i >> 7, e);
+    float y = sam::round_to<T>(sam::round_to<T>(s) + sam::to_f(bias[row]));
+    y = sam::round_to<T>(y * 0.5f * (1.f + erff(y / 1.41421356f)));
+    mine[col * 16 + row] = sam::from_f<T>(y);
+  }
+  __syncthreads();
+  SAM_PROBE(11, 5);
+  {  // this CTA's columns of h into every CTA's h rows, 16 bytes a store
+    constexpr int kVec = 16 / sizeof(T);
+    constexpr int kPieces = 16 / kVec;  // 16-byte pieces of a row's 16 columns
+    for (int i = tid; i < rows * kPieces * S; i += kShardThreads) {
+      const int dst = i % S, r = i / S / kPieces, piece = (i / S) % kPieces;
+      const uint4 v = *reinterpret_cast<const uint4*>(mine + r * 16 + piece * kVec);
+      unsigned char* at = hsm + r * hs + rank * 16 * static_cast<int>(sizeof(T)) + piece * 16;
+      *reinterpret_cast<uint4*>(cluster.map_shared_rank(at, dst)) = v;
+    }
+  }
+  cluster.sync();  // the cluster's h is whole in every CTA
+  SAM_PROBE(11, 6);
+
+  float* tiles = a.partial + static_cast<size_t>(blockIdx.y * S + rank) * blocks * n2 * 8 * NT;
+  {  // FF2: output rows 16 m.. of this CTA's n2, over the cluster's columns
+    const int chunks = row_h / 64;
+    for (int m = warp; m < n2 / 16; m += kShardWarps) {
+      float acc[NT][4] = {};
+      mma_chunks<T, NT>(acc, w2s + 16 * m * hs, hs, hsm, hs, 0, chunks);
+      store_tile<NT>(tiles + static_cast<size_t>(blk) * n2 * 8 * NT, m, acc);
+    }
+  }
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  SAM_PROBE(11, 7);
+  fixup<T, NT>(tiles, n2 / 16, blocks, a.counters + blockIdx.y * S + rank, last, a.out, a.D,
+               rank * n2, b0, rows);
+  SAM_PROBE(11, 8);
 }
 
 template <typename T>
-Product<T> plain_product(const T* x, const T* w, const T* bias, T* out, int B, int N, int K,
-                         int splits) {
-  return Product<T>{x, nullptr, nullptr, nullptr, nullptr, w, bias, nullptr, out, nullptr,
-                    B, N, K, splits};
+struct AttnArgs {
+  const int* t;         // (1) the step
+  const int* seg_lens;  // (B, 3)
+  const T* x;           // (B, D) the layer's normalised input rows
+  const T* wqkv;        // (3 w, D) of the layer
+  const T* bqkv;        // (3 w)
+  const T* wout;        // (D, w)
+  const T* k_enc;       // (B, le, w) of the layer
+  const T* v_enc;
+  T* k_dec;  // (B, t_max, w) of the layer, row t written
+  T* v_dec;
+  T* out;          // (B, D) the partial out-projection
+  float* partial;  // (groups, S, head blocks, D * 8 NT) f32 partial tiles
+  int* counters;   // (groups, S) arrivals, zero between calls
+  int B, D, w, hd, hc, le, t_max, q_len, n_obj, S, group, bufs;
+  float scale;
+  ShardSmem sm;
+};
+
+// A team of the CTA's threads: all of them, or one half, which then meets
+// at a named barrier of its own (barrier 0 is __syncthreads')
+struct Team {
+  int tid, threads, barrier;
+  __device__ __forceinline__ void sync() const {
+    if (barrier == 0) __syncthreads();
+    else asm volatile("bar.sync %0, %1;\n" ::"r"(barrier), "r"(threads) : "memory");
+  }
+};
+
+// One (sample, head)'s decode attention, with K2's arithmetic and rounding
+// points (decode_attention.cuh), by one team: ks / vs hold the n valid K
+// and V rows (row t last), qs the query (f32 of the rounded values); the
+// rounded context goes to ctx.
+template <typename T>
+__device__ void attend(const Team& team, const T* ks, const T* vs, const float* qs, float* s,
+                       float* red, T* ctx, int n, int hd, float scale) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int tid = team.tid, lane = tid & 31, warp = tid >> 5, warps = team.threads / 32;
+  const int chunks = hd / kVec, c = lane % chunks, per_warp = 32 / chunks;
+  {
+    float qr[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) qr[e] = qs[c * kVec + e];
+    for (int i0 = warp * per_warp; i0 < n; i0 += warps * per_warp) {
+      const int i = i0 + lane / chunks;
+      float dot = 0.f;
+      if (i < n) {
+        float x[kVec];
+        sam::load16(ks + static_cast<size_t>(i) * hd + c * kVec, x);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) dot = fmaf(qr[e], x[e], dot);
+      }
+      for (int o = chunks / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      if (i < n && c == 0) s[i] = sam::round_to<T>(sam::round_to<T>(dot) * scale);
+    }
+  }
+  team.sync();
+  float m = -INFINITY;
+  for (int i = lane; i < n; i += 32) m = fmaxf(m, s[i]);
+  m = sam::warp_max(m);
+  float sum = 0.f;
+  for (int i = lane; i < n; i += 32) sum += expf(s[i] - m);
+  sum = sam::warp_sum(sum);
+  team.sync();
+  for (int i = tid; i < n; i += team.threads) s[i] = sam::round_to<T>(expf(s[i] - m) / sum);
+  team.sync();
+  const int stripes = team.threads / chunks, stripe = tid / chunks;
+  float acc[kVec] = {};
+  for (int i = stripe; i < n; i += stripes) {
+    const float p = s[i];
+    float x[kVec];
+    sam::load16(vs + static_cast<size_t>(i) * hd + c * kVec, x);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] = fmaf(p, x[e], acc[e]);
+  }
+  for (int o = chunks; o < 32; o <<= 1) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+  }
+  if (lane < chunks) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) red[warp * hd + c * kVec + e] = acc[e];
+  }
+  team.sync();
+  for (int d = tid; d < hd; d += team.threads) {
+    float total = 0.f;
+    for (int k = 0; k < warps; ++k) total += red[k * hd + d];
+    ctx[d] = sam::from_f<T>(total);
+  }
+  team.sync();
+}
+
+// Attention part. A cluster of S CTAs owns a block of hc heads (blockIdx.x
+// / S) for a group of batch rows (blockIdx.y): each CTA computes 3 hd hc / S
+// of the block's q/k/v rows for every row of the group and sends them to
+// the row's owner (the CTA of rank row % S); the owner attends over the
+// head's valid K/V (row t from q/k/v, written to k_dec/v_dec) and sends the
+// context to every CTA; CTA ``rank`` then
+// multiplies it by Wout's rows [rank D / S, +D / S) and that head block's
+// columns. The head blocks' partial tiles are summed by the last to arrive.
+template <typename T, int NT>
+__global__ void __launch_bounds__(kShardThreads) shard_attention_kernel(const AttnArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  SAM_PROBE(10, 0);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = a.S, rank = static_cast<int>(cluster.block_rank());
+  const int hb = blockIdx.x / S, blocks = gridDim.x / S;
+  const int b0 = blockIdx.y * a.group, rows = min(a.group, a.B - b0);
+  const int hd = a.hd, width = a.hc * hd;  // the head block's columns
+  const int rq = 3 * width / S;            // q/k/v rows of this CTA
+  const int row_x = a.D * static_cast<int>(sizeof(T)), xs = slice_stride(row_x);
+  const int row_o = width * static_cast<int>(sizeof(T)), os = slice_stride(row_o);
+  const int row_kv = hd * static_cast<int>(sizeof(T));
+  const int n2 = a.D / S, kv_rows = a.le + a.t_max;
+  const int own = (rows - rank + S - 1) / S;  // rows of the group this CTA attends for
+  const int pairs = max(own, 0) * a.hc;       // (row, head) pairs, row-major
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // x, then Wqkv
+  int* last = reinterpret_cast<int*>(smem + 32);
+  unsigned char* wqs = smem + a.sm.w_a;  // Wqkv's 16-row tiles as they lie in memory
+  unsigned char* wos = smem + a.sm.w_b;
+  unsigned char* xsm = smem + a.sm.x;
+  unsigned char* csm = smem + a.sm.act;  // the group's context rows, this block's columns
+  float* qkv = reinterpret_cast<float*>(smem + a.sm.own);    // own rows' q, k, v (3 width)
+  float* stage = reinterpret_cast<float*>(smem + a.sm.stage);  // (row, rq) of this CTA
+  float* red = reinterpret_cast<float*>(smem + a.sm.red);
+  // Two K/V buffers and at least two pairs: each half of the CTA attends
+  // for every other pair, with its own buffer and scratch, both at once.
+  const bool halves = a.bufs == 2 && pairs >= 2;
+  const int half = halves ? warp / (kShardWarps / 2) : 0;
+  const Team team = halves ? Team{tid % (kShardThreads / 2), kShardThreads / 2, 1 + half}
+                           : Team{tid, kShardThreads, 0};
+  const int att_floats = hd + kv_rows + kShardWarps * hd;  // q, scores, P.V sums
+  float* qs = reinterpret_cast<float*>(smem + a.sm.att) + half * att_floats;
+  float* sc = qs + hd;
+  float* red2 = sc + kv_rows;
+  T* ctx = reinterpret_cast<T*>(smem + a.sm.mine) + half * hd;
+  T* bias = reinterpret_cast<T*>(smem + a.sm.bias);
+  // K/V buffer b of pair p = p % bufs; a buffer placed over Wqkv's tiles
+  // (where shared memory is short) is first filled once QKV has read them
+  T* kv[2] = {reinterpret_cast<T*>(smem + a.sm.kv), reinterpret_cast<T*>(smem + a.sm.kv2)};
+  const bool late[2] = {a.sm.kv == a.sm.w_a, a.bufs == 2 && a.sm.kv2 == a.sm.w_a};
+
+  // The weights depend on no earlier kernel: issue them all now. Virtual
+  // row v of the block is row v % width of section v / width (q, k, v); a
+  // 16-row tile lies in one section, contiguous in memory: one bulk copy
+  // each. Wout's slice and the bias: 16-byte cp.async from every thread.
+  if (tid == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(&bar[0], rows * row_x);
+    mbar_expect(&bar[1], rq * row_x);
+  }
+  for (int m = 0; m < rq / 16; ++m) {
+    const int v = rank * rq + 16 * m, sec = v / width;
+    const size_t row = static_cast<size_t>(sec) * a.w + hb * width + v - sec * width;
+    if (tid == 0) bulk_load(wqs + 16 * m * row_x, a.wqkv + row * a.D, 16 * row_x, &bar[1]);
+    load_rows(reinterpret_cast<unsigned char*>(bias + 16 * m), 0, a.bqkv + row, 0, 1,
+              16 * static_cast<int>(sizeof(T)));
+  }
+  load_rows(wos, os, a.wout + static_cast<size_t>(rank) * n2 * a.w + hb * width, a.w, n2, row_o);
+  sam::cp_async_commit();
+  __syncthreads();
+  SAM_PROBE(10, 1);
+  cluster_arrive_relaxed();
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  SAM_PROBE(10, 2);
+  const int t = min(max(*a.t, 0), a.t_max - 1);
+  const int n_ocr = a.le - a.q_len - a.n_obj;
+  // The K/V rows of pair p (all valid rows but row t) into buffer p % bufs,
+  // 16 bytes a cp.async from every thread, or with halves from the half
+  // that attends for it, as one commit group of every thread that calls
+  // (empty for the others and past the last pair).
+  auto issue = [&](int p) {
+    if (p < pairs && (!halves || p % 2 == half)) {
+      const int b = b0 + rank + S * (p / a.hc), head = hb * a.hc + p % a.hc;
+      const int qv = min(max(a.seg_lens[3 * b + 0], 0), a.q_len);
+      const int ov = min(max(a.seg_lens[3 * b + 1], 0), a.n_obj);
+      const int cv = min(max(a.seg_lens[3 * b + 2], 0), n_ocr);
+      const int n_enc = qv + ov + cv, n = n_enc + t;  // rows before row t
+      T* ks = kv[p % a.bufs];
+      T* vs = ks + static_cast<size_t>(kv_rows) * hd;
+      const size_t enc = static_cast<size_t>(b) * a.le * a.w + head * hd;
+      const size_t dec = static_cast<size_t>(b) * a.t_max * a.w + head * hd;
+      const int pieces = row_kv / 16;
+      for (int i = team.tid; i < n * pieces; i += team.threads) {
+        const int r = i / pieces, c = i - r * pieces;
+        constexpr int kVec = 16 / sizeof(T);
+        sam::cp_async16(ks + static_cast<size_t>(r) * hd + c * kVec,
+                        sam::valid_row(r, a.k_enc + enc, a.k_dec + dec, a.w, qv, ov, n_enc,
+                                       a.q_len, a.n_obj) + c * kVec);
+        sam::cp_async16(vs + static_cast<size_t>(r) * hd + c * kVec,
+                        sam::valid_row(r, a.v_enc + enc, a.v_dec + dec, a.w, qv, ov, n_enc,
+                                       a.q_len, a.n_obj) + c * kVec);
+      }
+    }
+    sam::cp_async_commit();
+  };
+  for (int p = 0; p < a.bufs; ++p)
+    if (!late[p]) issue(p);
+  cluster_wait();
+  if (warp == 0) multicast_rows(xsm, xs, a.x + static_cast<size_t>(b0) * a.D, row_x, rows, rank, S,
+                                &bar[0]);
+  zero_rows(xsm, xs, rows, 8 * NT, row_x);
+  zero_rows(csm, os, rows, 8 * NT, row_o);
+  SAM_PROBE(10, 3);
+  // the weights' group has landed (the K/V groups after it may not have)
+  const int early = (a.bufs > 0 && !late[0]) + (a.bufs > 1 && !late[1]);
+  if (early == 0) sam::cp_async_wait<0>();
+  else if (early == 1) sam::cp_async_wait<1>();
+  else sam::cp_async_wait<2>();
+  mbar_wait(&bar[0], 0);
+  mbar_wait(&bar[1], 0);
+  __syncthreads();
+  SAM_PROBE(10, 4);
+
+  {  // QKV: P warps per 16-row tile split K; the parts meet in warp order
+    const int mt = rq / 16, parts = max(1, kShardWarps / mt), chunks = row_x / 64;
+    const int per = (chunks + parts - 1) / parts, part = warp % parts;
+    for (int m = warp / parts; m < mt; m += kShardWarps / parts) {
+      float acc[NT][4] = {};
+      mma_chunks<T, NT>(acc, wqs + 16 * m * row_x, row_x, xsm, xs, min(chunks, part * per),
+                        min(chunks, (part + 1) * per));
+      store_tile<NT>(red + (m * parts + part) * 128 * NT, 0, acc);
+    }
+    __syncthreads();
+    for (int p = 0; p < a.bufs; ++p)  // Wqkv is read: its space takes a K/V buffer
+      if (late[p]) issue(p);
+    for (int i = tid; i < mt * 128 * NT; i += kShardThreads) {
+      const int m = i / (128 * NT), f = i % (128 * NT);
+      float s = 0.f;
+      for (int k = 0; k < parts; ++k) s += red[(m * parts + k) * 128 * NT + f];
+      const int ln = (f >> 2) & 31, e = f & 3, col = frag_col(ln, f >> 7, e);
+      const int v = 16 * m + frag_row(ln, e);
+      stage[col * rq + v] = sam::round_to<T>(sam::round_to<T>(s) + sam::to_f(bias[v]));
+    }
+  }
+  __syncthreads();
+  SAM_PROBE(10, 5);
+  // each row's rq values to its owner's q/k/v, 16 bytes a store
+  for (int i = tid; i < rows * (rq / 4); i += kShardThreads) {
+    const int r = i / (rq / 4), piece = i % (rq / 4);
+    float* at = qkv + (r / S) * 3 * width + rank * rq + 4 * piece;
+    *reinterpret_cast<float4*>(cluster.map_shared_rank(at, r % S)) =
+        *reinterpret_cast<const float4*>(stage + r * rq + 4 * piece);
+  }
+  cluster.sync();  // every row's q/k/v is at its owner
+  SAM_PROBE(10, 6);
+
+  for (int p = halves ? half : 0; p < pairs; p += halves ? 2 : 1) {
+    const int r = rank + S * (p / a.hc), j = p % a.hc, b = b0 + r;
+    const int qv = min(max(a.seg_lens[3 * b + 0], 0), a.q_len);
+    const int ov = min(max(a.seg_lens[3 * b + 1], 0), a.n_obj);
+    const int cv = min(max(a.seg_lens[3 * b + 2], 0), n_ocr);
+    const int n = qv + ov + cv + t + 1;
+    T* ks = kv[p % a.bufs];
+    T* vs = ks + static_cast<size_t>(kv_rows) * hd;
+    const float* mine = qkv + (p / a.hc) * 3 * width + j * hd;  // q; k at +width, v at +2 width
+    const size_t col = static_cast<size_t>(hb * a.hc + j) * hd;
+    for (int d = team.tid; d < hd; d += team.threads) {  // row t: buffers and k_dec/v_dec
+      const T k = sam::from_f<T>(mine[width + d]), v = sam::from_f<T>(mine[2 * width + d]);
+      ks[static_cast<size_t>(n - 1) * hd + d] = k;
+      vs[static_cast<size_t>(n - 1) * hd + d] = v;
+      a.k_dec[(static_cast<size_t>(b) * a.t_max + t) * a.w + col + d] = k;
+      a.v_dec[(static_cast<size_t>(b) * a.t_max + t) * a.w + col + d] = v;
+      qs[d] = mine[d];
+    }
+    // pair p's group: with halves a thread's only open group (the other
+    // half's are empty for it); else p + 1's may still be in flight
+    if (a.bufs == 2 && !halves) sam::cp_async_wait<1>();
+    else sam::cp_async_wait<0>();
+    team.sync();
+    attend<T>(team, ks, vs, qs, sc, red2, ctx, n, hd, a.scale);
+    // the context into every CTA's context rows, 16 bytes a store
+    for (int i = team.tid; i < S * (row_kv / 16); i += team.threads) {
+      const int dst = i % S, piece = i / S;
+      unsigned char* at = csm + r * os + j * row_kv + piece * 16;
+      *reinterpret_cast<uint4*>(cluster.map_shared_rank(at, dst)) =
+          *reinterpret_cast<const uint4*>(reinterpret_cast<const unsigned char*>(ctx) +
+                                          piece * 16);
+    }
+    team.sync();  // the buffer and ctx are free again
+    issue(p + a.bufs);
+  }
+  __syncthreads();
+  SAM_PROBE(10, 7);
+  cluster.sync();  // every CTA holds the group's context
+  SAM_PROBE(10, 8);
+
+  float* tiles = a.partial + static_cast<size_t>(blockIdx.y * S + rank) * blocks * n2 * 8 * NT;
+  {  // out-projection: rows 16 m.. of this CTA's n2, over the head block's columns
+    const int chunks = row_o / 64;
+    for (int m = warp; m < n2 / 16; m += kShardWarps) {
+      float acc[NT][4] = {};
+      mma_chunks<T, NT>(acc, wos + 16 * m * os, os, csm, os, 0, chunks);
+      store_tile<NT>(tiles + static_cast<size_t>(hb) * n2 * 8 * NT, m, acc);
+    }
+  }
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  SAM_PROBE(10, 9);
+  fixup<T, NT>(tiles, n2 / 16, blocks, a.counters + blockIdx.y * S + rank, last, a.out, a.D,
+               rank * n2, b0, rows);
+  SAM_PROBE(10, 10);
+}
+
+// ---- host planning of the shard entries
+
+// A launch's shape: cluster size S, hc heads per cluster (attention), the
+// batch rows per group and their groups, n8 tiles, K/V buffers, shared memory.
+struct ShardPlan {
+  int S, hc, groups, group, nt, bufs, clusters;  // clusters per group
+  ShardSmem sm;
+  size_t partial_bytes;
+  bool ok;
+};
+
+inline int align16(int bytes) { return (bytes + 15) / 16 * 16; }
+
+template <typename T>
+ShardSmem ffn_smem(int D, int S, int nt) {
+  const int xs = slice_stride(D * sizeof(T)), hs = slice_stride(16 * S * sizeof(T));
+  ShardSmem m{};
+  m.w_a = kShardHeader;
+  m.w_b = m.w_a + 16 * D * static_cast<int>(sizeof(T));
+  m.x = m.w_b + D / S * hs;
+  m.act = m.x + 8 * nt * xs;
+  m.red = m.act + 8 * nt * hs;
+  m.mine = m.red + kShardWarps * 128 * nt * 4;
+  m.bias = align16(m.mine + 8 * nt * 16 * sizeof(T));
+  m.total = m.bias + 16 * 16;
+  m.own = m.stage = m.att = m.kv = m.total;
+  return m;
+}
+
+// K/V buffer modes, tried in order until shared memory holds them: 0, two
+// buffers of their own; 1, one of its own and one over Wqkv's tiles; 2,
+// one over Wqkv's tiles.
+constexpr int kKvModes = 3;
+
+template <typename T>
+ShardSmem attention_smem(int D, int hd, int hc, int S, int le, int t_max, int nt, int mode,
+                         int* bufs = nullptr) {
+  const int width = hc * hd, rq = 3 * width / S, mt = rq / 16;
+  const int xs = slice_stride(D * sizeof(T)), os = slice_stride(width * sizeof(T));
+  const int kv_rows = le + t_max;
+  const int buf = 2 * kv_rows * hd * sizeof(T);  // one (row, head)'s K and V
+  const int over = mode > 0;  // a buffer over Wqkv's tiles
+  const int own = 2 - mode;   // buffers of their own
+  ShardSmem m{};
+  m.w_a = kShardHeader;
+  const int wq_bytes = rq * D * static_cast<int>(sizeof(T));
+  m.w_b = m.w_a + (over ? std::max(wq_bytes, buf) : wq_bytes);
+  m.x = m.w_b + D / S * os;
+  m.act = m.x + 8 * nt * xs;
+  m.own = m.act + 8 * nt * os;
+  m.stage = m.own + ((8 * nt + S - 1) / S) * 3 * width * 4;
+  m.red = m.stage + 8 * nt * rq * 4;
+  m.att = m.red + std::max(kShardWarps, mt) * 128 * nt * 4;
+  m.mine = align16(m.att + 2 * (hd + kv_rows + kShardWarps * hd) * 4);  // two teams
+  m.bias = align16(m.mine + 2 * hd * sizeof(T));
+  const int end = align16(m.bias + rq * sizeof(T));
+  m.kv = mode == 2 ? m.w_a : end;
+  m.kv2 = mode == 0 ? end + buf : m.w_a;
+  m.total = end + own * buf;
+  if (bufs != nullptr) *bufs = mode < 2 ? 2 : 1;
+  return m;
+}
+
+// Clusters of S CTAs of ``kernel`` that fit on the device at once (one
+// query per kernel, cluster size and shared memory; 0 where the query fails).
+template <typename Kernel>
+int cluster_capacity(Kernel* kernel, int S, size_t smem) {
+  static std::mutex mutex;
+  static std::map<std::tuple<const void*, int, size_t, int>, int> known;
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return 0;
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), S, smem, device);
+  std::lock_guard<std::mutex> lock(mutex);
+  const auto it = known.find(key);
+  if (it != known.end()) return it->second;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(S);
+  config.blockDim = dim3(kShardThreads);
+  config.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kMaxSmem)) != cudaSuccess ||
+      (S > 8 && cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                     1) != cudaSuccess) ||
+      cudaOccupancyMaxActiveClusters(&n, kernel, &config) != cudaSuccess) {
+    cudaGetLastError();
+    n = 0;
+  }
+  return known[key] = n;
+}
+
+// Groups of batch rows: as many as keep every cluster of the launch on the
+// card at once (at most ``capacity`` clusters, ``per`` per group), at least
+// as many as hold B rows in groups of 8 nt_max, at most B.
+inline void plan_groups(ShardPlan& p, int B, int per, int capacity, int nt_max) {
+  const int fill = std::max(1, capacity / per);
+  p.groups = std::max((B + 8 * nt_max - 1) / (8 * nt_max), std::min(B, fill));
+  p.group = (B + p.groups - 1) / p.groups;
+  p.groups = (B + p.group - 1) / p.group;
+  p.nt = (p.group + 7) / 8;
+}
+
+template <typename T>
+int ffn_capacity(int nt, int S, int smem) {
+  switch (nt) {
+    case 1: return cluster_capacity(shard_ffn_kernel<T, 1>, S, smem);
+    case 2: return cluster_capacity(shard_ffn_kernel<T, 2>, S, smem);
+    case 3: return cluster_capacity(shard_ffn_kernel<T, 3>, S, smem);
+    default: return cluster_capacity(shard_ffn_kernel<T, 4>, S, smem);
+  }
+}
+
+// The FFN part's plan: the largest cluster (up to 16, a non-portable size,
+// where a group's clusters all fit on the card at once) that divides the
+// FF1 tiles and FF2's output tiles and gives FF2 whole 64-byte chunks.
+// Larger clusters mean fewer partial tiles for the last CTA to sum.
+template <typename T>
+ShardPlan ffn_plan(int B, int D, int w) {
+  ShardPlan p{};
+  if (B < 1 || D % kRows || w % kRows) return p;
+  for (int S = 16; S >= 1; --S) {
+    if ((w / 16) % S || (D / 16) % S || (16 * S * sizeof(T)) % 64) continue;
+    int nt_max = 4;
+    while (nt_max > 0 && ffn_smem<T>(D, S, nt_max).total > static_cast<int>(kMaxSmem)) --nt_max;
+    if (nt_max == 0) continue;
+    const int clusters = w / 16 / S;
+    const int capacity = ffn_capacity<T>(nt_max, S, ffn_smem<T>(D, S, nt_max).total);
+    if (S > 8 && capacity < clusters) continue;  // a group in one wave, or a portable size
+    p.S = S;
+    p.hc = 1;
+    p.clusters = clusters;
+    plan_groups(p, B, clusters, capacity > 0 ? capacity : kTargetCtas / S, nt_max);
+    p.bufs = 1;
+    p.sm = ffn_smem<T>(D, S, p.nt);
+    p.partial_bytes = sizeof(float) * static_cast<size_t>(p.groups) * clusters * D * 8 * p.nt;
+    p.ok = true;
+    return p;
+  }
+  return p;
+}
+
+// the first K/V buffer mode whose shared memory fits, or -1
+template <typename T>
+int attention_fit(int D, int hd, int hc, int S, int le, int t_max, int nt) {
+  for (int mode = 0; mode < kKvModes; ++mode)
+    if (attention_smem<T>(D, hd, hc, S, le, t_max, nt, mode).total <= static_cast<int>(kMaxSmem))
+      return mode;
+  return -1;
+}
+
+template <typename T>
+int attention_capacity(int nt, int S, int smem) {
+  switch (nt) {
+    case 1: return cluster_capacity(shard_attention_kernel<T, 1>, S, smem);
+    case 2: return cluster_capacity(shard_attention_kernel<T, 2>, S, smem);
+    case 3: return cluster_capacity(shard_attention_kernel<T, 3>, S, smem);
+    default: return cluster_capacity(shard_attention_kernel<T, 4>, S, smem);
+  }
+}
+
+// The attention part's plan: hc heads per cluster (the fewest that give
+// the tiles whole rows and 64-byte chunks), then of the cluster sizes that
+// fit, the one whose CTAs each take in the fewest bytes (Wqkv and Wout
+// slices, the group's x, the K/V of the rows it owns: the rate at which an
+// SM takes bytes in bounds this part), then the most CTAs on the card.
+template <typename T>
+ShardPlan attention_plan(int B, int D, int w, int hd, int le, int t_max) {
+  ShardPlan best{};
+  if (B < 1 || D % kRows || w % kRows || hd < 1 || w % hd || le < 1 || t_max < 1) return best;
+  const int chunk = 16 / static_cast<int>(sizeof(T));  // a K/V row is whole 16-byte chunks
+  if (hd % chunk || hd * static_cast<int>(sizeof(T)) > 512) return best;
+  int hc = 1;
+  while (hc <= 8 && !((3 * hd * hc) % 16 == 0 && (hd * hc * sizeof(T)) % 64 == 0 &&
+                      (w / hd) % hc == 0))
+    hc *= 2;
+  if (hc > 8) return best;
+  const size_t esize = sizeof(T), width = static_cast<size_t>(hc) * hd;
+  size_t best_bytes = 0;
+  int best_ctas = 0;
+  for (int S = 8; S >= 1; --S) {
+    if ((3 * hd * hc / 16) % S || (D / 16) % S) continue;
+    int nt_max = 4;
+    while (nt_max > 0 && attention_fit<T>(D, hd, hc, S, le, t_max, nt_max) < 0) --nt_max;
+    if (nt_max == 0) continue;
+    ShardPlan p{};
+    p.S = S;
+    p.hc = hc;
+    p.clusters = w / hd / hc;
+    const int smem =
+        attention_smem<T>(D, hd, hc, S, le, t_max, nt_max,
+                          attention_fit<T>(D, hd, hc, S, le, t_max, nt_max)).total;
+    int capacity = attention_capacity<T>(nt_max, S, smem);
+    if (capacity <= 0) capacity = kTargetCtas / S;
+    plan_groups(p, B, p.clusters, capacity, nt_max);
+    p.sm = attention_smem<T>(D, hd, hc, S, le, t_max, p.nt,
+                             attention_fit<T>(D, hd, hc, S, le, t_max, p.nt), &p.bufs);
+    p.partial_bytes = sizeof(float) * static_cast<size_t>(p.groups) * p.clusters * D * 8 * p.nt;
+    p.ok = true;
+    const size_t bytes = esize * (3 * width * D / S + D / S * width + p.group * D +
+                                  (p.group + S - 1) / S * hc * 2 * (le + t_max) * hd);
+    const int ctas = std::min(p.groups, std::max(1, capacity / p.clusters)) * p.clusters * S;
+    if (!best.ok || bytes < best_bytes || (bytes == best_bytes && ctas > best_ctas))
+      best = p, best_bytes = bytes, best_ctas = ctas;
+  }
+  return best;
+}
+
+// A part's plan (part 0 attention, 1 FFN; hd, le and t_max matter to the
+// attention part only), made once per shape and device: a call's host
+// work is then a lookup.
+template <typename T>
+ShardPlan shard_plan(int part, int B, int D, int w, int hd, int le, int t_max) {
+  static std::mutex mutex;
+  static std::map<std::tuple<int, int, int, int, int, int, int, int>, ShardPlan> known;
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return ShardPlan{};
+  const auto key = std::make_tuple(part, B, D, w, hd, le, t_max, device);
+  std::lock_guard<std::mutex> lock(mutex);
+  const auto it = known.find(key);
+  if (it != known.end()) return it->second;
+  return known[key] = part == 0 ? attention_plan<T>(B, D, w, hd, le, t_max) : ffn_plan<T>(B, D, w);
+}
+
+// Launch one shard kernel: clusters of S along x, groups along y, allowed
+// to start while the kernel before it still runs (it waits before reading
+// that kernel's outputs).
+// Clusters above the portable 8 CTAs allowed for one kernel, per device
+// (a function attribute, set on the current device), as SmemLimit keeps
+// its shared-memory limit: one per launch site and instantiation.
+class ClusterLimit {
+ public:
+  template <typename Kernel>
+  cudaError_t allow(Kernel* kernel) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    if (device < 0 || device >= sam::kMaxDevices) return cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> lock(mutex_);
+    if (allowed_[device]) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    allowed_[device] = err == cudaSuccess;
+    return err;
+  }
+
+ private:
+  std::mutex mutex_;
+  bool allowed_[sam::kMaxDevices] = {};
+};
+
+template <typename Kernel, typename Args>
+cudaError_t launch_shard(Kernel* kernel, sam::SmemLimit& limit, ClusterLimit& cluster,
+                         const Args& args, const ShardPlan& p, cudaStream_t stream) {
+  cudaError_t err = limit.raise(kernel, p.sm.total);
+  if (err == cudaSuccess && p.S > 8) err = cluster.allow(kernel);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(p.clusters * p.S, p.groups);
+  config.blockDim = dim3(kShardThreads);
+  config.dynamicSmemBytes = p.sm.total;
+  config.stream = stream;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = p.S;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[1].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attrs;
+  config.numAttrs = 2;
+  err = cudaLaunchKernelEx(&config, kernel, args);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T, int NT>
+cudaError_t launch_ffn(const FfnArgs<T>& args, const ShardPlan& p, cudaStream_t stream) {
+  static sam::SmemLimit limit;
+  static ClusterLimit cluster;
+  return launch_shard(shard_ffn_kernel<T, NT>, limit, cluster, args, p, stream);
+}
+
+template <typename T, int NT>
+cudaError_t launch_attention(const AttnArgs<T>& args, const ShardPlan& p, cudaStream_t stream) {
+  static sam::SmemLimit limit;
+  static ClusterLimit cluster;
+  return launch_shard(shard_attention_kernel<T, NT>, limit, cluster, args, p, stream);
+}
+
+// Workspace bytes of a shard part (part 0 attention, 1 FFN) and, in
+// *counters, the arrival counters it needs; 0 where the widths do not fit.
+template <typename T>
+size_t shard_workspace(int part, int B, int D, int w, int hd, int le, int t_max, int* counters) {
+  const ShardPlan p = shard_plan<T>(part, B, D, w, hd, le, t_max);
+  if (counters != nullptr) *counters = p.ok ? p.groups * p.S : 0;
+  return p.ok ? align256(p.partial_bytes) : 0;
 }
 
 // One layer of one shard's attention part. Weights and caches are the
@@ -611,68 +1555,68 @@ Product<T> plain_product(const T* x, const T* w, const T* bias, T* out, int B, i
 template <typename T>
 int shard_attention(const int* t, const int* seg_lens, const T* x, const T* wqkv, const T* bqkv,
                     const T* wout, const T* k_enc, const T* v_enc, T* k_dec, T* v_dec, T* out,
-                    void* workspace, int layer, int B, int D, int w, int le, int t_max, int hd,
-                    int q_len, int n_obj, cudaStream_t stream) {
-  int splits[2];
-  if (!shard_plan<T>(B, D, 3 * w, w, splits) || w % hd) return cudaErrorInvalidValue;
+                    void* workspace, int* counters, int layer, int B, int D, int w, int le,
+                    int t_max, int hd, int q_len, int n_obj, cudaStream_t stream) {
+  const ShardPlan p = shard_plan<T>(0, B, D, w, hd, le, t_max);
+  if (!p.ok) return cudaErrorInvalidValue;
   const size_t l = layer, bw = static_cast<size_t>(B) * w;
-  T* qkv = static_cast<T*>(workspace);  // B x 3w
-  T* ctx = qkv + 3 * bw;                // B x w
-  cudaError_t err = product<T, kBias>(
-      plain_product(x, wqkv + l * 3 * w * D, bqkv + l * 3 * w, qkv, B, 3 * w, D, splits[0]),
-      stream);
-  if (err != cudaSuccess) return err;
-  const size_t enc_layer = bw * le, dec_layer = bw * t_max;
-  err = sam::launch_decode_attention<T>(
-      qkv, 3 * w, qkv + w, 3 * w, k_enc + l * enc_layer, v_enc + l * enc_layer,
-      k_dec + l * dec_layer, v_dec + l * dec_layer, ctx, seg_lens, t, B, w / hd, hd, le, t_max,
-      q_len, n_obj, 1.f / sqrtf(static_cast<float>(hd)), stream, /*dependent=*/true);
-  if (err != cudaSuccess) return err;
-  return product<T, kPartial>(plain_product(ctx, wout + l * D * w, static_cast<const T*>(nullptr),
-                                            out, B, D, w, splits[1]),
-                              stream);
+  const AttnArgs<T> args{t, seg_lens, x, wqkv + l * 3 * w * D, bqkv + l * 3 * w,
+                         wout + l * D * w, k_enc + l * bw * le, v_enc + l * bw * le,
+                         k_dec + l * bw * t_max, v_dec + l * bw * t_max, out,
+                         static_cast<float*>(workspace), counters, B, D, w, hd, p.hc, le, t_max,
+                         q_len, n_obj, p.S, p.group, p.bufs,
+                         1.f / sqrtf(static_cast<float>(hd)), p.sm};
+  switch (p.nt) {
+    case 1: return launch_attention<T, 1>(args, p, stream);
+    case 2: return launch_attention<T, 2>(args, p, stream);
+    case 3: return launch_attention<T, 3>(args, p, stream);
+    default: return launch_attention<T, 4>(args, p, stream);
+  }
 }
 
 // One layer of one shard's FFN part: wff1 (L, w, D), bff1 (L, w), wff2
 // (L, D, w); x (B, D) normalised (LN1 of the layer); out (B, D) partial.
 template <typename T>
 int shard_ffn(const T* x, const T* wff1, const T* bff1, const T* wff2, T* out, void* workspace,
-              int layer, int B, int D, int w, cudaStream_t stream) {
-  int splits[2];
-  if (!shard_plan<T>(B, D, w, w, splits)) return cudaErrorInvalidValue;
+              int* counters, int layer, int B, int D, int w, cudaStream_t stream) {
+  const ShardPlan p = shard_plan<T>(1, B, D, w, 0, 0, 0);
+  if (!p.ok) return cudaErrorInvalidValue;
   const size_t l = layer;
-  T* inter = static_cast<T*>(workspace);  // B x w
-  const cudaError_t err = product<T, kBiasGelu>(
-      plain_product(x, wff1 + l * w * D, bff1 + l * w, inter, B, w, D, splits[0]), stream);
-  if (err != cudaSuccess) return err;
-  return product<T, kPartial>(plain_product(static_cast<const T*>(inter), wff2 + l * D * w,
-                                            static_cast<const T*>(nullptr), out, B, D, w,
-                                            splits[1]),
-                              stream);
+  const FfnArgs<T> args{x, wff1 + l * w * D, bff1 + l * w, wff2 + l * D * w, out,
+                        static_cast<float*>(workspace), counters, B, D, w, p.S, p.group, p.sm};
+  switch (p.nt) {
+    case 1: return launch_ffn<T, 1>(args, p, stream);
+    case 2: return launch_ffn<T, 2>(args, p, stream);
+    case 3: return launch_ffn<T, 3>(args, p, stream);
+    default: return launch_ffn<T, 4>(args, p, stream);
+  }
 }
 
 }  // namespace
 
 // Bytes of device workspace one shard part needs (part 0 attention, 1 FFN;
-// w = D/tp or F/tp); 0 where the kernels do not take these widths.
-SAM_EXPORT size_t sam_decode_shard_workspace(int dtype, int part, int B, int D, int w) {
-  return dtype == 0 ? shard_workspace<float>(part, B, D, w)
-                    : shard_workspace<__nv_bfloat16>(part, B, D, w);
+// w = D/tp or F/tp; hd, le and t_max are read by the attention part) and,
+// in *counters, how many zeroed arrival counters it reads; 0 where the
+// kernels do not take these widths.
+SAM_EXPORT size_t sam_decode_shard_workspace(int dtype, int part, int B, int D, int w, int hd,
+                                             int le, int t_max, int* counters) {
+  return dtype == 0 ? shard_workspace<float>(part, B, D, w, hd, le, t_max, counters)
+                    : shard_workspace<__nv_bfloat16>(part, B, D, w, hd, le, t_max, counters);
 }
 
 SAM_EXPORT int sam_decode_shard_attention(int dtype, const int* t, const int* seg_lens,
                                           const void* x, const void* wqkv, const void* bqkv,
                                           const void* wout, const void* k_enc,
                                           const void* v_enc, void* k_dec, void* v_dec,
-                                          void* out, void* workspace, int layer, int B, int D,
-                                          int w, int le, int t_max, int hd, int q_len,
-                                          int n_obj, cudaStream_t stream) {
+                                          void* out, void* workspace, int* counters, int layer,
+                                          int B, int D, int w, int le, int t_max, int hd,
+                                          int q_len, int n_obj, cudaStream_t stream) {
 #define SAM_PART(T)                                                                          \
   shard_attention<T>(t, seg_lens, static_cast<const T*>(x), static_cast<const T*>(wqkv),     \
                      static_cast<const T*>(bqkv), static_cast<const T*>(wout),               \
                      static_cast<const T*>(k_enc), static_cast<const T*>(v_enc),             \
                      static_cast<T*>(k_dec), static_cast<T*>(v_dec), static_cast<T*>(out),   \
-                     workspace, layer, B, D, w, le, t_max, hd, q_len, n_obj, stream)
+                     workspace, counters, layer, B, D, w, le, t_max, hd, q_len, n_obj, stream)
   if (dtype == 0) return SAM_PART(float);
   return SAM_PART(__nv_bfloat16);
 #undef SAM_PART
@@ -680,12 +1624,12 @@ SAM_EXPORT int sam_decode_shard_attention(int dtype, const int* t, const int* se
 
 SAM_EXPORT int sam_decode_shard_ffn(int dtype, const void* x, const void* wff1,
                                     const void* bff1, const void* wff2, void* out,
-                                    void* workspace, int layer, int B, int D, int w,
-                                    cudaStream_t stream) {
+                                    void* workspace, int* counters, int layer, int B, int D,
+                                    int w, cudaStream_t stream) {
 #define SAM_PART(T)                                                                          \
   shard_ffn<T>(static_cast<const T*>(x), static_cast<const T*>(wff1),                        \
                static_cast<const T*>(bff1), static_cast<const T*>(wff2), static_cast<T*>(out), \
-               workspace, layer, B, D, w, stream)
+               workspace, counters, layer, B, D, w, stream)
   if (dtype == 0) return SAM_PART(float);
   return SAM_PART(__nv_bfloat16);
 #undef SAM_PART

@@ -18,12 +18,15 @@ calls: its scratch is one workspace tensor per call.
 A tensor-parallel shard cannot run the whole step from one entry (two
 products of every layer are summed across the shards), so the same file
 has two per-layer shard entries (:func:`decode_shard_attention`,
-:func:`decode_shard_ffn`): one shard's QKV, decode attention and partial
-out-projection, and its FF1 with GeLU and partial FF2, on inputs already
-normalised by the caller, which sums the partials and applies the
-replicated biases, residuals and LayerNorms
+:func:`decode_shard_ffn`), one launch each: one shard's QKV, decode
+attention and partial out-projection, and its FF1 with GeLU and partial
+FF2, on inputs already normalised by the caller, which sums the partials
+and applies the replicated biases, residuals and LayerNorms
 (``models/fast_decode.py:_decode_one_row_fused``). Each is an operator of
-its own, with its plain version and launch count.
+its own, with its plain version and launch count. Their kernels sum
+partial tiles across thread-block clusters through arrival counters that
+are zero between calls: one int32 buffer per device, kept here
+(:func:`_shard_counters`) and reset by the kernels themselves.
 
 Differences from the JAX call: the decoder K/V buffers are updated IN PLACE
 (row t of every layer) instead of returned anew, and the weight stacks keep
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -62,11 +66,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sam_decode_step_workspace.restype = ctypes.c_size_t
     lib.sam_decode_step_workspace.argtypes = [i, i, i, i]
     lib.sam_decode_shard_workspace.restype = ctypes.c_size_t
-    lib.sam_decode_shard_workspace.argtypes = [i] * 5
+    lib.sam_decode_shard_workspace.argtypes = [i] * 8 + [ctypes.POINTER(i)]
     lib.sam_decode_shard_attention.restype = i
-    lib.sam_decode_shard_attention.argtypes = [i] + [p] * 12 + [i] * 9 + [p]
+    lib.sam_decode_shard_attention.argtypes = [i] + [p] * 13 + [i] * 9 + [p]
     lib.sam_decode_shard_ffn.restype = i
-    lib.sam_decode_shard_ffn.argtypes = [i] + [p] * 6 + [i] * 4 + [p]
+    lib.sam_decode_shard_ffn.argtypes = [i] + [p] * 7 + [i] * 4 + [p]
 
 
 def _weight_shapes(n_layers, d, f):
@@ -294,15 +298,48 @@ def _check_layer(layer: int, n_layers: int) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _shard_workspace(part: int, b: int, d: int, w: int, dtype) -> int:
-    """Workspace bytes of a shard part on the card, once per (part, B, D,
-    w, dtype); raises for widths the kernels do not take."""
+def _shard_workspace(part: int, b: int, d: int, w: int, hd: int, le: int, t_max: int,
+                     dtype, dev: torch.device) -> tuple:
+    """(workspace bytes, arrival counters) of a shard part on ``dev`` (the
+    current device: the plan reads how many clusters fit there), once per
+    config (part 0 attention, 1 FFN; hd, le and t_max matter to the
+    attention part only); raises for widths the kernels do not take."""
     lib = cuda_build.library("decode_step", _declare)
-    nbytes = lib.sam_decode_shard_workspace(cuda_build.dtype_code(dtype), part, b, d, w)
+    counters = ctypes.c_int(0)
+    nbytes = lib.sam_decode_shard_workspace(cuda_build.dtype_code(dtype), part, b, d, w, hd, le,
+                                            t_max, ctypes.byref(counters))
     if nbytes == 0:
         raise ValueError(f"the decode step's shard entries take D and a shard width that are "
-                         f"multiples of 64 and fit its shared memory, not D={d}, w={w}")
-    return nbytes
+                         f"multiples of 64 and fit its shared memory, not D={d}, w={w}"
+                         + (f", head dim {hd}" if part == 0 else ""))
+    return nbytes, counters.value
+
+
+_counters_lock = threading.Lock()
+#: per device: the arrival counters the shard kernels read (zero between
+#: calls), and the smaller buffers they replaced, which a captured CUDA
+#: graph may still read
+_COUNTERS: dict = {}
+_RETIRED: list = []
+
+
+def _shard_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 arrival counters on ``dev``, shared by
+    every shard call there (calls on one device run one after another on a
+    stream; each kernel leaves the counters it used at zero). Made on the
+    first call that needs more: not while a CUDA graph is being captured,
+    where the zeroing would only be recorded."""
+    with _counters_lock:
+        buf = _COUNTERS.get(dev)
+        if buf is None or buf.numel() < n:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the decode step's shard entries need their arrival counters "
+                                   "made before a CUDA graph captures them: call the entry once "
+                                   "eagerly at this batch size first")
+            if buf is not None:
+                _RETIRED.append(buf)
+            buf = _COUNTERS[dev] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        return buf
 
 
 def decode_shard_attention(t, seg_lens, x, wqkv, bqkv, wout, k_enc, v_enc, k_dec, v_dec, *,
@@ -363,16 +400,17 @@ def _decode_shard_attention_cuda(t, seg_lens, x, wqkv, bqkv, wout, k_enc, v_enc,
     d, t_max = x.shape[1], k_dec.shape[2]
     dev, dt = x.device, x.dtype
     check_kernel_head_dim(hd, dt)
-    nbytes = _shard_workspace(0, b, d, w, dt)
     _require_args(SHARD_ATTENTION_ARGS, args, dev)
     lib = cuda_build.library("decode_step", _declare)
     out = torch.empty_like(x)
-    workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     p = cuda_build.ptr
     with cuda_build.on_device(dev):
+        nbytes, n_counters = _shard_workspace(0, b, d, w, hd, le, t_max, dt, dev)
+        workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        counters = _shard_counters(dev, n_counters)
         rc = lib.sam_decode_shard_attention(
             cuda_build.dtype_code(dt), *(p(a) for a in args), p(out), p(workspace),
-            layer, b, d, w, le, t_max, hd, q_len, n_obj, cuda_build.stream(dev))
+            p(counters), layer, b, d, w, le, t_max, hd, q_len, n_obj, cuda_build.stream(dev))
     cuda_build.check(lib, rc, "decode_shard_attention")
     cuda_build.count_launch("decode_shard_attention", dt)
     return out
@@ -429,15 +467,17 @@ def _decode_shard_ffn_cuda(x, wff1, bff1, wff2, layer):
     b, d = x.shape
     w = wff1.shape[1]
     dev, dt = x.device, x.dtype
-    nbytes = _shard_workspace(1, b, d, w, dt)
     _require_args(SHARD_FFN_ARGS, args, dev)
     lib = cuda_build.library("decode_step", _declare)
     out = torch.empty_like(x)
-    workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     p = cuda_build.ptr
     with cuda_build.on_device(dev):
+        nbytes, n_counters = _shard_workspace(1, b, d, w, 0, 0, 0, dt, dev)
+        workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        counters = _shard_counters(dev, n_counters)
         rc = lib.sam_decode_shard_ffn(cuda_build.dtype_code(dt), *(p(a) for a in args), p(out),
-                                      p(workspace), layer, b, d, w, cuda_build.stream(dev))
+                                      p(workspace), p(counters), layer, b, d, w,
+                                      cuda_build.stream(dev))
     cuda_build.check(lib, rc, "decode_shard_ffn")
     cuda_build.count_launch("decode_shard_ffn", dt)
     return out

@@ -232,43 +232,57 @@ def test_greedy_backends_agree_on_card(dev):
         assert (s_k - s_p).abs().max().item() < 1e-4, backend
 
 
-# (layers, D, F, Le, T, q_len, n_obj): the decode step's shapes, cut into tp 2
-# shards (w = D/2 wide, FFN F/2)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,b", [(_STEP_SMALL, 5)] + [(_STEP_C3, b) for b in (1, 8, 32)])
-def test_shard_entries_match_plain(dev, dtype, shape, b):
-    """Both shard entries of the first and the last layer against their
-    plain versions, at the decode step's bars (the partials are products of
-    unit scale); the attention part's K/V row writes as in that test."""
-    rng = np.random.RandomState(2)
+def _shard_inputs(rng, shape, b, tp, hd, dtype, dev):
+    """Inputs of both shard entries at the decode step's ``shape`` cut into
+    tp shards (w = D/tp wide in heads of ``hd``, FFN F/tp): weights whose
+    products over k inputs are of unit scale."""
     n_layers, d, f, le, t_max, q_len, n_obj = shape
-    w, wf, hd, step = d // 2, f // 2, 64, t_max - 1
-    k_enc, v_enc, k_dec, v_dec, seg = _decode_inputs(rng, b, w, le, t_max, q_len, n_obj, dtype,
-                                                     dev, layers=n_layers)
+    w, wf = d // tp, f // tp
+    caches = _decode_inputs(rng, b, w, le, t_max, q_len, n_obj, dtype, dev, layers=n_layers)
 
-    def weight(*shape, k):  # products over k inputs of unit scale
+    def weight(*shape, k):
         return torch.from_numpy((0.8 / np.sqrt(k) * rng.randn(n_layers, *shape))
                                 .astype(np.float32)).to(dev, dtype)
 
-    wqkv, bqkv, wout = weight(3 * w, d, k=d), weight(3 * w, k=d), weight(d, w, k=w)
-    wff1, bff1, wff2 = weight(wf, d, k=d), weight(wf, k=d), weight(d, wf, k=wf)
+    att = (weight(3 * w, d, k=d), weight(3 * w, k=d), weight(d, w, k=w))
+    ffn = (weight(wf, d, k=d), weight(wf, k=d), weight(d, wf, k=wf))
     x = torch.from_numpy(rng.randn(b, d).astype(np.float32)).to(dev, dtype)
-    t = torch.tensor([step], dtype=torch.int32, device=dev)
-    kw = dict(hd=hd, q_len=q_len, n_obj=n_obj)
+    t = torch.tensor([t_max - 1], dtype=torch.int32, device=dev)
+    return x, t, att, ffn, caches, dict(hd=hd, q_len=q_len, n_obj=n_obj)
+
+
+# (layers, D, F, Le, T, q_len, n_obj) cut into tp shards: the small shape at
+# tp 2; c3 at tp 2 (attention 384 wide, FFN 1536) at the serving buckets 1,
+# 8, 32, at uneven 3 and 33 (a second group of rows) and at the evaluator's
+# 96; c3 at tp 4 (192, FFN 768); c3's heads of 32 (an implicit layer's)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,b,tp,hd", [(_STEP_SMALL, 5, 2, 64)] + [
+    (_STEP_C3, b, 2, 64) for b in (1, 3, 8, 32, 33, 96)] + [
+    (_STEP_C3, b, 4, 64) for b in (3, 33, 96)] + [(_STEP_C3, b, 2, 32) for b in (3, 32)])
+def test_shard_entries_match_plain(dev, dtype, shape, b, tp, hd):
+    """Both shard entries of the first and the last layer against their
+    plain versions, at the decode step's bars (the partials are products of
+    unit scale); the attention part's K/V row writes as in that test, every
+    other row untouched; one launch of each per call."""
+    rng = np.random.RandomState(2)
+    n_layers, t_max = shape[0], shape[4]
+    x, t, att, ffn, (k_enc, v_enc, k_dec, v_dec, seg), kw = _shard_inputs(
+        rng, shape, b, tp, hd, dtype, dev)
+    step = t_max - 1
     row_tol = 1e-5 if dtype == torch.float32 else 2e-2
     for layer in (0, n_layers - 1):
         kd2, vd2 = k_dec.clone(), v_dec.clone()
         before = cuda_build.launch_counts()
-        out = decode_shard_attention(t, seg, x, wqkv, bqkv, wout, k_enc, v_enc, k_dec, v_dec,
-                                     layer=layer, **kw)
-        out_f = decode_shard_ffn(x, wff1, bff1, wff2, layer=layer)
+        out = decode_shard_attention(t, seg, x, *att, k_enc, v_enc, k_dec, v_dec, layer=layer,
+                                     **kw)
+        out_f = decode_shard_ffn(x, *ffn, layer=layer)
         torch.cuda.synchronize()
         after = cuda_build.launch_counts()
         assert [after[k] - before[k] for k in ("decode_shard_attention", "decode_shard_ffn",
                                                "decode_step")] == [1, 1, 0]
-        refs = (decode_shard_attention_plain(t, seg, x, wqkv, bqkv, wout, k_enc, v_enc, kd2,
-                                             vd2, layer=layer, **kw),
-                decode_shard_ffn_plain(x, wff1, bff1, wff2, layer=layer))
+        refs = (decode_shard_attention_plain(t, seg, x, *att, k_enc, v_enc, kd2, vd2,
+                                             layer=layer, **kw),
+                decode_shard_ffn_plain(x, *ffn, layer=layer))
         for mine, ref in zip((out, out_f), refs):
             diff = (mine.float() - ref.float()).abs()
             if dtype == torch.float32:
@@ -281,6 +295,50 @@ def test_shard_entries_match_plain(dev, dtype, shape, b):
             assert err.item() < row_tol, err.item()
             rows = [r for r in range(t_max) if r != step]
             assert torch.equal(mine[:, :, rows], plain[:, :, rows])
+            others = [i for i in range(n_layers) if i != layer]
+            assert torch.equal(mine[others], plain[others])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shard_entries_one_launch_and_same_bits(dev, dtype):
+    """At c3 tp 2, B = 32: the profiler sees one kernel per entry call, and
+    two calls back to back and the replays of a CUDA graph of one call give
+    the same bits (outputs and K/V rows): the cross-cluster sums run in a
+    fixed order and leave their arrival counters at zero."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(4)
+    x, t, att, ffn, (k_enc, v_enc, k_dec, v_dec, seg), kw = _shard_inputs(
+        rng, _STEP_C3, 32, 2, 64, dtype, dev)
+    layer = 1
+
+    def attention():
+        return decode_shard_attention(t, seg, x, *att, k_enc, v_enc, k_dec, v_dec, layer=layer,
+                                      **kw)
+
+    def ffn_call():
+        return decode_shard_ffn(x, *ffn, layer=layer)
+
+    for call in (attention, ffn_call):
+        first = call()  # also makes the arrival counters, before any capture
+        torch.cuda.synchronize()
+        rows = (k_dec[layer].clone(), v_dec[layer].clone())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "shard" in kernels[0], kernels
+        assert torch.equal(again, first)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = call()
+        for _ in range(3):
+            captured.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(captured, first)
+        assert torch.equal(k_dec[layer], rows[0]) and torch.equal(v_dec[layer], rows[1])
 
 
 def test_tp2_mega_equals_one_device_on_card(dev):
