@@ -278,15 +278,17 @@ def run_demo(engine: ServingEngine, samples, n: int, concurrency: int,
     wall = time.monotonic() - t0
     stats = engine.stats.summary()
     stats.update(demo_requests=n, concurrency=concurrency, rate=rate, wall_s=wall,
-                 samples_per_s=n / wall, errors=errors)
+                 samples_per_s=n / wall, errors=errors, spans=engine.spans.summary())
     return stats
 
 
 def stats_response(engine: ServingEngine, req_id=None) -> dict:
     """The TCP ``{"stats": true}`` answer: the engine's summary, the ladder
-    and bucket plans of live traffic, and its CUDA graphs."""
+    and bucket plans of live traffic, its CUDA graphs, and its spans and
+    counters (``engine.spans``: count, p50 and p95 ms per span)."""
     return {"id": req_id, **engine.stats.summary(), "ladder_plan": engine.ladder_plan(),
-            "bucket_plan": engine.bucket_plan(), "graphs": engine.graph_counts()}
+            "bucket_plan": engine.bucket_plan(), "graphs": engine.graph_counts(),
+            "spans": engine.spans.summary()}
 
 
 def load_request(req: dict) -> dict:

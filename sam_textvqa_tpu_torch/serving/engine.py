@@ -67,6 +67,22 @@ package ``serving/engine.py``).
   tensor-parallel groups serve beams (a group decodes eagerly, as its
   greedy decode does).
 
+* **Spans.** ``engine.spans`` (``utils/profiling.py:Spans``) times each
+  stage where it happens, on ``time.perf_counter``: ``serve.submit``
+  (validate, cast, enqueue; per request), ``serve.wait_requests`` (each
+  ``queue.get`` for a batch's first request), ``serve.coalesce`` (first pop
+  to the group's close), ``serve.queue`` (per request: enqueue to its
+  group's close), ``serve.slot_wait`` (a pinned staging slot's last copy),
+  ``serve.stack`` (width routing and stacking), ``serve.launch`` (input
+  copies, replay, ids copy; never a profiler range, as it encloses device
+  work), ``serve.handoff`` (to the consumer, which blocks while
+  ``PIPELINE_DEPTH`` batches are in flight), ``serve.ids_wait`` (until the
+  ids are on the host) and ``serve.answer`` (``decode_predictions``, stats,
+  results). Its counters: ``batches`` and ``requests`` launched,
+  ``slow_copies`` (launches whose input copies took over 1 ms of host
+  time) and ``stall_ms`` (how late the batcher's timed ``queue.get`` calls
+  returned past their timeout, summed over those over 1 ms late).
+
 The reference has no serving layer (offline batch eval only, reference
 evaluator.py:52-63); :func:`build_sample` mirrors its dataset-time
 featurization (reference textvqa_dataset.py:285-334,
@@ -83,6 +99,7 @@ import time
 from collections import Counter, deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
+from itertools import count
 from queue import Empty, Full, Queue
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -100,6 +117,7 @@ from ..models.tensor_parallel import TPSAM4C
 from ..ops import cuda_build
 from ..parallel.mesh import make_mesh
 from ..utils.device import resolve_device
+from ..utils.profiling import Spans
 from .ladder import normalize_ladder, plan_axis, plan_buckets
 
 logger = logging.getLogger(__name__)
@@ -117,6 +135,9 @@ MAX_QUEUE = 4096
 #: decoded batches whose ids are not yet fetched to the host; also the
 #: number of pinned staging buffers on the card
 PIPELINE_DEPTH = 2
+#: host seconds past which a launch's input copies, or a timed queue.get's
+#: return past its timeout, count as slow (``slow_copies``, ``stall_ms``)
+SLOW_S = 1e-3
 
 
 def build_sample(task_cfg, question_indices: np.ndarray, question_mask: np.ndarray,
@@ -305,12 +326,14 @@ class _Routing(NamedTuple):
 
 
 class _Pending(Future):
-    """A request future carrying its sample and submit time."""
+    """A request future carrying its sample, submit time and sequence
+    number."""
 
-    def __init__(self, sample: Dict):
+    def __init__(self, sample: Dict, seq: Optional[int] = None):
         super().__init__()
-        self.sample = sample
+        self.sample, self.seq = sample, seq
         self.t_submit = time.monotonic()
+        self.t_queued = time.perf_counter()  # its queue wait starts here
         #: set when a batch it rode failed and it was queued again for an
         #: isolated retry: a second failure is then its own
         self.solo = False
@@ -400,6 +423,8 @@ class ServingEngine:
         self.special = answer_vocab.special_ids()
         self.max_wait_s = max_wait_ms / 1000.0
         self.stats = ServingStats()
+        self.spans = Spans(counters=("batches", "requests", "slow_copies", "stall_ms"))
+        self._seq = count()  # request sequence numbers
         self._queue: "Queue[_Pending]" = Queue(maxsize=MAX_QUEUE)
         self._results: "Queue" = Queue(maxsize=PIPELINE_DEPTH)
         self._stop = threading.Event()
@@ -608,12 +633,14 @@ class ServingEngine:
             self._warm(cell, bucket, obj_w, ocr_w, self._prepare(self._zero_sample()))
         first = cell.graphs[0][bucket].pred_ids
         ids = torch.empty((bucket, *first.shape[1:]), dtype=first.dtype, pin_memory=True)
-        staged, done = [], []
+        staged, done, copy_s = [], [], 0.0
         for r, (replica, graphs, block) in enumerate(zip(self._replicas, cell.graphs, blocks)):
             g = graphs[bucket]
             with torch.cuda.stream(replica.replay_stream):
+                t0 = time.perf_counter()
                 for k, v in block.items():
                     g.inputs[k].copy_(v, non_blocking=True)
+                copy_s += time.perf_counter() - t0
                 staged.append(torch.cuda.Event())
                 staged[-1].record()
                 g.graph.replay()
@@ -624,13 +651,20 @@ class ServingEngine:
             g.replays[0] += 1
             cuda_build.add_launches(g.launches)
         self._staged[slot] = staged
+        if copy_s > SLOW_S:
+            self.spans.add("slow_copies")
         return ids, done[0] if len(done) == 1 else _Done(tuple(done))
 
     def _launch_eager(self, cell: _Cell, bucket: int, blocks: List[Dict]):
         """Decode each replica's block eagerly (the CPU; tensor-parallel
         groups and early-exit engines on the card)."""
-        outs = [self._decode(m, {k: v.to(r.device) for k, v in block.items()}, r.consts)
-                for m, r, block in zip(cell.models, self._replicas, blocks)]
+        t0 = time.perf_counter()
+        inputs = [{k: v.to(r.device) for k, v in block.items()}
+                  for r, block in zip(self._replicas, blocks)]
+        if time.perf_counter() - t0 > SLOW_S:
+            self.spans.add("slow_copies")
+        outs = [self._decode(m, x, r.consts)
+                for m, r, x in zip(cell.models, self._replicas, inputs)]
         if self.device.type != "cuda":
             return torch.cat(outs), None
         ids = torch.empty((bucket, *outs[0].shape[1:]), dtype=outs[0].dtype, pin_memory=True)
@@ -851,12 +885,14 @@ class ServingEngine:
         ``ocr_tokens`` string list (see :func:`build_sample`)."""
         if self._stop.is_set():
             raise RuntimeError("engine is closed")
-        fut = _Pending(self._prepare(sample))
-        self.start()
-        with self.stats.lock:
-            if self.stats.started is None:
-                self.stats.started = fut.t_submit
-        self._queue.put(fut)
+        seq = next(self._seq)
+        with self.spans("serve.submit", batch=seq):
+            fut = _Pending(self._prepare(sample), seq)
+            self.start()
+            with self.stats.lock:
+                if self.stats.started is None:
+                    self.stats.started = fut.t_submit
+            self._queue.put(fut)
         return fut
 
     def submit_many(self, samples: Sequence[Dict]) -> List[Future]:
@@ -918,46 +954,65 @@ class ServingEngine:
             event.synchronize()
         return slot
 
+    def _timed_get(self, timeout: float) -> Optional[_Pending]:
+        """``queue.get(timeout=...)``, or None once it times out; a return
+        over ``SLOW_S`` past the timeout adds its lateness to ``stall_ms``."""
+        t0 = time.perf_counter()
+        try:
+            return self._queue.get(timeout=timeout)
+        except Empty:
+            return None
+        finally:
+            late = time.perf_counter() - t0 - timeout
+            if late > SLOW_S:
+                self.spans.add("stall_ms", late * 1e3)
+
     def _batch_loop(self):
         max_bucket = self.buckets[-1]
         carry = None  # a solo retry popped while coalescing: batched next
         with torch.no_grad():  # grad mode is per thread
-            while True:
-                if carry is not None:
-                    # already popped: batch it even if stop was requested
-                    first, carry = carry, None
-                elif self._stop.is_set():
+            for seq in count():  # batch sequence numbers
+                # a carried request is already popped: batch it even if stop
+                # was requested
+                first, carry = carry, None
+                while first is None and not self._stop.is_set():
+                    with self.spans("serve.wait_requests", batch=seq):
+                        first = self._timed_get(0.05)
+                if first is None:
                     break
-                else:
-                    try:
-                        first = self._queue.get(timeout=0.05)
-                    except Empty:
-                        continue
-                group = [first]
-                deadline = time.monotonic() + self.max_wait_s
-                # a solo retry never shares a batch: a solo first coalesces
-                # nothing, and a solo popped while coalescing rides next
-                while not first.solo and len(group) < max_bucket:
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0 and self._queue.empty():
-                        break
-                    try:
-                        nxt = self._queue.get(timeout=max(remaining, 0))
-                    except Empty:
-                        break
-                    if nxt.solo:
-                        carry = nxt
-                        break
-                    group.append(nxt)
+                with self.spans("serve.coalesce", batch=seq) as coalesce:
+                    group = [first]
+                    deadline = time.monotonic() + self.max_wait_s
+                    # a solo retry never shares a batch: a solo first coalesces
+                    # nothing, and a solo popped while coalescing rides next
+                    while not first.solo and len(group) < max_bucket:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0 and self._queue.empty():
+                            break
+                        nxt = self._timed_get(max(remaining, 0))
+                        if nxt is None:
+                            break
+                        if nxt.solo:
+                            carry = nxt
+                            break
+                        group.append(nxt)
+                for g in group:
+                    self.spans.record("serve.queue", g.t_queued, coalesce.t1, g.seq)
                 with self.stats.lock:
                     self._inflight += len(group)
                 try:
                     bucket = self._pick_bucket(len(group))
                     samples = [g.sample for g in group]
-                    cell, obj_w, ocr_w = self._route_widths(samples)
-                    slot = self._next_slot()
-                    host = self._stack(samples, bucket, obj_w, ocr_w, slot)
-                    pred_ids, done = self._launch(cell, bucket, obj_w, ocr_w, host, slot)
+                    with self.spans("serve.slot_wait", batch=seq):
+                        slot = self._next_slot()
+                    with self.spans("serve.stack", batch=seq):
+                        cell, obj_w, ocr_w = self._route_widths(samples)
+                        host = self._stack(samples, bucket, obj_w, ocr_w, slot)
+                    # device work inside: timed in memory only, never a profiler range
+                    with self.spans("serve.launch", batch=seq, profiled=False):
+                        pred_ids, done = self._launch(cell, bucket, obj_w, ocr_w, host, slot)
+                    self.spans.add("batches")
+                    self.spans.add("requests", len(group))
                     with self.stats.lock:
                         s = self.stats
                         s.batches += 1
@@ -969,7 +1024,8 @@ class ServingEngine:
                         if obj_w is not None:
                             s.obj_width_occupancy[obj_w] = s.obj_width_occupancy.get(obj_w, 0) + 1
                         n_batches = s.batches
-                    self._results.put((group, pred_ids, done, time.monotonic()))
+                    with self.spans("serve.handoff", batch=seq):
+                        self._results.put((group, pred_ids, done, time.monotonic(), seq))
                     if self._auto_tune_every:
                         self._maybe_autotune(n_batches)
                 except Exception as e:  # a bad batch: isolate or fail, serving goes on
@@ -979,42 +1035,48 @@ class ServingEngine:
                     with self.stats.lock:
                         self._inflight -= len(group)
 
+    def _answer(self, group: List[_Pending], ids: np.ndarray, t_dispatch: float):
+        """Turn a batch's ids into answers, count it and resolve its
+        futures."""
+        decoded = decode_predictions(
+            ids[: len(group)], [g.sample["ocr_tokens"] for g in group],
+            self.answer_vocab.word_list, self.special.eos,
+        )
+        now = time.monotonic()
+        bucket = int(ids.shape[0])
+        with self.stats.lock:
+            self.stats.requests += len(group)
+            svc = (now - t_dispatch) * 1000.0
+            self.stats.service_ms.append(svc)
+            self.stats.service_ms_by_bucket.setdefault(
+                bucket, deque(maxlen=1024)).append(svc)
+            per_bucket = self.stats.latencies_ms_by_bucket.setdefault(
+                bucket, deque(maxlen=4096))
+            for g in group:
+                ms = (now - g.t_submit) * 1000.0
+                self.stats.latencies_ms.append(ms)
+                per_bucket.append(ms)
+        for g, d in zip(group, decoded):
+            g.set_result({
+                "answer": d["pred_answer"],
+                "belongs_to": d["belongs_to"],
+                "latency_ms": (now - g.t_submit) * 1000.0,
+            })
+
     def _consume_loop(self):
         # stop only once the batcher can produce nothing more and all is consumed
         while not (self._stop.is_set() and not self._batcher.is_alive()
                    and self._results.empty()):
             try:
-                group, pred_ids, done, t_dispatch = self._results.get(timeout=0.05)
+                group, pred_ids, done, t_dispatch, seq = self._results.get(timeout=0.05)
             except Empty:
                 continue
             try:
-                if done is not None:
-                    done.synchronize()
-                ids = pred_ids.numpy()
-                decoded = decode_predictions(
-                    ids[: len(group)], [g.sample["ocr_tokens"] for g in group],
-                    self.answer_vocab.word_list, self.special.eos,
-                )
-                now = time.monotonic()
-                bucket = int(ids.shape[0])
-                with self.stats.lock:
-                    self.stats.requests += len(group)
-                    svc = (now - t_dispatch) * 1000.0
-                    self.stats.service_ms.append(svc)
-                    self.stats.service_ms_by_bucket.setdefault(
-                        bucket, deque(maxlen=1024)).append(svc)
-                    per_bucket = self.stats.latencies_ms_by_bucket.setdefault(
-                        bucket, deque(maxlen=4096))
-                    for g in group:
-                        ms = (now - g.t_submit) * 1000.0
-                        self.stats.latencies_ms.append(ms)
-                        per_bucket.append(ms)
-                for g, d in zip(group, decoded):
-                    g.set_result({
-                        "answer": d["pred_answer"],
-                        "belongs_to": d["belongs_to"],
-                        "latency_ms": (now - g.t_submit) * 1000.0,
-                    })
+                with self.spans("serve.ids_wait", batch=seq):
+                    if done is not None:
+                        done.synchronize()
+                with self.spans("serve.answer", batch=seq):
+                    self._answer(group, pred_ids.numpy(), t_dispatch)
             except Exception as e:
                 logger.exception("answer decode failed for a batch of %d", len(group))
                 self._resolve_group(group, e)

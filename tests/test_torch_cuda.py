@@ -15,6 +15,7 @@ and a mean below 1e-4, which only a near-f32 P.V holds.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -788,6 +789,39 @@ def test_graph_back_to_back_batches_keep_their_answers(dev):
     ref = [d["pred_answer"] for w, b in zip(want[:2], batches[:2]) for d in decode_predictions(
         w.numpy(), [s["ocr_tokens"] for s in b], words, engine.special.eos)]
     assert got == ref
+
+
+def test_graph_engine_spans_stay_off_the_device_rows(dev, tmp_path):
+    """Served through graphs under ``utils.profiling.trace``: the engine's
+    ranges lie on the host rows of every thread and on no device row (no
+    ``serve.*`` range encloses a launch; ``serve.launch`` is timed in memory
+    only); each batch stage counts once per batch."""
+    import json
+
+    from sam_textvqa_tpu_torch.utils.profiling import trace
+
+    task, engine = _graph_engine(dev, max_wait_ms=20.0)
+    engine.warmup()
+    samples = _narrow_requests(engine, task, 8, seed=4)
+    with engine:
+        with trace(str(tmp_path)):
+            assert all(f.result(timeout=60) for f in engine.submit_many(samples))
+            time.sleep(0.15)
+    (path,) = tmp_path.glob("trace_*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    by_cat = {}
+    for e in events:
+        if str(e.get("name", "")).startswith("serve."):
+            by_cat.setdefault(e.get("cat"), set()).add(e["name"])
+    host = set().union(*(v for k, v in by_cat.items() if k != "gpu_user_annotation"))
+    assert {"serve.submit", "serve.wait_requests", "serve.coalesce", "serve.slot_wait",
+            "serve.stack", "serve.handoff", "serve.ids_wait", "serve.answer"} <= host, by_cat
+    assert "gpu_user_annotation" not in by_cat and "serve.launch" not in host, by_cat
+    snap = engine.spans.snapshot()
+    batches = snap["counters"]["batches"]
+    assert batches == engine.stats.batches >= 2
+    for name in ("serve.slot_wait", "serve.stack", "serve.launch", "serve.answer"):
+        assert snap["spans"][name]["count"] == batches, name
 
 
 def test_graph_replays_count_their_launches(dev):
