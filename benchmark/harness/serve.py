@@ -1,16 +1,20 @@
-"""Serving cells: requests sent at a fixed rate to the program's
-``ServingEngine``, timed on the client's clock, then the answers of a
-sample of the window's requests held against the plain reference.
+"""Serving cells: requests sent to the program's ``ServingEngine`` by an
+open loop at a fixed rate or by a closed loop of waiting clients, timed on
+the client's clock, then the answers of a sample of the window's requests
+held against the plain reference.
 
 The traffic file gives the engine's settings (buckets, coalescing window,
-backend, beams), the arrival rate, the pool of raw requests (sizes drawn
-from the seed) and the check's sample size. The rate lies below the knee
-that ``benchmark/sweep.py`` finds, so the sender keeps to its schedule and
-the queue stays short: the requests answered in the window per second are
-the end-to-end metric, and fall when the engine no longer keeps up; the
-tail of the latency from when each request was due is a per-layer reading. Every request of the pool is
-featurized in set-up by the program's ``build_sample``; the reference
-featurizes the sampled ones again from the raw request.
+backend, beams), the arrivals (``rate_per_s``: an open loop; ``clients``: a
+closed loop), the pool of raw requests (sizes drawn from the seed) and the
+check's sample size. An open loop's rate lies below the knee that
+``benchmark/sweep.py`` finds, so the sender keeps to its schedule and the
+queue stays short: the requests answered in the window per second are the
+end-to-end metric, and fall when the engine no longer keeps up; the tail of
+the latency from when each request was due is a per-layer reading. A closed
+loop keeps every client's request outstanding, so the answers that arrive
+in the window per second are the rate the engine sustains. Every request of
+the pool is featurized in set-up by the program's ``build_sample``; the
+reference featurizes the sampled ones again from the raw request.
 """
 
 from __future__ import annotations
@@ -151,6 +155,70 @@ class OpenLoop:
             return self.outstanding
 
 
+class ClosedLoop:
+    """``clients`` threads, each a client as ``serve.py``'s ``LineServer``
+    runs one per connection: take the next pool request in the seeded order
+    (a shared counter), submit it, wait for its answer, record it, repeat.
+    So ``clients`` requests are outstanding all the time. Each answer is
+    recorded with the time it was sent and the time it came, on the
+    client's clock; ``inflight`` holds, by send number, the (pool index,
+    send time) of each request not yet answered."""
+
+    def __init__(self, engine, samples: List[Dict], clients: int, order: np.ndarray):
+        self.engine, self.samples, self.clients, self.order = engine, samples, clients, order
+        self.records: List[tuple] = []  # (pool index, sent, answered, result | exception)
+        self.inflight: Dict[int, tuple] = {}
+        self.lock = threading.Lock()
+        self.stop = threading.Event()
+        self._sent = 0
+        self._threads: List[threading.Thread] = []
+
+    def _client(self) -> None:
+        while not self.stop.is_set():
+            with self.lock:
+                k = self._sent
+                self._sent += 1
+                idx = int(self.order[k % len(self.order)])
+                self.inflight[k] = (idx, time.perf_counter())
+            try:
+                result = self.engine.submit(self.samples[idx]).result()
+            except Exception as e:  # noqa: BLE001 - a refused or failed request counts as failed
+                result = e
+            t = time.perf_counter()
+            with self.lock:
+                _, sent = self.inflight.pop(k)
+                self.records.append((idx, sent, t, result))
+
+    def start(self) -> "ClosedLoop":
+        self._threads = [threading.Thread(target=self._client, daemon=True,
+                                          name=f"bench-client-{i}") for i in range(self.clients)]
+        for t in self._threads:
+            t.start()
+        return self
+
+    def drain(self, timeout: float = 60.0) -> None:
+        self.finish(timeout)
+
+    def finish(self, timeout: float = 60.0) -> int:
+        """Stop sending and wait, up to ``timeout``, for every client's last
+        answer; returns the requests still unanswered."""
+        self.stop.set()
+        deadline = time.perf_counter() + timeout
+        for t in self._threads:
+            t.join(max(deadline - time.perf_counter(), 0.0))
+        with self.lock:
+            return len(self.inflight)
+
+
+def arrivals(engine, samples: List[Dict], traffic: dict, order: np.ndarray):
+    """The traffic's sender, not yet started: a closed loop of
+    ``arrivals.clients`` clients, or an open loop at ``arrivals.rate_per_s``."""
+    a = traffic["arrivals"]
+    if "clients" in a:
+        return ClosedLoop(engine, samples, int(a["clients"]), order)
+    return OpenLoop(engine, samples, a["rate_per_s"], order)
+
+
 # ------------------------------------------------------------------ checks
 
 def served_tokens(result: dict, index: Dict[str, int], tokens: List[str], n_answers: int,
@@ -252,18 +320,23 @@ def beam_gaps(params, cfg: RefConfig, feats, served, bos: int, eos: int, k: int,
 
 # ------------------------------------------------------------------ the cell
 
-def _stats(engine) -> Dict:
+def _stats(engine, spans: bool = False) -> Dict:
+    """The engine's counters now; with ``spans``, a snapshot of its spans
+    too."""
     s = engine.stats
     with s.lock:
-        return {"requests": s.requests, "batches": s.batches, "service_ms": list(s.service_ms),
-                "cap": s.service_ms.maxlen}
+        out = {"requests": s.requests, "batches": s.batches, "service_ms": list(s.service_ms),
+               "cap": s.service_ms.maxlen}
+    if spans:
+        out["spans"] = engine.spans.snapshot()
+    return out
 
 
 def _delta(a: Dict, b: Dict) -> Dict:
     n_new = len(b["service_ms"]) - len(a["service_ms"])
     if len(b["service_ms"]) == b["cap"]:  # the deque is full: count from the batches
         n_new = b["batches"] - a["batches"]
-    return {"requests": b["requests"] - a["requests"],
+    return {"requests": b["requests"] - a["requests"], "batches": b["batches"] - a["batches"],
             "service_ms": b["service_ms"][len(b["service_ms"]) - n_new:] if n_new > 0 else []}
 
 
@@ -316,7 +389,8 @@ def run(ctx) -> Dict:
     e = traffic["engine"]
     engine, raws, samples, words = build(ctx)
     order = np.random.RandomState(sub_seed(ctx.seed, "order")).permutation(len(samples))
-    loop = OpenLoop(engine, samples, traffic["arrivals"]["rate_per_s"], order).start()
+    loop = arrivals(engine, samples, traffic, order).start()
+    closed = isinstance(loop, ClosedLoop)
     time.sleep(traffic["warmup_s"])
 
     # ---- the window; with --trace, its last part is the profiled slice
@@ -326,9 +400,9 @@ def run(ctx) -> Dict:
     slice_s = min(traffic["trace_slice_s"], seconds / 2) if ctx.trace else 0.0
     t0 = time.perf_counter()
     ctx.setup_done(t0)
-    s0 = _stats(engine)
+    s0 = _stats(engine, ctx.trace)
     time.sleep(max(t0 + seconds - slice_s - time.perf_counter(), 0.0))
-    s1 = _stats(engine)
+    s1 = _stats(engine, ctx.trace)
     t1 = time.perf_counter()
     tracing = Slice(ctx.trace)
     if ctx.trace:
@@ -343,27 +417,38 @@ def run(ctx) -> Dict:
             loop.drain(timeout=60.0)
     else:
         t_end = t1
+    s_end = ss1 if ctx.trace else s1
     lost = loop.finish(timeout=60.0)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     engine.close()
 
     records = list(loop.records)
-    # every request due in the window, answered whenever it came (the check's
-    # sample); those answered before the window's end count for the rate
-    due = [r for r in records if t0 <= r[1] <= t_end]
+    if closed:
+        # every request sent in the window or in flight at its start, answered
+        # whenever it came (the check's sample); every answer that arrives in
+        # the window counts for the rate
+        due = [r for r in records if r[1] <= t_end and r[2] >= t0]
+    else:
+        # every request due in the window, answered whenever it came (the
+        # check's sample); those answered before the window's end count for the rate
+        due = [r for r in records if t0 <= r[1] <= t_end]
     answered = [r for r in due if not isinstance(r[3], BaseException)]
     failed = (len(due) - len(answered)) + lost
-    in_time = sum(1 for r in answered if r[2] <= t_end)
+    in_time = sum(1 for r in answered if t0 <= r[2] <= t_end)
     lat = [(r[2] - r[1]) * 1e3 for r in answered]
-    note_window(np.bincount([int(r[2] - t0) for r in answered]).tolist(),
-                sends_late_ms_p50_max=[round(float(np.percentile(loop.late, 50)) * 1e3, 3),
-                                       round(max(loop.late) * 1e3, 3)],
-                p95_ms=round(float(np.percentile(lat, 95)), 3) if lat else None)
+    whole = _delta(s0, s_end)
+    note = {"rows_per_batch": round(whole["requests"] / max(whole["batches"], 1), 3),
+            "p95_ms": round(float(np.percentile(lat, 95)), 3) if lat else None}
+    if not closed:
+        note["sends_late_ms_p50_max"] = [round(float(np.percentile(loop.late, 50)) * 1e3, 3),
+                                         round(max(loop.late) * 1e3, 3)]
+    note_window(np.bincount([int(r[2] - t0) for r in answered if r[2] >= t0]).tolist(), **note)
+    rate_name = "serve_capacity_per_s" if closed else "serve_samples_per_s"
     out = {
         "attempted": len(due) + lost,
         "failed": failed,
         "peak": peak,
-        "e2e": {"serve_samples_per_s": in_time / (t_end - t0)},
+        "e2e": {rate_name: in_time / (t_end - t0)},
     }
     if ctx.trace:
         # the engine's readings from the window's untraced part, the kernels' from the slice
@@ -373,11 +458,14 @@ def run(ctx) -> Dict:
         out["readings"] = {
             "cfg": cfg, "beams": e.get("beam_size", 1),
             "window": {"seconds": t1 - t0, "latency_ms": [(r[2] - r[1]) * 1e3 for r in untraced],
+                       "answered": sum(1 for r in answered if t0 <= r[2] <= t1),
                        **_delta(s0, s1)},
             "slice": {"answered_seg": [seg_len(samples[r[0]]) for r in sliced],
                       "answered_batches": len(ds["service_ms"])},
             "trace": tracing.summary,
         }
+        from sam_textvqa_tpu_torch.utils.profiling import spans_delta
+        out["readings"]["spans"] = spans_delta(s0["spans"], s1["spans"])
     del engine, loop
     gc.collect()
     if dev.type == "cuda":

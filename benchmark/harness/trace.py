@@ -1,7 +1,8 @@
-"""A steady slice of the window under ``torch.profiler``, reduced to what the
-per-layer readers need: device time by kernel, the busy union of device
-operations, the slice's length, and the device's idle gaps named by the
-host operation that overlapped them most."""
+"""A steady slice of the window under ``torch.profiler``, on every thread of
+the process, reduced to what the per-layer readers need: device time by
+kernel, the busy union of device operations, the slice's length, and the
+device's idle gaps named by the host operation, of any thread, that
+overlapped them most (the program's own spans among them)."""
 
 from __future__ import annotations
 
@@ -27,10 +28,13 @@ class Slice:
         if not self.enabled:
             return self
         import torch
+        from torch._C._profiler import _ExperimentalConfig
         from torch.profiler import ProfilerActivity, profile, record_function
 
+        # by default the profiler records only the thread that starts it
         self.prof = self._stack.enter_context(
-            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                    experimental_config=_ExperimentalConfig(profile_all_threads=True)))
         self._stack.enter_context(record_function("bench.slice"))
         self._torch = torch
         self._t0 = time.perf_counter()
@@ -68,8 +72,9 @@ def summarize(events, torch, seconds: float) -> Dict:
     ``bench.slice`` span (the span's recorded end is not reliable while other
     threads run operations): ``window_s``,
     ``busy_s`` (the union of device operations), ``kernels`` {name:
-    device seconds}, ``device_ops`` (top 10), ``idle_gaps`` (top 10 host
-    operations by the idle time they overlapped)."""
+    device seconds}, ``device_ops`` (top 10), ``idle_by_host`` {host
+    operation: the idle seconds of the gaps it overlapped most},
+    ``idle_gaps`` (its top 10)."""
     cuda = torch.autograd.DeviceType.CUDA
     marks = [e for e in events if e.name == "bench.slice" and e.device_type != cuda]
     if not marks:
@@ -115,6 +120,7 @@ def summarize(events, torch, seconds: float) -> Dict:
         "busy_s": sum(t - s for s, t in busy) / 1e6,
         "kernels": dict(kernels),
         "device_ops": [[n[:120], v] for n, v in top],
+        "idle_by_host": dict(by_host),
         "idle_gaps": [[n[:120], v] for n, v in sorted(by_host.items(), key=lambda kv: -kv[1])[:10]],
     }
 

@@ -14,7 +14,8 @@ SEEDS = (2**31 + 101, 2**31 + 102, 2**31 + 103)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", ["c3.serve.greedy", "c5.train.b96", "c3.serve.beam5"])
+@pytest.mark.parametrize("workload", ["c3.serve.greedy", "c5.train.b96", "c3.serve.beam5",
+                                      "c3.serve.capacity"])
 def test_program_within_and_control_outside_the_limits(workload):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

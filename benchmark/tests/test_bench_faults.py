@@ -16,6 +16,7 @@ from benchmark.harness.cell import run_cell
 from benchmark.tests.tiny import tiny_cell
 
 SEED = 2**31 + 7
+SERVING = ["c3.serve.greedy", "c3.serve.beam5", "c3.serve.capacity"]
 
 
 def _run(workload, seconds=1.0):
@@ -23,7 +24,8 @@ def _run(workload, seconds=1.0):
     return result, checks
 
 
-@pytest.mark.parametrize("workload", ["c3.serve.greedy", "c3.serve.beam5", "c5.train.b96"])
+@pytest.mark.parametrize("workload", ["c3.serve.greedy", "c3.serve.beam5", "c3.serve.capacity",
+                                      "c5.train.b96"])
 def test_sound_run_is_correct(workload):
     result, checks = _run(workload)
     assert result["correct"], checks
@@ -31,7 +33,7 @@ def test_sound_run_is_correct(workload):
     assert result["metrics"]["setup_s"]["value"] > 0
 
 
-@pytest.mark.parametrize("workload", ["c3.serve.greedy", "c3.serve.beam5"])
+@pytest.mark.parametrize("workload", SERVING)
 def test_an_answer_altered_where_it_is_produced_is_not_correct(workload, monkeypatch):
     from sam_textvqa_tpu_torch.serving import engine
 
@@ -47,7 +49,7 @@ def test_an_answer_altered_where_it_is_produced_is_not_correct(workload, monkeyp
     assert not result["correct"], checks
 
 
-@pytest.mark.parametrize("workload", ["c3.serve.greedy", "c3.serve.beam5"])
+@pytest.mark.parametrize("workload", SERVING)
 @pytest.mark.parametrize("fault", sorted(faults.AFFINE))
 def test_a_bias_or_layernorm_affine_left_out_is_not_correct(workload, fault, monkeypatch):
     faults.plant(fault, monkeypatch)

@@ -107,3 +107,56 @@ def test_decode_flops_counts_beams_on_the_steps_only():
     one, five = work.decode_flops(C3, 1), work.decode_flops(C3, 5)
     steps = (five - one) / 4
     assert 0 < steps < one and one - steps > 15e9
+
+
+READERS = sorted(p.stem for p in (common.BENCH / "metrics").glob("*.py"))
+
+
+def test_every_per_layer_metric_has_a_reader_and_every_reader_a_metric():
+    assert {m["name"] for m in WITH_PENDING["per_layer"]} == set(READERS)
+
+
+@pytest.mark.parametrize("name", READERS)
+@pytest.mark.parametrize("readings", [{}, {"spans": {"seconds": 1.0, "spans": {}, "counters": {}},
+                                           "trace": {"window_s": 2.0, "busy_s": 1.0,
+                                                     "idle_by_host": {}, "kernels": {}}}],
+                         ids=["empty", "nothing_recorded"])
+def test_reader_returns_none_with_nothing_to_read(name, readings):
+    assert common.load_reader(name)(readings) is None
+
+
+def _span(ms):
+    return {"count": len(ms), "total_s": sum(ms) / 1e3,
+            "recent": [(k, k + m / 1e3, k) for k, m in enumerate(ms)]}
+
+
+def test_engine_span_readers():
+    from sam_textvqa_tpu_torch.utils.profiling import spans_delta
+
+    before = {"at": 10.0, "spans": {"serve.stack": _span([9.0])},
+              "counters": {"stall_ms": 5.0, "batches": 1}}
+    after = {"at": 14.0, "spans": {"serve.stack": _span([9.0, 1.0, 3.0, 2.0]),
+                                   "serve.submit": _span([0.5, 1.5])},
+             "counters": {"stall_ms": 25.0, "batches": 4}}
+    r = {"spans": spans_delta(before, after),
+         "trace": {"window_s": 2.0, "busy_s": 0.5, "kernels": {},
+                   "idle_by_host": {"serve.stack": 0.9, "serve.coalesce": 0.3,
+                                    "serve.wait_requests": 0.1, "cudaGraphLaunch": 0.2}}}
+    read = {n: common.load_reader(n)(r) for n in READERS if n.startswith("serve.")}
+    # the spans entered since the first snapshot: 1, 3 and 2 ms
+    assert read["serve.stack_ms_p50"] == pytest.approx(2.0)
+    assert read["serve.submit_ms_p50"] == pytest.approx(1.0)
+    assert read["serve.queue_ms_p50"] is None
+    assert read["serve.stall_ms_per_s"] == pytest.approx(20.0 / 4.0)
+    assert read["serve.idle_starved_pct"] == pytest.approx(100 * 0.4 / 2.0)
+    # the two idle shares add up to the slice's idle share
+    assert read["serve.idle_host_pct"] + read["serve.idle_starved_pct"] == pytest.approx(75.0)
+
+
+def test_mfu_serve_capacity_counts_the_slice_over_its_busy_seconds():
+    r = {"cfg": C3, "slice": {"answered_seg": [150] * 1000, "answered_batches": 40},
+         "trace": {"window_s": 2.0, "busy_s": 0.5}}
+    got = common.load_reader("mfu.serve_capacity")(r)
+    assert got == pytest.approx(100 * 2000 * work.decode_flops(C3, 1) / work.PEAK_OPS["bf16"])
+    assert got == common.load_reader("mfu.serve")(r)
+    assert 0 < got < 100

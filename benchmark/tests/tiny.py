@@ -27,7 +27,8 @@ def tiny_cell(workload: str, dtype: str = "float32") -> dict:
     tr = cell["traffic"]
     if tr["kind"] == "serve":
         tr["engine"]["buckets"] = [1, 4]
-        tr["arrivals"]["rate_per_s"] = 400.0
+        if "rate_per_s" in tr["arrivals"]:
+            tr["arrivals"]["rate_per_s"] = 400.0
         tr["pool"].update(requests=24, question_max=8, obj_max=10, ocr_short_max=4, ocr_max=6)
         tr.update(warmup_s=0.2, trace_slice_s=0.5)
         tr["check"].update(requests=8, block=8, min_tokens=8)
