@@ -43,8 +43,17 @@ package ``serving/engine.py``).
   requests is queued again alone; a request whose solo retry fails again
   is failed by itself, so one poisonous request cannot fail the requests
   coalesced with it.
-* **Transfer diet.** Feature arrays are cast to the model's compute dtype
-  at ``submit``, on the caller's thread (``data/prefetch.py``).
+* **One record per request, one pass per batch.** ``submit`` checks a
+  request on the caller's thread, then packs its arrays into one contiguous
+  record in one native pass (``ops/batcher.py:RecordLayout``): the
+  float32 features of ``data/prefetch.py:FEATURE_TRANSFER_KEYS`` cast to a
+  bf16 model's dtype (round to nearest even, PyTorch's NaN bits), the other
+  arrays copied at their schema dtypes, and its masks' needed obj and OCR
+  widths read. The record is the request's own copy. The batcher routes on
+  those widths and stacks a batch in one native call that scatters its
+  records into the cell's pinned staging slot at the cell's widths. Both
+  passes release the interpreter lock, which the request's and the batch's
+  arrays then take and drop once each instead of once per array and row.
 * **Early exit** (``decode_backend="xla_early"``): the greedy decode
   stops once every row has emitted EOS, with the same answers. Its exit
   test reads the device from the host after every step, which a CUDA graph
@@ -69,7 +78,7 @@ package ``serving/engine.py``).
 
 * **Spans.** ``engine.spans`` (``utils/profiling.py:Spans``) times each
   stage where it happens, on ``time.perf_counter``: ``serve.submit``
-  (validate, cast, enqueue; per request), ``serve.wait_requests`` (each
+  (check, pack, enqueue; per request), ``serve.wait_requests`` (each
   ``queue.get`` for a batch's first request), ``serve.coalesce`` (first pop
   to the group's close), ``serve.queue`` (per request: enqueue to its
   group's close), ``serve.slot_wait`` (a pinned staging slot's last copy),
@@ -79,9 +88,11 @@ package ``serving/engine.py``).
   ``PIPELINE_DEPTH`` batches are in flight), ``serve.ids_wait`` (until the
   ids are on the host) and ``serve.answer`` (``decode_predictions``, stats,
   results). Its counters: ``batches`` and ``requests`` launched,
-  ``slow_copies`` (launches whose input copies took over 1 ms of host
-  time) and ``stall_ms`` (how late the batcher's timed ``queue.get`` calls
-  returned past their timeout, summed over those over 1 ms late).
+  ``stack_bytes`` (the bytes the launched batches' stack passes wrote:
+  over ``serve.stack``'s time, the pass's host bandwidth), ``slow_copies``
+  (launches whose input copies took over 1 ms of host time) and
+  ``stall_ms`` (how late the batcher's timed ``queue.get`` calls returned
+  past their timeout, summed over those over 1 ms late).
 
 The reference has no serving layer (offline batch eval only, reference
 evaluator.py:52-63); :func:`build_sample` mirrors its dataset-time
@@ -106,15 +117,16 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..data.prefetch import cast_features_for_transfer
+from ..data.prefetch import FEATURE_TRANSFER_KEYS
 from ..data.vocab import VocabDict
 from ..evaluation.metrics import decode_predictions
 from ..models.fast_decode import (KERNEL_STEP_BACKENDS, MASK_KEYS, _mega_step_consts,
-                                  beam_search_decode_fast, check_prefix_masks,
-                                  greedy_decode_fast, resolve_backend)
+                                  beam_search_decode_fast, greedy_decode_fast,
+                                  resolve_backend)
 from ..models.sa_m4c import with_widths
 from ..models.tensor_parallel import TPSAM4C
 from ..ops import cuda_build
+from ..ops.batcher import OBJ_ROWS, OCR_ROWS, PAIRS, WHOLE, Field, RecordLayout, Staged
 from ..parallel.mesh import make_mesh
 from ..utils.device import resolve_device
 from ..utils.profiling import Spans
@@ -138,6 +150,17 @@ PIPELINE_DEPTH = 2
 #: host seconds past which a launch's input copies, or a timed queue.get's
 #: return past its timeout, count as slow (``slow_copies``, ``stall_ms``)
 SLOW_S = 1e-3
+#: a prepared request's key for its packed record (``ops.batcher.Packed``)
+PACKED = "_packed"
+#: how each width-bound array is cut at a narrow (obj, OCR) cell
+#: (``evaluation/evaluator.py``'s ``shrink_obj_batch`` / ``shrink_ocr_batch``)
+CUTS = {
+    "pad_obj_features": OBJ_ROWS, "pad_obj_mask": OBJ_ROWS, "pad_obj_bboxes": OBJ_ROWS,
+    "pad_ocr_features": OCR_ROWS, "pad_ocr_mask": OCR_ROWS, "pad_ocr_bboxes": OCR_ROWS,
+    "ocr_fasttext": OCR_ROWS, "ocr_phoc": OCR_ROWS, "spatial_classes": PAIRS,
+}
+#: the positions of the obj and OCR masks in a packed request's ``needs``
+_OBJ_NEED, _OCR_NEED = MASK_KEYS.index("pad_obj_mask"), MASK_KEYS.index("pad_ocr_mask")
 
 
 def build_sample(task_cfg, question_indices: np.ndarray, question_mask: np.ndarray,
@@ -423,7 +446,8 @@ class ServingEngine:
         self.special = answer_vocab.special_ids()
         self.max_wait_s = max_wait_ms / 1000.0
         self.stats = ServingStats()
-        self.spans = Spans(counters=("batches", "requests", "slow_copies", "stall_ms"))
+        self.spans = Spans(counters=("batches", "requests", "stack_bytes", "slow_copies",
+                                     "stall_ms"))
         self._seq = count()  # request sequence numbers
         self._queue: "Queue[_Pending]" = Queue(maxsize=MAX_QUEUE)
         self._results: "Queue" = Queue(maxsize=PIPELINE_DEPTH)
@@ -431,6 +455,7 @@ class ServingEngine:
         self._inflight = 0  # popped but unanswered requests (under stats.lock)
         self._schema = {k: (v.shape, v.dtype) for k, v in self._zero_sample().items()
                         if k in SAMPLE_KEYS}
+        self._layout = self._record_layout(mmt)
         self._capture_lock = threading.Lock()
         self.capture_s = 0.0  # seconds spent capturing graphs (warmup and tuner)
         self.pool_bytes = 0   # rise of memory_reserved over all captures
@@ -439,6 +464,8 @@ class ServingEngine:
             #: per slot, the events after which each replica's copy is done
             self._staged: List[List[torch.cuda.Event]] = [[] for _ in range(PIPELINE_DEPTH)]
             self._slot = 0
+            #: (slot, bucket, obj width, OCR width) -> that cell's views of the slot
+            self._slot_cells: Dict[tuple, Staged] = {}
         obj_ladder = normalize_ladder(obj_buckets, mmt.max_obj_num, "obj")
         ocr_ladder = normalize_ladder(ocr_buckets, mmt.max_ocr_num, "ocr")
         self._routing = _Routing(obj_ladder, ocr_ladder, self._build_grid(obj_ladder, ocr_ladder))
@@ -499,20 +526,18 @@ class ServingEngine:
                     [with_widths(r.model, n_obj=ow, n_ocr=cw) for r in self._replicas])
         return grid
 
-    def _shrink(self, host_batch: Dict, obj_w, ocr_w) -> Dict:
-        """Slice a host batch down to an (obj, OCR) cell (None = full width
-        on that axis): OCR first, then obj, which takes an OCR-shrunk
-        spatial matrix (JAX ``_shrink``)."""
-        if (obj_w, ocr_w) == (None, None):
-            return host_batch
-        from ..evaluation.evaluator import shrink_obj_batch, shrink_ocr_batch
-
-        n_obj = self.model.params_cfg.mmt.max_obj_num
-        if ocr_w is not None:
-            host_batch = shrink_ocr_batch(host_batch, n_obj, ocr_w)
-        if obj_w is not None:
-            host_batch = shrink_obj_batch(host_batch, n_obj, obj_w)
-        return host_batch
+    def _record_layout(self, mmt) -> RecordLayout:
+        """The packed record of a request: the schema's arrays, the features
+        staged at a bf16 model's dtype (float32 otherwise)."""
+        dtype = self.model.dtype
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"the serving engine stages float32 or bfloat16, not {dtype}")
+        fields = []
+        for k, (shape, np_dtype) in self._schema.items():
+            staged = (dtype if k in FEATURE_TRANSFER_KEYS
+                      else torch.from_numpy(np.zeros(0, np_dtype)).dtype)
+            fields.append(Field(k, shape, np_dtype, staged, CUTS.get(k, WHOLE)))
+        return RecordLayout(fields, mmt.max_obj_num, mmt.max_ocr_num, MASK_KEYS)
 
     def _staging_view(self, slot: int, key: str, shape, dtype) -> torch.Tensor:
         """A contiguous ``shape`` view of pipeline slot ``slot``'s pinned
@@ -528,22 +553,26 @@ class ServingEngine:
 
     def _stack(self, samples: List[Dict], bucket: int, obj_w=None, ocr_w=None,
                slot: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """(bucket, ...) host batch at the (obj_w, ocr_w) cell; pad rows
-        replicate row 0. Each sample is shrunk as a batch of one, so the
-        rows land contiguous at the cell's widths, in pipeline slot
-        ``slot``'s pinned staging buffer when one is given."""
-        rows = [self._shrink({k: torch.as_tensor(s[k])[None] for k in SAMPLE_KEYS},
-                             obj_w, ocr_w) for s in samples]
-        rows += [rows[0]] * (bucket - len(rows))
-        out = {}
-        for k in SAMPLE_KEYS:
-            parts = [r[k] for r in rows]
-            if slot is None:
-                out[k] = torch.cat(parts)
-            else:
-                shape = (bucket, *parts[0].shape[1:])
-                out[k] = torch.cat(parts, out=self._staging_view(slot, k, shape, parts[0].dtype))
-        return out
+        """(bucket, ...) host batch of prepared requests at the (obj_w,
+        ocr_w) cell (None: full width on that axis); pad rows replicate row
+        0. One native pass writes the rows contiguous at the cell's widths,
+        into pipeline slot ``slot``'s pinned staging buffer when one is
+        given, else into new CPU tensors."""
+        layout = self._layout
+        ow = layout.n_obj if obj_w is None else obj_w
+        cw = layout.n_ocr if ocr_w is None else ocr_w
+        if slot is None:
+            staged = layout.staged(bucket, ow, cw)
+        else:
+            staged = self._slot_cells.get((slot, bucket, ow, cw))
+            if staged is None:
+                shapes = layout.shapes(bucket, ow, cw)
+                views = {f.key: self._staging_view(slot, f.key, shapes[f.key], f.staged)
+                         for f in layout.fields}
+                staged = self._slot_cells[(slot, bucket, ow, cw)] = layout.staged(
+                    bucket, ow, cw, views)
+        layout.stack([s[PACKED] for s in samples], staged)
+        return dict(staged.tensors)
 
     def _greedy_backend(self, bucket: int) -> str:
         """The greedy backend of a batch of ``bucket`` rows: under
@@ -562,7 +591,7 @@ class ServingEngine:
                                                    backend=self._fixed_backend)
             best = scores.argmax(1)[:, None, None].expand(-1, 1, seqs.shape[-1])
             return seqs.gather(1, best)[:, 0, 1:]  # the best beam, BOS dropped
-        # the masks were checked on the host in _validate: the decode never
+        # the masks were checked on the host in _prepare: the decode never
         # waits for the device
         _, pred_ids = greedy_decode_fast(model, batch, self.special.bos,
                                          backend=self._greedy_backend(
@@ -718,10 +747,8 @@ class ServingEngine:
         """The narrowest (obj, OCR) cell holding every real token of the
         group, as (cell, obj width | None, OCR width | None); records the
         per-sample needed-width histograms ladder_plan() reads."""
-        from ..evaluation.evaluator import needed_width
-
-        obj_needs = [needed_width(s["pad_obj_mask"]) for s in samples]
-        ocr_needs = [needed_width(s["pad_ocr_mask"]) for s in samples]
+        obj_needs = [s[PACKED].needs[_OBJ_NEED] for s in samples]
+        ocr_needs = [s[PACKED].needs[_OCR_NEED] for s in samples]
         with self.stats.lock:
             for n in obj_needs:
                 self.stats.obj_needed[n] = self.stats.obj_needed.get(n, 0) + 1
@@ -853,31 +880,30 @@ class ServingEngine:
             self._consumer.start()
         return self
 
-    def _validate(self, sample: Dict) -> Dict:
-        """Shape-check a request against the schema on the caller's thread
-        (one malformed request raises at ``submit`` instead of failing its
-        batch), normalize dtypes and, for the kernel backends, check that
-        its masks are prefix-contiguous."""
-        out = {}
+    def _prepare(self, sample: Dict) -> Dict:
+        """Check a request against the schema on the caller's thread (one
+        malformed request raises at ``submit`` instead of failing its
+        batch) and pack its arrays into its own record (``PACKED``), at
+        the schema's dtypes with the features cast; the kernel backends
+        need its masks prefix-contiguous. The OCR tokens are kept."""
+        arrays = []
         for k, (want_shape, want_dtype) in self._schema.items():
             if k not in sample:
                 raise KeyError(f"request missing {k!r}")
             arr = np.asarray(sample[k])
             if arr.shape != want_shape:
                 raise ValueError(f"request {k!r} has shape {arr.shape}, expected {want_shape}")
-            out[k] = np.array(arr, dtype=want_dtype)
-        if self._fixed_backend in KERNEL_STEP_BACKENDS:
-            check_prefix_masks(out[k] for k in MASK_KEYS)
+            if arr.dtype != want_dtype or not arr.flags.c_contiguous:
+                arr = np.ascontiguousarray(arr, want_dtype)
+            arrays.append(arr)
+        packed = self._layout.pack(arrays)
+        if self._fixed_backend in KERNEL_STEP_BACKENDS and not packed.prefix:
+            raise ValueError("the kernel decode backends need prefix-contiguous masks")
         if "ocr_tokens" not in sample:
             raise KeyError("request missing 'ocr_tokens'")
-        n_ocr = self._schema["pad_ocr_mask"][0][0]
-        out["ocr_tokens"] = ([str(t) for t in sample["ocr_tokens"]] + ["<pad>"] * n_ocr)[:n_ocr]
-        return out
-
-    def _prepare(self, sample: Dict) -> Dict:
-        """A validated request with its features cast to the compute dtype
-        (CPU tensors; the OCR tokens kept)."""
-        return cast_features_for_transfer(self._validate(sample), self.model.dtype)
+        n_ocr = self._layout.n_ocr
+        return {PACKED: packed,
+                "ocr_tokens": ([str(t) for t in sample["ocr_tokens"]] + ["<pad>"] * n_ocr)[:n_ocr]}
 
     def submit(self, sample: Dict) -> Future:
         """Enqueue one request; resolves to ``{"answer", "belongs_to",
@@ -1008,11 +1034,13 @@ class ServingEngine:
                     with self.spans("serve.stack", batch=seq):
                         cell, obj_w, ocr_w = self._route_widths(samples)
                         host = self._stack(samples, bucket, obj_w, ocr_w, slot)
+                    stack_bytes = sum(v.nbytes for v in host.values())
                     # device work inside: timed in memory only, never a profiler range
                     with self.spans("serve.launch", batch=seq, profiled=False):
                         pred_ids, done = self._launch(cell, bucket, obj_w, ocr_w, host, slot)
                     self.spans.add("batches")
                     self.spans.add("requests", len(group))
+                    self.spans.add("stack_bytes", stack_bytes)
                     with self.stats.lock:
                         s = self.stats
                         s.batches += 1

@@ -720,8 +720,8 @@ def _graph_engine(dev, backend="mega", **kw):
     return task, engine
 
 
-def _narrow_requests(engine, task, n, seed, obj=4, ocr=3):
-    """``n`` prepared requests with at most ``obj`` / ``ocr`` real rows."""
+def _narrow_raw(task, n, seed, obj=4, ocr=3):
+    """``n`` requests with at most ``obj`` / ``ocr`` real rows."""
     from sam_textvqa_tpu_torch.serve import synthetic_requests
 
     out = []
@@ -729,8 +729,13 @@ def _narrow_requests(engine, task, n, seed, obj=4, ocr=3):
         for key, w in (("pad_obj_mask", obj), ("pad_ocr_mask", ocr)):
             s[key] = np.array(s[key])
             s[key][w:] = 0.0
-        out.append(engine._prepare(s))
+        out.append(s)
     return out
+
+
+def _narrow_requests(engine, task, n, seed, obj=4, ocr=3):
+    """``n`` prepared requests with at most ``obj`` / ``ocr`` real rows."""
+    return [engine._prepare(s) for s in _narrow_raw(task, n, seed, obj, ocr)]
 
 
 def _replayed_and_eager(engine, key, bucket, samples, slot=0):
@@ -771,7 +776,8 @@ def test_graph_back_to_back_batches_keep_their_answers(dev):
     through submit()."""
     task, engine = _graph_engine(dev, max_wait_ms=50.0)
     engine.warmup()
-    batches = [_narrow_requests(engine, task, 4, seed=s) for s in (1, 2, 3)]
+    raw = [_narrow_raw(task, 4, seed=s) for s in (1, 2, 3)]
+    batches = [[engine._prepare(s) for s in r] for r in raw]
     want = [_replayed_and_eager(engine, (4, 3), 4, b)[1] for b in batches]
     assert not torch.equal(want[0], want[1])
     cell = engine._routing.grid[(4, 3)]
@@ -783,7 +789,7 @@ def test_graph_back_to_back_batches_keep_their_answers(dev):
         done.synchronize()
         assert torch.equal(ids, w)
     with engine:
-        futs = engine.submit_many([s for b in batches[:2] for s in b])
+        futs = engine.submit_many([s for r in raw[:2] for s in r])
         got = [f.result(timeout=60)["answer"] for f in futs]
     words = engine.answer_vocab.word_list
     ref = [d["pred_answer"] for w, b in zip(want[:2], batches[:2]) for d in decode_predictions(
@@ -802,7 +808,7 @@ def test_graph_engine_spans_stay_off_the_device_rows(dev, tmp_path):
 
     task, engine = _graph_engine(dev, max_wait_ms=20.0)
     engine.warmup()
-    samples = _narrow_requests(engine, task, 8, seed=4)
+    samples = _narrow_raw(task, 8, seed=4)
     with engine:
         with trace(str(tmp_path)):
             assert all(f.result(timeout=60) for f in engine.submit_many(samples))
@@ -832,7 +838,7 @@ def test_graph_replays_count_their_launches(dev):
     before = engine.graph_counts()["launches"]
     cuda_build.reset_launch_counts()
     with engine:
-        for f in engine.submit_many(_narrow_requests(engine, task, 9, seed=4)):
+        for f in engine.submit_many(_narrow_raw(task, 9, seed=4)):
             f.result(timeout=60)
     launches = cuda_build.launch_counts()
     after = engine.graph_counts()["launches"]

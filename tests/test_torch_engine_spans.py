@@ -4,7 +4,8 @@
 
 * Every span name appears; ``serve.submit`` and ``serve.queue`` count one
   per request, the batch stages one per batch; durations are non-negative
-  and sum, per thread, to at most the wall time.
+  and sum, per thread, to at most the wall time; ``stack_bytes`` counts
+  the served rows' bytes.
 * ``stall_ms`` stays 0 while the batcher's timed gets return on time (a
   fake clock) and rises when a get returns late (a real sleep).
 * With no profiler running no span enters a profiler range; under
@@ -43,7 +44,7 @@ BATCHER = ("serve.wait_requests", "serve.coalesce", "serve.slot_wait", "serve.st
 CONSUMER = ("serve.ids_wait", "serve.answer")
 #: ranges a profiler sees (serve.launch and serve.queue never enter one)
 PROFILED = ("serve.submit",) + tuple(n for n in BATCHER if n != "serve.launch") + CONSUMER
-COUNTERS = ("batches", "requests", "slow_copies", "stall_ms")
+COUNTERS = ("batches", "requests", "stack_bytes", "slow_copies", "stall_ms")
 
 
 def _tool():
@@ -95,6 +96,10 @@ def test_every_span_counts_once_per_request_or_batch(tiny):
     for thread in (("serve.submit",), BATCHER, CONSUMER):
         assert sum(spans[name]["total_s"] for name in thread) <= wall, thread
     assert counters["stall_ms"] >= 0 and counters["slow_copies"] == 0
+    # every served row at full width: the bytes of a batch of one, per row
+    row_bytes = sum(t.nbytes for t in engine._stack([engine._prepare(samples[0])], 1).values())
+    rows = sum(b * c for b, c in engine.stats.occupancy.items())
+    assert counters["stack_bytes"] == rows * row_bytes
     summary = engine.spans.summary()
     assert summary["spans"]["serve.stack"]["count"] == batches
     assert summary["spans"]["serve.answer"]["p95_ms"] >= summary["spans"]["serve.answer"][
@@ -252,6 +257,7 @@ def _delta():
     spans.add("stall_ms", 6.0)
     spans.add("batches", 1)
     spans.add("requests", 3)
+    spans.add("stack_bytes", 4e6)
     delta = spans_delta(Spans(counters=COUNTERS).snapshot(), spans.snapshot())
     delta["seconds"] = 2.0
     return delta
@@ -266,11 +272,13 @@ def test_tool_reads_the_engine_metrics():
     assert got["serve.answer_ms_p50"] == pytest.approx(0.2)
     assert got["serve.stall_ms_per_s"] == pytest.approx(3.0)
     assert (got["batches"], got["requests"], got["slow_copies"]) == (1, 3, 0)
+    assert got["stack_bytes"] == 4e6 and got["stack_gb_per_s"] == pytest.approx(10.0)
     empty = {"spans": {}, "counters": {}, "seconds": 1.0}
     assert tool.engine_readings(empty)["serve.stack_ms_p50"] is None
+    assert tool.engine_readings(empty)["stack_gb_per_s"] is None
     costs = {"span_us": 1.0, "record_us": 0.5, "add_us": 0.25}
-    # 8 x 1.5 + (2 waits + 6) x 1 + launch 0.3 + 2 x 0.25
-    assert tool.cost_per_batch(_delta(), costs, 8, 0.3) == pytest.approx(20.8)
+    # 8 x 1.5 + (2 waits + 6) x 1 + launch 0.3 + 3 x 0.25
+    assert tool.cost_per_batch(_delta(), costs, 8, 0.3) == pytest.approx(21.05)
 
 
 def test_tool_splits_the_idle_time():

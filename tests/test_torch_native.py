@@ -7,6 +7,10 @@ the JAX package's numpy paths, on the CPU:
 * the bf16 cast bit-equal to PyTorch's own cast over every high half (round
   down, ties, round up, infinities, every NaN payload), threaded or not,
   and through the prefetcher's host cast;
+* the serving records: a packed request's mask widths equal
+  ``needed_width`` and its prefix flag ``check_prefix_masks``'s verdict,
+  and a stacked batch equals ``shrink_ocr_batch`` then ``shrink_obj_batch``
+  over the stacked arrays at every width from 0 to full;
 * the build: into ``build/``, named by the source's hash, concurrent builds
   from several processes, and a failed build raises with the compiler's
   output.
@@ -27,6 +31,9 @@ from sam_textvqa_tpu.ops import phoc as jax_phoc
 from sam_textvqa_tpu.ops import spatial_graph as jax_spatial_graph
 from sam_textvqa_tpu_torch.data.prefetch import FEATURE_TRANSFER_KEYS, cast_features_for_transfer
 from sam_textvqa_tpu_torch.evaluation import metrics
+from sam_textvqa_tpu_torch.evaluation.evaluator import (needed_width, shrink_obj_batch,
+                                                         shrink_ocr_batch)
+from sam_textvqa_tpu_torch.models.fast_decode import check_prefix_masks
 from sam_textvqa_tpu_torch.ops import batcher, host_build, phoc, spatial_graph
 from test_torch_model import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -133,6 +140,99 @@ def test_prefetch_host_cast_equals_torch():
         assert got[k].dtype == want.dtype, k
         assert torch.equal(got[k].view(torch.int16) if k in FEATURE_TRANSFER_KEYS else got[k],
                            want.view(torch.int16) if k in FEATURE_TRANSFER_KEYS else want), k
+
+
+def _masks(rng, n):
+    """Masks of ``n`` slots: empty, full, prefixes, gaps, and values that
+    are nonzero but not > 0 (negative, NaN)."""
+    out = [np.zeros(n, np.float32), np.ones(n, np.float32)]
+    for _ in range(12):
+        m = (np.arange(n) < rng.randint(0, n + 1)).astype(np.float32)
+        if rng.rand() < 0.5:
+            m[rng.randint(0, n)] = rng.choice([1.0, 0.0, -1.0, np.nan, 0.5])
+        out.append(m)
+    return out
+
+
+def test_pack_reads_mask_widths_and_prefixes():
+    """``needs`` equals ``needed_width`` of each mask, ``prefix`` is False
+    exactly where ``check_prefix_masks`` raises; the fields land at their
+    offsets, cast or copied."""
+    rng = np.random.RandomState(6)
+    fields = [batcher.Field("feat", (7, 3), np.float32, torch.bfloat16),
+              batcher.Field("m_a", (9,), np.float32, torch.float32),
+              batcher.Field("ids", (5,), np.int32, torch.int32),
+              batcher.Field("m_b", (4,), np.float32, torch.float32)]
+    layout = batcher.RecordLayout(fields, n_obj=9, n_ocr=4, masks=("m_a", "m_b"))
+    for m_a, m_b in zip(_masks(rng, 9), _masks(rng, 4)):
+        feat = rng.randn(7, 3).astype(np.float32)
+        ids = rng.randint(-5, 5, 5).astype(np.int32)
+        p = layout.pack([feat, m_a, ids, m_b])
+        assert p.needs == (needed_width(m_a), needed_width(m_b))
+        try:
+            check_prefix_masks([m_a, m_b])
+            ok = True
+        except ValueError:
+            ok = False
+        assert p.prefix == ok, (m_a, m_b)
+        staged = layout.staged(1, 9, 4)
+        layout.stack([p], staged)
+        t = staged.tensors
+        assert torch.equal(t["feat"][0].view(torch.int16),
+                           torch.from_numpy(feat).to(torch.bfloat16).view(torch.int16))
+        np.testing.assert_array_equal(t["m_a"][0].numpy().view(np.int32), m_a.view(np.int32))
+        np.testing.assert_array_equal(t["ids"][0].numpy(), ids)
+    with pytest.raises(ValueError, match="C-contiguous"):
+        layout.pack([feat.T.copy().T, m_a, ids, m_b])
+    with pytest.raises(ValueError, match="float32"):
+        layout.pack([feat, m_a.astype(np.float64), ids, m_b])
+
+
+@pytest.mark.parametrize("obj_w,ocr_w", [(6, 4), (0, 4), (6, 0), (3, 2), (0, 0), (6, 1)])
+def test_stack_cuts_like_the_shrink_helpers(obj_w, ocr_w, monkeypatch):
+    """Records of a small layout stacked at an (obj_w, ocr_w) cell, on one
+    thread and on three, equal the full-width stack cut by
+    ``shrink_ocr_batch`` then ``shrink_obj_batch``; pad rows repeat row 0."""
+    n_obj, n_ocr, bucket = 6, 4, 5
+    fields = [batcher.Field("question_mask", (3,), np.float32, torch.float32),
+              batcher.Field("pad_obj_features", (n_obj, 2), np.float32, torch.bfloat16,
+                            batcher.OBJ_ROWS),
+              batcher.Field("pad_obj_mask", (n_obj,), np.float32, torch.float32,
+                            batcher.OBJ_ROWS),
+              batcher.Field("pad_obj_bboxes", (n_obj, 5), np.float32, torch.float32,
+                            batcher.OBJ_ROWS),
+              batcher.Field("pad_ocr_features", (n_ocr, 3), np.float32, torch.float32,
+                            batcher.OCR_ROWS),
+              batcher.Field("pad_ocr_mask", (n_ocr,), np.float32, torch.float32,
+                            batcher.OCR_ROWS),
+              batcher.Field("pad_ocr_bboxes", (n_ocr, 5), np.float32, torch.float32,
+                            batcher.OCR_ROWS),
+              batcher.Field("ocr_fasttext", (n_ocr, 2), np.float32, torch.bfloat16,
+                            batcher.OCR_ROWS),
+              batcher.Field("ocr_phoc", (n_ocr, 1), np.float32, torch.float32,
+                            batcher.OCR_ROWS),
+              batcher.Field("spatial_classes", (n_obj + n_ocr,) * 2, np.int8, torch.int8,
+                            batcher.PAIRS)]
+    layout = batcher.RecordLayout(fields, n_obj, n_ocr)
+    rng = np.random.RandomState(obj_w * 10 + ocr_w)
+    rows = [[(rng.randn(*f.shape) * 10).astype(f.dtype) for f in fields] for _ in range(3)]
+    full = layout.staged(bucket, n_obj, n_ocr)
+    layout.stack([layout.pack(r) for r in rows], full)
+    want = shrink_obj_batch(shrink_ocr_batch(full.tensors, n_obj, ocr_w), n_obj, obj_w)
+    assert torch.equal(full.tensors["spatial_classes"][3], full.tensors["spatial_classes"][0])
+    for threads in ("1", "3"):
+        monkeypatch.setenv(batcher.THREADS_ENV, threads)
+        cell = layout.staged(bucket, obj_w, ocr_w)
+        wrote = layout.stack([layout.pack(r) for r in rows], cell)
+        assert wrote == sum(t.nbytes for t in cell.tensors.values())
+        for f in fields:
+            got, w = cell.tensors[f.key], want[f.key]
+            assert got.shape == w.shape and got.dtype == w.dtype, f.key
+            assert torch.equal(got, w), f.key
+    with pytest.raises(ValueError, match="records for a bucket"):
+        layout.stack([layout.pack(rows[0])] * 6, cell)
+    with pytest.raises(ValueError, match="outside"):
+        layout.staged(bucket, n_obj + 1, 0)
 
 
 def test_edit_distance_native_equals_python_and_jax():

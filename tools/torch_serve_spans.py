@@ -6,7 +6,8 @@
 
 Builds the cell as ``benchmark/run.py`` does (configuration, traffic mix,
 weights and requests from the seed, the warmed ``ServingEngine``) and
-offers the cell's rate. Over the window's untraced part it reads the
+drives it with the cell's traffic (its fixed rate or its closed-loop
+clients). Over the window's untraced part it reads the
 engine's spans (``engine.spans``): the median queue, stack, launch and
 answer ms, ``stall_ms`` per second and the counters. The window's last
 ``trace_slice_s`` seconds are profiled on every thread and reduced as the
@@ -47,15 +48,19 @@ def span_p50_ms(delta: Dict, name: str) -> Optional[float]:
 
 
 def engine_readings(delta: Dict) -> Dict:
-    """The per-layer readings of a window's ``spans_delta``."""
+    """The per-layer readings of a window's ``spans_delta``, and the stack
+    pass's host bandwidth (``stack_bytes`` over ``serve.stack``'s time)."""
     c = delta["counters"]
+    stack_s = delta["spans"].get("serve.stack", {}).get("total_s", 0.0)
     return {"serve.queue_ms_p50": span_p50_ms(delta, "serve.queue"),
             "serve.stack_ms_p50": span_p50_ms(delta, "serve.stack"),
             "serve.launch_ms_p50": span_p50_ms(delta, "serve.launch"),
             "serve.answer_ms_p50": span_p50_ms(delta, "serve.answer"),
             "serve.stall_ms_per_s": c.get("stall_ms", 0) / delta["seconds"],
             "batches": c.get("batches", 0), "requests": c.get("requests", 0),
-            "slow_copies": c.get("slow_copies", 0)}
+            "slow_copies": c.get("slow_copies", 0), "stack_bytes": c.get("stack_bytes", 0),
+            "stack_gb_per_s": c["stack_bytes"] / stack_s / 1e9
+            if c.get("stack_bytes") and stack_s else None}
 
 
 def idle_split(trace: Dict) -> Optional[Dict]:
@@ -102,12 +107,12 @@ def cost_per_batch(delta: Dict, costs: Dict[str, float], rows: int, launch_us: f
     """Host us the spans cost a batch of ``rows`` requests: per request a
     ``serve.submit`` span and a ``serve.queue`` record; per batch the
     window's ``serve.wait_requests`` spans per batch, six more spans, the
-    ``serve.launch`` span (``launch_us``: never a profiler range) and two
+    ``serve.launch`` span (``launch_us``: never a profiler range) and three
     counter adds."""
     batches = max(delta["counters"].get("batches", 0), 1)
     waits = delta["spans"].get("serve.wait_requests", {}).get("count", 0) / batches
     return (rows * (costs["span_us"] + costs["record_us"]) + (waits + 6) * costs["span_us"]
-            + launch_us + 2 * costs["add_us"])
+            + launch_us + 3 * costs["add_us"])
 
 
 def main(argv=None) -> int:
@@ -142,7 +147,7 @@ def main(argv=None) -> int:
     engine, _, samples, _ = bench_serve.build(ctx)
     order = np.random.RandomState(bench_serve.sub_seed(args.seed, "order")).permutation(
         len(samples))
-    loop = bench_serve.OpenLoop(engine, samples, traffic["arrivals"]["rate_per_s"], order).start()
+    loop = bench_serve.arrivals(engine, samples, traffic, order).start()
     time.sleep(traffic["warmup_s"])
     slice_s = min(traffic["trace_slice_s"], args.seconds / 2)
     before = engine.spans.snapshot()
